@@ -1,0 +1,93 @@
+"""Carry inputs, filter state and configs over from the reference package.
+
+The metering path has no learned weights: what crosses from ``repro`` is
+its engine inputs, its Kalman state, its telemetry and its configs.  Every
+function here takes plain numpy arrays (``np.asarray(jax_array)``) or plain
+fields, never a reference object, so this module imports nothing of the
+reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.disaggregation import DisaggregationConfig
+from repro_torch.core.engine.types import EngineConfig, FleetInputs
+from repro_torch.core.kalman import KalmanConfig, KalmanState
+from repro_torch.core.profiler import ProfilerConfig, Telemetry
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+#: The reference's gram backends and their twins here.
+_BACKENDS = {"auto": "auto", "xla": "einsum", "pallas": "kernel"}
+
+
+def _f32(x, dev):
+    return None if x is None else torch.tensor(np.asarray(x, np.float32), device=dev)
+
+
+def fleet_inputs_from_numpy(
+    c, w, a, lat_sum, lat_sumsq, mask=None, fn_mask=None,
+    *, device: str | torch.device = DEFAULT_DEVICE,
+) -> FleetInputs:
+    """``FleetInputs`` on ``device`` from the reference's numpy arrays."""
+    dev = resolve_device(device)
+    return FleetInputs(*(_f32(x, dev) for x in (c, w, a, lat_sum, lat_sumsq, mask, fn_mask)))
+
+
+def kalman_state_from_numpy(
+    x, p, seen, lat_mean, lat_m2, lat_count,
+    *, device: str | torch.device = DEFAULT_DEVICE,
+) -> KalmanState:
+    """``KalmanState`` on ``device`` (``seen`` as bool, the rest float32)."""
+    dev = resolve_device(device)
+    return KalmanState(
+        x=_f32(x, dev), p=_f32(p, dev),
+        seen=torch.as_tensor(np.asarray(seen, bool), device=dev),
+        lat_mean=_f32(lat_mean, dev), lat_m2=_f32(lat_m2, dev),
+        lat_count=_f32(lat_count, dev),
+    )
+
+
+def telemetry_from_numpy(
+    system_power, chip_power, idle_watts: float, cp_cpu_frac, sys_cpu_frac,
+    *, device: str | torch.device = DEFAULT_DEVICE,
+) -> Telemetry:
+    """``Telemetry`` on ``device``; ``None`` series stay ``None``."""
+    dev = resolve_device(device)
+    return Telemetry(
+        system_power=_f32(system_power, dev),
+        chip_power=_f32(chip_power, dev),
+        idle_watts=float(idle_watts),
+        cp_cpu_frac=_f32(cp_cpu_frac, dev),
+        sys_cpu_frac=_f32(sys_cpu_frac, dev),
+    )
+
+
+def config_from_reference_fields(cls: type, fields: dict):
+    """Rebuild a config of this package from the reference's fields.
+
+    ``cls`` is ``KalmanConfig``, ``DisaggregationConfig``, ``EngineConfig``
+    or ``ProfilerConfig``; ``fields`` is ``dataclasses.asdict`` of the
+    reference's config of the same name (nested configs as nested dicts).
+    ``EngineConfig.backend`` maps ``xla`` to ``einsum`` and ``pallas`` to
+    ``kernel``.
+    """
+    if cls not in (KalmanConfig, DisaggregationConfig, EngineConfig, ProfilerConfig):
+        raise ValueError(f"no reference twin for {cls!r}")
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(fields) - names
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    kw = dict(fields)
+    if "kalman" in kw and isinstance(kw["kalman"], dict):
+        kw["kalman"] = config_from_reference_fields(KalmanConfig, kw["kalman"])
+    if "disagg" in kw and isinstance(kw["disagg"], dict):
+        kw["disagg"] = config_from_reference_fields(DisaggregationConfig, kw["disagg"])
+    if cls is EngineConfig and "backend" in kw:
+        if kw["backend"] not in _BACKENDS:
+            raise ValueError(f"unknown reference backend {kw['backend']!r}")
+        kw["backend"] = _BACKENDS[kw["backend"]]
+    return cls(**kw)

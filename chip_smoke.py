@@ -6,24 +6,40 @@
 Phases (any failure exits non-zero; nothing is caught and carried on past):
 
 1. Device and build: requires CUDA, prints the card's name and power limit,
-   switches TF32 off, builds the CUDA kernel from ``src/repro_torch`` with
-   nvcc and prints the build time and ptxas report.
-2. Kernel parity: the CUDA ``disagg_gram`` against its plain PyTorch
-   version on the card, at the main path's shapes, the kernel docstring's M
-   range and ragged shapes; per shape the kernel's, the plain version's and
-   ``torch.bmm``'s device times (cold L2) and the memory/compute bound.
-3. Main path: the paper's Table 2 functions (7 + the control-plane
-   principal, M = 8) on 64 server nodes x 1800 s (paper §6 segments, delta
-   1 s, N_init 100, N_K 60, so S = 28): simulate the fleet, profile it with
-   ``fleet_profile_batched`` (64 footprint reports), then build the same
-   fleet's engine inputs and run ``run_fleet_gram`` (backend "auto": the
-   kernel assembles the X_0 gram and every step's gram) against
-   ``run_fleet``.  Kernel launch counts are zeroed just before this phase
-   and read just after.
-   Each of the two engine calls is then replayed under torch.profiler for
-   its device busy and idle share.
-4. Small-input agreement: the same profiling on 3 nodes x 300 s on the card
-   and on the CPU.
+   switches TF32 off, builds all four CUDA kernels from ``src/repro_torch``
+   at once (one nvcc each) and prints each one's ptxas report.
+2. Kernel parity: each CUDA kernel against its plain PyTorch version on
+   the card, at its main path's shapes and at ragged ones, in bf16 and fp32
+   for the attention and RMSNorm kernels; per shape the kernel's, the plain
+   version's and one PyTorch library call's device times (cold L2) and the
+   memory/compute bound.
+3. Fleet metering path: the paper's Table 2 functions (7 + the
+   control-plane principal, M = 8) on 64 server nodes x 1800 s (paper §6
+   segments, delta 1 s, N_init 100, N_K 60, so S = 28) through
+   ``fleet_profile_batched`` and ``run_fleet_gram`` (the ``disagg_gram``
+   kernel) against ``run_fleet``; replayed under torch.profiler; then the
+   same profiling on 3 nodes x 300 s on the card and on the CPU.
+4. Serving path: internlm2-1.8b at its full published width (random
+   weights from a seeded generator, bf16 compute) serves 24 requests of two
+   function classes (chat: batch 8, prompt 512, 64 tokens; summarize: batch
+   2, prompt 4096, 16 tokens; 2:1) through ``MeteredServer`` and the flash
+   and decode attention kernels; the measured trace is metered by the
+   simulated telemetry and ``FaasMeterProfiler`` and priced.
+5. RMSNorm path: ``ops.rmsnorm`` (the kernel) on the served model's final
+   hidden states, against the model's plain ``rms_norm``.
+6. Model consistency at full width: fp32 prefill vs full forward (2e-3)
+   and one decode step vs the full forward over the extended sequence
+   (5e-3), through the kernels; then 16 greedy steps with the kernels
+   against the plain versions patched into ``ops`` here: equal tokens in
+   fp32, and in bf16 the logits' distance from fp32 compute for both.
+7. Trace: one warm chat and one warm summarize request under
+   torch.profiler: device busy, idle share, top kernels; then each class
+   with the decode kernel's split-KV plan against one slice per
+   (sequence, KV head), alternating.
+
+Each path's kernel launch counts are zeroed just before it and read just
+after; while the fleet and serving paths run, the plain versions are
+watched, and a CUDA tensor reaching one fails the run.
 
 Output: one line per measurement, then a ``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
@@ -44,16 +60,37 @@ import torch
 
 SRC = Path(__file__).resolve().parent / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth and
-# fp32 rate outside the tensor cores (the kernel uses plain fp32 FMAs).
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
+# the fp32 rate outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 B_NODES, DURATION_S, PLATFORM = 64, 1800.0, "server"
 N_INIT, N_K = 100, 60  # ProfilerConfig defaults (paper §6)
 S_STEPS = (int(DURATION_S) - N_INIT) // N_K
 MAIN_SHAPES = [(B_NODES * S_STEPS, N_K, 8), (B_NODES, N_INIT, 8)]  # step hoist, X_0
 PARITY_SHAPES = MAIN_SHAPES + [(64, 1800, 64), (8, 1000, 256), (4, 1, 5), (6, 197, 5), (16, 130, 17)]
+
+# Serving path: internlm2-1.8b (24 layers, 16 heads, 8 KV heads, head_dim
+# 128, d_model 2048) as two function classes on one set of weights.
+ARCH = "internlm2-1.8b"
+CLASSES = {
+    f"{ARCH}/chat": dict(batch=8, prompt=512, steps=64),
+    f"{ARCH}/summarize": dict(batch=2, prompt=4096, steps=16),
+}
+SCHEDULE = [f"{ARCH}/chat", f"{ARCH}/chat", f"{ARCH}/summarize"] * 8  # 24 requests, 2:1
+H, HKV, HD, D_MODEL = 16, 8, 128, 2048
+# Kernel shapes of that path (flash: B, S, T, H, Hkv, d, causal; decode: B,
+# S_max, lengths; RMSNorm: rows, d).  Decode is listed at each class's last
+# step, the longest cache it reads.
+FLASH_MAIN = [(8, 512, 512, H, HKV, HD, True), (2, 4096, 4096, H, HKV, HD, True)]
+FLASH_RAGGED = [(1, 100, 333, H, HKV, HD, True), (2, 77, 77, H, HKV, HD, True),
+                (1, 130, 130, H, HKV, HD, False), (3, 1000, 1000, H, 4, HD, True), (2, 45, 45, 4, 1, 64, True)]
+DECODE_MAIN = [(8, 576, (575,) * 8), (2, 4112, (4111,) * 2)]
+DECODE_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129)), (3, 1000, (1, 999, 500))]
+RMS_MAIN = [(8 * 512, D_MODEL)]
+RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL)]
 
 
 def log(msg: str) -> None:
@@ -99,13 +136,23 @@ def device_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def phase_build(ds) -> float:
+def phase_build() -> float:
+    """Compile every kernel at once (one nvcc each), then load each."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import decode_attention, disagg_solve, flash_attention, rmsnorm
+
     t0 = time.perf_counter()
-    ptxas = ds.build()
+    logs = kbuild.compile_all(list(KERNELS))
+    for mod in (disagg_solve, flash_attention, decode_attention, rmsnorm):
+        mod.build()
     dt = time.perf_counter() - t0
-    for line in ptxas.strip().splitlines():
-        log(f"  nvcc: {line.strip()}")
-    log(f"build: disagg_gram.cu -> sm_90a in {dt:.2f} s")
+    for name in KERNELS:
+        for line in logs[name].strip().splitlines():
+            if "ptxas info" in line and ("registers" in line or "Compiling" in line or "spill" in line) \
+                    or "bytes stack frame" in line:
+                log(f"  nvcc {name}: {line.strip()}")
+    log(f"build: {', '.join(f'{k}.cu' for k in KERNELS)} -> sm_90a in {dt:.2f} s (parallel)")
     return dt
 
 
@@ -329,17 +376,405 @@ def phase_small_agreement() -> float:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Attention and RMSNorm kernels
+# ---------------------------------------------------------------------------
+
+
+def _elem(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """(bound in ms, what bounds it): bytes over the HBM rate against
+    operations over the peak rate of the inputs' type."""
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_work(b, s, t, h, hkv, d, causal, dtype):
+    """(bytes, flops): q, k, v read once and out written once; 2 * 2 * d
+    flops per live (q, k) pair (QK^T and PV), counting only the pairs the
+    causal mask (offset T - S) leaves live."""
+    if causal:
+        live = sum(max(0, min(t, i + t - s + 1)) for i in range(s))
+    else:
+        live = s * t
+    nbytes = _elem(dtype) * (2 * b * s * h * d + 2 * b * t * hkv * d)
+    return nbytes, 4.0 * b * h * live * d
+
+
+def decode_work(b, h, hkv, d, lengths, dtype):
+    """(bytes, flops): q read and out written once, the K and V rows below
+    each length read once (the rest of the cache is never touched), the
+    lengths; 2 * 2 * d flops per (query head, live key)."""
+    live = sum(lengths)
+    nbytes = _elem(dtype) * (2 * b * h * d + 2 * live * hkv * d) + 4 * b
+    return nbytes, 4.0 * h * live * d
+
+
+def rms_work(rows, d, dtype):
+    """(bytes, flops): x read once, out written once, gamma (fp32) read
+    once; ~4 flops per element (square-add, scale, gain)."""
+    return _elem(dtype) * 2 * rows * d + 4 * d, 4.0 * rows * d
+
+
+def _record(rows, key, err, tol, t_kernel, t_plain, t_lib, work, dtype, label):
+    bound, by = _bound(*work, dtype)
+    rows[key] = dict(err=err, ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=by)
+    lib = "n/a" if t_lib is None else f"{t_lib:.5f}"
+    log(
+        f"parity {label}: max_abs_err={err:.3e} (tol {tol:g}) kernel_ms={t_kernel:.5f} "
+        f"plain_ms={t_plain:.5f} library_ms={lib} bound_us={bound * 1e3:.3f} ({by})"
+    )
+
+
+def _tol(dtype) -> float:
+    # fp32: the same fp32 sums in another order (the reference's 2e-5).
+    # bf16: both round an fp32 result to bf16 once; outputs up to ~4 differ
+    # by at most one bf16 step (2^-7 there) where the orders straddle a
+    # rounding boundary (the reference's own bf16 tolerance, 2e-2).
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+def _check(got, want, tol, what) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=lambda m: f"{what}: {m}")
+    return err
+
+
+def phase_attention_parity(ref) -> dict:
+    """The flash, decode and RMSNorm kernels against their plain versions
+    (and a library call) at the serving path's shapes and ragged ones."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    rows: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol, tag = _tol(dtype), str(dtype).split(".")[1]
+        for b, s, t, h, hkv, d, causal in FLASH_MAIN + FLASH_RAGGED:
+            q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = _check(got, ref.flash_attention(q, k, v, causal), tol, "flash_attention")
+            reps = 5 if s * t > 2**22 else 25
+            t_kernel = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps)
+            t_plain = device_ms(lambda: ref.flash_attention(q, k, v, causal), reps)
+            t_lib = None
+            if s == t or not causal:  # SDPA's causal mask is not offset by T - S
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                t_lib = device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
+            _record(rows, ("flash_attention", (b, s, t, h, hkv, d, causal), tag), err, tol, t_kernel, t_plain,
+                    t_lib, flash_work(b, s, t, h, hkv, d, causal, dtype), dtype,
+                    f"flash {tag} B={b} S={s} T={t} H={h} Hkv={hkv} d={d} causal={causal}")
+        for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED:
+            q = rnd(b, H, HD, dtype=dtype)
+            kc, vc = rnd(b, smax, HKV, HD, dtype=dtype), rnd(b, smax, HKV, HD, dtype=dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            got = da.decode_attention(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            err = _check(got, ref.decode_attention(q, kc, vc, lens), tol, "decode_attention")
+            t_kernel = device_ms(lambda: da.decode_attention(q, kc, vc, lens))
+            t_plain = device_ms(lambda: ref.decode_attention(q, kc, vc, lens))
+            qt, kt, vt = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+            mask = (torch.arange(smax, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+            t_lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            _record(rows, ("decode_attention", (b, smax, lengths), tag), err, tol, t_kernel, t_plain, t_lib,
+                    decode_work(b, H, HKV, HD, lengths, dtype), dtype,
+                    f"decode {tag} B={b} S_max={smax} lengths={list(lengths)}")
+        for n, d in RMS_MAIN + RMS_RAGGED:
+            x, g = rnd(n, d, dtype=dtype), rnd(d, dtype=torch.float32)
+            got = rn.rmsnorm(x, g)
+            torch.cuda.synchronize()
+            tol_rms = 1e-5 if dtype == torch.float32 else 2e-2  # the reference's RMSNorm tolerances
+            err = _check(got, ref.rmsnorm(x, g), tol_rms, "rmsnorm")
+            g_lib = g.to(dtype)
+            t_kernel = device_ms(lambda: rn.rmsnorm(x, g))
+            t_plain = device_ms(lambda: ref.rmsnorm(x, g))
+            t_lib = device_ms(lambda: F.rms_norm(x, (d,), g_lib, 1e-5))
+            _record(rows, ("rmsnorm", (n, d), tag), err, tol_rms, t_kernel, t_plain, t_lib,
+                    rms_work(n, d, dtype), dtype, f"rmsnorm {tag} rows={n} d={d}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Serving path
+# ---------------------------------------------------------------------------
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def build_model(device="cuda", reduced=False):
+    """internlm2-1.8b (full width unless ``reduced``): fp32 masters from a
+    seeded generator on ``device``, and the bf16 compute copy (norm gains
+    fp32)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build
+    from repro_torch.models.common import cast_params, materialize
+
+    api = build(get_config(ARCH, reduced=reduced))
+    t0 = time.perf_counter()
+    masters = materialize(api.params_def, torch.Generator(device=device).manual_seed(0), torch.float32)
+    params = cast_params(masters, torch.bfloat16)
+    _sync(device)
+    n = sum(p.numel() for p in params.parameters())
+    log(f"model {api.cfg.name}: {n:,} parameters, {api.cfg.num_layers} layers, d_model {api.cfg.d_model}, "
+        f"vocab {api.cfg.padded_vocab} (padded); init {time.perf_counter() - t0:.2f} s")
+    return api, masters, params
+
+
+def phase_serving(api, params, classes=CLASSES, schedule=SCHEDULE, device="cuda"):
+    """Serve the schedule through MeteredServer, meter and price the trace."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.serve import meter_trace, random_batch
+    from repro_torch.serving.control_plane import MeteredServer
+    from repro_torch.serving.engine import ServeEngine
+
+    rng = np.random.default_rng(0)
+    server = MeteredServer()
+    for name, c in classes.items():
+        shape = ShapeConfig(name, c["prompt"], c["batch"], "prefill")
+        server.register(name, ServeEngine(api, shape, params), random_batch(api, shape, rng, device),
+                        steps=c["steps"])
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trace = server.serve([(name, 0.0) for name in schedule], duration=60.0)
+    serve_s = time.perf_counter() - t0
+    report, prices = meter_trace(server, trace, device=device)
+    _sync(device)
+    total = float(report.spectrum.j_indiv.sum()) + report.cp_energy + report.idle_energy
+    eff = abs(float(report.spectrum.j_total.sum()) - total) / total
+    return dict(server=server, trace=trace, report=report, prices=prices, serve_s=serve_s, eff=eff,
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan"))
+
+
+def report_serving(out, classes=CLASSES) -> dict:
+    """Per class: warm latency, prefill and decode tokens/s (a separate
+    prefill-only timing of the same batch), J/inv and usd/inv."""
+    server, trace, report, prices = out["server"], out["trace"], out["report"], out["prices"]
+    lat = trace.end - trace.start
+    stats = {}
+    for i, name in enumerate(server.order):
+        engine, batch, steps = server.functions[name]
+        c = classes[name]
+        warm = lat[trace.fn_id == i]
+        pre = []
+        for _ in range(3):
+            engine.prefill(batch)
+            pre.append(engine.records[-1].latency)
+        pre_s = statistics.median(pre)
+        decode_s = float(np.mean(warm)) - pre_s
+        stats[name] = dict(
+            requests=int(warm.size), first_s=float(warm[0]), mean_s=float(np.mean(warm)), p95_s=float(np.quantile(warm, 0.95)),
+            prefill_s=pre_s, prefill_tok_s=c["batch"] * c["prompt"] / pre_s,
+            decode_tok_s=c["batch"] * (steps - 1) / decode_s,
+            j_inv=float(report.spectrum.per_invocation[i]), usd_inv=float(prices["total_usd_per_inv"][i]),
+        )
+        st = stats[name]
+        log(
+            f"serve {name}: requests={st['requests']} warm_latency mean_s={st['mean_s']:.4f} "
+            f"p95_s={st['p95_s']:.4f} prefill_s={pre_s:.4f} prefill_tok_s={st['prefill_tok_s']:.1f} "
+            f"decode_tok_s={st['decode_tok_s']:.1f} J_inv={st['j_inv']:.3f} usd_inv={st['usd_inv']:.3e}"
+        )
+    log(f"serve: {trace.num_invocations} requests in {out['serve_s']:.2f} s (2 cold starts included); "
+        f"footprint efficiency rel err {out['eff']:.3e}; total_error={report.total_error:.4f}; "
+        f"max_memory_allocated {out['peak_gb']:.2f} GiB")
+    return stats
+
+
+def phase_rmsnorm_path(api, params, hidden: list):
+    """``ops.rmsnorm`` (the kernel on the card) on the served model's final
+    hidden states, against the plain ``rms_norm`` the model's final norm
+    uses."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import rms_norm
+
+    errs = []
+    for h in hidden:
+        got = ops.rmsnorm(h, params["ln_f"], api.cfg.norm_eps)
+        _sync(h.device)
+        errs.append(_check(got, rms_norm(h, params["ln_f"], api.cfg.norm_eps), 2e-2, "rmsnorm path"))
+    return max(errs)
+
+
+def final_hidden(api, params, classes=CLASSES, device="cuda") -> list:
+    """Each class's final hidden states (before ln_f) over its served prompt."""
+    from repro_torch.models.transformer import _positions, decoder_hidden, embed_tokens
+
+    out = []
+    rng = np.random.default_rng(0)  # the prompts phase_serving drew
+    with torch.no_grad():
+        for c in classes.values():
+            tokens = torch.as_tensor(rng.integers(0, api.cfg.vocab_size, size=(c["batch"], c["prompt"])),
+                                     dtype=torch.int32, device=device)
+            h = embed_tokens(params, tokens, api.cfg)
+            out.append(decoder_hidden(params, h, _positions(*tokens.shape, device), api.cfg)[0])
+    return out
+
+
+def phase_consistency(api, masters, params, ref, device="cuda") -> None:
+    """The reference's serving invariant at full width in fp32 through the
+    kernels, then bf16 with the kernels against bf16 with the plain versions."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, extend_cache
+    from repro_torch.models.transformer import decoder_train
+
+    cfg32 = dataclasses.replace(api.cfg, compute_dtype="float32")
+    api32 = build(cfg32)
+    rng = np.random.default_rng(1)
+    b, s = 2, 64
+    tokens = torch.as_tensor(rng.integers(0, cfg32.vocab_size, size=(b, s)), dtype=torch.int32, device=device)
+    tok = torch.as_tensor(rng.integers(0, cfg32.vocab_size, size=(b, 1)), dtype=torch.int32, device=device)
+    with torch.no_grad():
+        logits_pf, cache = api32.prefill(masters, {"tokens": tokens})
+        full = decoder_train(masters, tokens, cfg32)[0][:, -1]
+        cache = extend_cache(api32, cache, 4)
+        logits_dec, _ = api32.decode(masters, cache, tok, s)
+        full2 = decoder_train(masters, torch.cat([tokens, tok], dim=1), cfg32)[0][:, -1]
+    torch.testing.assert_close(logits_pf[:, 0], full, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(logits_dec[:, 0], full2, atol=5e-3, rtol=5e-3)
+    log(f"consistency fp32 full width: prefill vs forward max_abs {float((logits_pf[:, 0] - full).abs().max()):.3e} "
+        f"(2e-3), decode vs forward max_abs {float((logits_dec[:, 0] - full2).abs().max()):.3e} (5e-3), "
+        f"logit scale {float(full2.abs().max()):.3f}")
+
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.serving.engine import ServeEngine
+
+    shape = ShapeConfig("check", 128, 2, "prefill")
+    engine, engine32 = ServeEngine(api, shape, params), ServeEngine(api32, shape, masters)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, api.cfg.vocab_size, size=(2, 128)),
+                                       dtype=torch.int32, device=device)}
+    steps = 16
+    with torch.no_grad():
+        logits_k, _ = api.prefill(params, batch)
+    toks_k, toks32_k = engine.generate(batch, steps), engine32.generate(batch, steps)
+    flash, decode = ops.flash_attention, ops.decode_attention
+    ops.flash_attention = lambda q, k, v, *, causal=True, q_block=512, kv_block=1024: ref.flash_attention(
+        q, k, v, causal, q_block, kv_block)
+    ops.decode_attention = lambda q, kc, vc, lengths, *, kv_block=2048: ref.decode_attention(q, kc, vc, lengths)
+    try:
+        with torch.no_grad():
+            logits_p, _ = api.prefill(params, batch)
+        toks_p, toks32_p = engine.generate(batch, steps), engine32.generate(batch, steps)
+    finally:
+        ops.flash_attention, ops.decode_attention = flash, decode
+    # fp32 compute: the kernels and the plain versions differ only in the
+    # order of fp32 sums, so the greedy tokens must agree.
+    assert torch.equal(toks32_k, toks32_p), (toks32_k, toks32_p)
+    log(f"consistency fp32 greedy tokens, kernels vs plain: {toks32_k.numel()}/{toks32_k.numel()} equal")
+    with torch.no_grad():
+        logits_32, _ = api32.prefill(masters, batch)  # the same prompt in fp32 compute
+    agree = int((toks_k == toks_p).sum())
+    same = (toks_k == toks_p).all(dim=0)
+    first = int((~same).nonzero()[0]) if not bool(same.all()) else steps
+    gap = lambda x: float((x.float() - logits_32).abs().max())
+    log(f"consistency bf16 kernels vs plain: prefill logits max_abs {float((logits_k - logits_p).float().abs().max()):.3e} "
+        f"(scale {float(logits_p.float().abs().max()):.3f}; bf16 vs fp32 compute: kernels {gap(logits_k):.3e}, "
+        f"plain {gap(logits_p):.3e}); greedy tokens equal {agree}/{toks_k.numel()}, "
+        f"identical for the first {first} of {steps} steps")
+
+
+
+def phase_split_ab(server, pairs: int = 3) -> None:
+    """Each class's warm request with the decode kernel's split-KV plan
+    against the same kernel forced to one slice per (sequence, KV head)
+    (its first design), alternating, in this one process and card."""
+    from repro_torch.kernels import decode_attention as da
+
+    auto = da.split_plan
+    single = lambda b, hkv, s_max, sms: (1, -(-s_max // da.TILE) * da.TILE)
+    for name in CLASSES:
+        engine, batch, steps = server.functions[name]
+        times: dict = {"split": [], "single": []}
+        for i in range(pairs):
+            for label in (("split", "single") if i % 2 == 0 else ("single", "split")):
+                da.split_plan = auto if label == "split" else single
+                try:
+                    t0 = time.perf_counter()
+                    engine.generate(batch, steps)
+                    times[label].append(time.perf_counter() - t0)
+                finally:
+                    da.split_plan = auto
+        log(f"decode split A/B {name}: split median_s={statistics.median(times['split']):.4f} "
+            f"single median_s={statistics.median(times['single']):.4f} "
+            f"(runs split {[round(t, 4) for t in times['split']]} single {[round(t, 4) for t in times['single']]})")
+
+
+def _watch_plain(ref, names):
+    """Wrap the named plain versions so each call records its device;
+    returns (calls, restore)."""
+    calls: list = []
+    saved = {n: getattr(ref, n) for n in names}
+
+    def wrap(n, fn):
+        def watched(x, *args, **kwargs):
+            calls.append((n, x.device.type))
+            return fn(x, *args, **kwargs)
+        return watched
+
+    for n, fn in saved.items():
+        setattr(ref, n, wrap(n, fn))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+
+    return calls, restore
+
+
+def _summary(name, replaces, launches, main, shapes):
+    """One kernel's entry of the ``kernels`` line: its main-path shapes'
+    rows summed (times, bounds) or maxed (error)."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["err"] for r in main),
+        "ms": sum(r["ms"] for r in main),
+        "plain_ms": sum(r["plain_ms"] for r in main),
+        "bound_ms": sum(r["bound_ms"] for r in main),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main) else "operations",
+        "library_ms": sum(r["library_ms"] for r in main),
+        "shapes": json.loads(json.dumps(shapes)),  # tuples as lists
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     try:
+        from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import disagg_solve as ds
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ref
+        from repro_torch.kernels import rmsnorm as rn
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port from {SRC}: {exc}", file=sys.stderr)
         return 2
+    counted = (ds.disagg_gram, fa.flash_attention, da.decode_attention, rn.rmsnorm)
+    plain_names = ("disagg_gram", "flash_attention", "decode_attention", "rmsnorm")
+
+    def zero_counts():
+        for fn in counted:
+            fn.launches = 0
 
     t_all = time.perf_counter()
     smi = nvidia_smi_line()
@@ -348,52 +783,92 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build_s = phase_build(ds)
+    build_s = phase_build()
+    t0 = time.perf_counter()
     rows = phase_kernel_parity(ds, ref)
+    arows = phase_attention_parity(ref)
+    log(f"phase kernel parity: {time.perf_counter() - t0:.1f} s")
 
-    # Main path: counts zeroed just before, read just after; the plain
-    # version is watched so a CUDA tensor provably never reaches it.
-    plain_calls = []
-    plain = ref.disagg_gram
-
-    def watched(c, w):
-        plain_calls.append(c.device.type)
-        return plain(c, w)
-
-    ref.disagg_gram = watched
-    ds.disagg_gram.launches = 0
+    # Fleet metering path: counts zeroed just before, read just after; the
+    # plain versions are watched so a CUDA tensor provably never reaches one.
+    t0 = time.perf_counter()
+    plain_calls, restore = _watch_plain(ref, plain_names)
+    zero_counts()
     try:
         main_out, replays = phase_main_path("cuda")
     finally:
-        ref.disagg_gram = plain
-    launches = ds.disagg_gram.launches
-    assert launches == 2, f"run_fleet_gram should launch disagg_gram twice (X_0 + step hoist), got {launches}"
-    assert "cuda" not in plain_calls, plain_calls
+        restore()
+    gram_launches = ds.disagg_gram.launches
+    assert gram_launches == 2, f"run_fleet_gram should launch disagg_gram twice (X_0 + step hoist), got {gram_launches}"
+    assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
     assert main_out["gram_vs_raw_max_abs"] <= 5e-5 * max(1.0, main_out["x_final_max"]), main_out
     for k, v in main_out.items():
         log(f"main_path {k}: {v}")
-    log(f"main_path disagg_gram launches: {launches}")
-
+    log(f"main_path disagg_gram launches: {gram_launches}")
     phase_trace(replays)
-
     worst = phase_small_agreement()
     log(f"small fleet card vs cpu: max rel diff {worst:.3e}")
+    log(f"phase fleet path: {time.perf_counter() - t0:.1f} s")
 
-    main_rows = [rows[s] for s in MAIN_SHAPES]
-    kernels = [{
-        "name": "disagg_gram",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/disagg_gram.cu",
-        "replaces": "src/repro/kernels/disagg_solve.py:84",
-        "launches": launches,
-        "max_abs_err": max(r["err"] for r in main_rows),
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": sum(r["bound_ms"] for r in main_rows),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main_rows) else "operations",
-        "library_ms": sum(r["library_ms"] for r in main_rows),
-        "shapes": [list(s) for s in MAIN_SHAPES],
-    }]
+    # Serving path: same discipline.
+    t0 = time.perf_counter()
+    api, masters, params = build_model()
+    plain_calls, restore = _watch_plain(ref, plain_names)
+    zero_counts()
+    try:
+        serve_out = phase_serving(api, params)
+    finally:
+        restore()
+    flash_launches, decode_launches = fa.flash_attention.launches, da.decode_attention.launches
+    assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
+    layers = api.cfg.num_layers
+    prefills = len(SCHEDULE) + len(CLASSES)  # every request + each class's cold start
+    decode_steps = sum(CLASSES[n]["steps"] - 1 for n in SCHEDULE)
+    assert flash_launches == layers * prefills, (flash_launches, layers, prefills)
+    assert decode_launches == layers * decode_steps, (decode_launches, layers, decode_steps)
+    assert serve_out["eff"] <= 1e-5, serve_out["eff"]
+    log(f"serve launches: flash_attention {flash_launches} = {layers} layers x {prefills} prefills; "
+        f"decode_attention {decode_launches} = {layers} layers x {decode_steps} decode steps")
+    stats = report_serving(serve_out)
+    log(f"phase serving path: {time.perf_counter() - t0:.1f} s")
+
+    # RMSNorm path: ops.rmsnorm on the served model's final hidden states.
+    hidden = final_hidden(api, params)
+    plain_calls, restore = _watch_plain(ref, plain_names)
+    zero_counts()
+    try:
+        rms_err = phase_rmsnorm_path(api, params, hidden)
+    finally:
+        restore()
+    rms_launches = rn.rmsnorm.launches
+    assert rms_launches == len(hidden), rms_launches
+    assert not plain_calls, plain_calls
+    log(f"rmsnorm path: {rms_launches} launches on final hidden states "
+        f"{[tuple(h.shape) for h in hidden]}, max_abs_err vs plain {rms_err:.3e}")
+    del hidden
+
+    t0 = time.perf_counter()
+    phase_consistency(api, masters, params, ref)
+    log(f"phase consistency: {time.perf_counter() - t0:.1f} s")
+
+    server = serve_out["server"]
+    replays = {}
+    for name in CLASSES:
+        engine, batch, steps = server.functions[name]
+        replays[f"serve {name}"] = (lambda e=engine, b=batch, n=steps: e.generate(b, n), stats[name]["first_s"])
+    phase_trace(replays)
+    phase_split_ab(server)
+
+    kernels = [
+        _summary("disagg_gram", "src/repro/kernels/disagg_solve.py:84", gram_launches,
+                 [rows[k] for k in MAIN_SHAPES], MAIN_SHAPES),
+        _summary("flash_attention", "src/repro/kernels/flash_attention.py:134", flash_launches,
+                 [arows[("flash_attention", k, "bfloat16")] for k in FLASH_MAIN], FLASH_MAIN),
+        _summary("decode_attention", "src/repro/kernels/decode_attention.py:119", decode_launches,
+                 [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN),
+        _summary("rmsnorm", "src/repro/kernels/rmsnorm.py:52", rms_launches,
+                 [arows[("rmsnorm", k, "bfloat16")] for k in RMS_MAIN], RMS_MAIN),
+    ]
     log(f"build_s {build_s:.2f} total_s {time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
-"""Carry inputs, filter state and configs over from the reference package.
+"""Carry inputs, filter state, configs and model weights over from the
+reference package.
 
-The metering path has no learned weights: what crosses from ``repro`` is
-its engine inputs, its Kalman state, its telemetry and its configs.  Every
+What crosses from ``repro`` is the metering path's engine inputs, Kalman
+state, telemetry and configs, and the model zoo's parameter trees.  Every
 function here takes plain numpy arrays (``np.asarray(jax_array)``) or plain
 fields, never a reference object, so this module imports nothing of the
 reference.
@@ -91,3 +92,41 @@ def config_from_reference_fields(cls: type, fields: dict):
             raise ValueError(f"unknown reference backend {kw['backend']!r}")
         kw["backend"] = _BACKENDS[kw["backend"]]
     return cls(**kw)
+
+
+def params_from_numpy(
+    tree: dict,
+    cfg,
+    *,
+    device: str | torch.device = DEFAULT_DEVICE,
+    dtype: torch.dtype | None = None,
+):
+    """The port's model parameters from the reference's parameter tree.
+
+    ``tree`` is the reference's ``materialize(api.params_def, key)`` as
+    nested dicts of numpy arrays (``np.asarray`` of each leaf), per-layer
+    leaves stacked along a leading (L, ...) axis.  Every leaf is checked
+    against the port's own declaration of ``cfg``'s parameters, moved to
+    ``device`` and cast to ``dtype`` (default: ``cfg.compute_dtype``; norm
+    gains stay fp32), and the stacked layers become the per-layer
+    ``ParamTree`` the port's forward pass loops over.
+    """
+    from repro_torch.models.common import load_params
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.transformer import compute_dtype
+
+    dev = resolve_device(device)
+    spec = build(cfg).params_def
+
+    def check(spec_node, node, path):
+        if isinstance(spec_node, dict):
+            if not isinstance(node, dict) or set(node) != set(spec_node):
+                raise ValueError(f"{path or 'params'}: keys {sorted(node) if isinstance(node, dict) else node!r} "
+                                 f"!= the declaration's {sorted(spec_node)}")
+            return {k: check(spec_node[k], node[k], f"{path}/{k}") for k in spec_node}
+        arr = np.asarray(node, np.float32)
+        if arr.shape != tuple(spec_node.shape):
+            raise ValueError(f"{path}: shape {arr.shape} != the declaration's {spec_node.shape}")
+        return torch.tensor(arr, device=dev)
+
+    return load_params(check(spec, tree, ""), dtype or compute_dtype(cfg))

@@ -1,9 +1,18 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-- ``disagg_solve`` -- CUDA ``disagg_gram`` (``csrc/disagg_gram.cu``), the
+- ``disagg_solve``     -- CUDA ``disagg_gram`` (``csrc/disagg_gram.cu``), the
   gram assembly of the fleet engine, plus its NNLS/ridge solve wrappers.
-- ``ops``          -- device dispatch: kernel on CUDA, plain version on CPU.
-- ``ref``          -- the plain versions.
+- ``flash_attention``  -- CUDA forward GQA attention for prefill
+  (``csrc/flash_attention.cu``).
+- ``decode_attention`` -- CUDA single-token attention against a KV cache
+  (``csrc/decode_attention.cu``).
+- ``rmsnorm``          -- CUDA fused RMSNorm (``csrc/rmsnorm.cu``).
+- ``build``            -- the one ``nvcc`` + ``ctypes`` build and load path.
+- ``ops``              -- device dispatch: kernel on CUDA, plain version on CPU.
+- ``ref``              -- the plain versions.
 
 Kernels are built at first use, never at import.
 """
+
+#: Every kernel source under ``csrc/``, in the order ``chip_smoke.py`` lists them.
+KERNELS = ("disagg_gram", "flash_attention", "decode_attention", "rmsnorm")

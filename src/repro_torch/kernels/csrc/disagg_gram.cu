@@ -23,7 +23,7 @@
 // plain fp32 FMAs and no tensor cores. wgmma, TMA and a SYRK-style upper-triangle
 // tile order are left for a later, measured change.
 //
-// Built by repro_torch/kernels/disagg_solve.py with
+// Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound through ctypes (plain C interface below).
 

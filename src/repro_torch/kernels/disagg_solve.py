@@ -4,10 +4,10 @@ normal-equation assembly for the disaggregation solve (Eq. 1).
 The Hopper twin of the reference's Pallas kernel
 (``repro/kernels/disagg_solve.py::disagg_gram``).  The source is
 ``csrc/disagg_gram.cu``; it is compiled for ``sm_90a`` with ``nvcc`` at
-first use into ``kernels/build/`` (a content-hashed ``.so``, so an edited
-source is rebuilt) and bound through ``ctypes``.  Nothing is compiled or
-loaded at import time: the CPU tests import this module on machines with
-no ``nvcc``.
+first use into ``kernels/build/`` by ``kernels/build.py`` (a
+content-hashed ``.so``, so an edited source is rebuilt) and bound through
+``ctypes``.  Nothing is compiled or loaded at import time: the CPU tests
+import this module on machines with no ``nvcc``.
 
 ``disagg_gram`` launches the kernel on CUDA tensors and raises on anything
 else; the device dispatch that sends CPU tensors to the plain version is
@@ -18,29 +18,12 @@ launches, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "disagg_gram.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from repro_torch.kernels.build import check_launch, load_library, stream_of
 
 _fn = None  # the loaded C entry point, set by ``build``
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build disagg_gram")
-    return nvcc
 
 
 def build() -> str:
@@ -50,21 +33,8 @@ def build() -> str:
     global _fn
     if _fn is not None:
         return ""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"disagg_gram_{digest}.so"
-    log = ""
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a partial file
-        log = proc.stdout + proc.stderr
-    fn = ctypes.CDLL(str(lib_path)).disagg_gram_f32
+    lib, log = load_library("disagg_gram")
+    fn = lib.disagg_gram_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
@@ -101,10 +71,9 @@ def disagg_gram(c: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.T
         with torch.cuda.device(c.device):
             err = _fn(
                 c3.data_ptr(), w2.data_ptr(), gram.data_ptr(), rhs.data_ptr(),
-                g, n, m, torch.cuda.current_stream(c.device).cuda_stream,
+                g, n, m, stream_of(c),
             )
-        if err != 0:
-            raise RuntimeError(f"disagg_gram kernel launch failed: cudaError {err}")
+        check_launch("disagg_gram", err)
         disagg_gram.launches += 1
     return gram.reshape(lead + (m, m)), rhs.reshape(lead + (m,))
 

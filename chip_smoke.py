@@ -6,13 +6,19 @@
 Phases (any failure exits non-zero; nothing is caught and carried on past):
 
 1. Device and build: requires CUDA, prints the card's name and power limit,
-   switches TF32 off, builds all four CUDA kernels from ``src/repro_torch``
-   at once (one nvcc each) and prints each one's ptxas report.
+   switches TF32 off, builds every CUDA source of ``src/repro_torch`` at
+   once (one nvcc each), prints each one's build time and ptxas report,
+   and counts the tensor-core flash kernel's ``HGMMA`` and ``UTMALDG``
+   instructions in its SASS (``cuobjdump``): none, or no ``cuobjdump``,
+   fails the run.
 2. Kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at its main path's shapes and at ragged ones, in bf16 and fp32
    for the attention and RMSNorm kernels; per shape the kernel's, the plain
    version's and one PyTorch library call's device times (cold L2) and the
-   memory/compute bound.
+   memory/compute bound.  Flash in bf16 at d 64/128 is the tensor-core
+   kernel.  bf16 attention outputs are held per row against the reference
+   row's scale, and at the main shapes a planted one-key-tile fault must
+   fail that check.
 3. Fleet metering path: the paper's Table 2 functions (7 + the
    control-plane principal, M = 8) on 64 server nodes x 1800 s (paper §6
    segments, delta 1 s, N_init 100, N_K 60, so S = 28) through
@@ -31,14 +37,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    and one decode step vs the full forward over the extended sequence
    (5e-3), through the kernels; then 16 greedy steps with the kernels
    against the plain versions patched into ``ops`` here: equal tokens in
-   fp32, and in bf16 the logits' distance from fp32 compute for both.
+   fp32, and in bf16 the logits' distance from fp32 compute for both (the
+   kernels' at most 1.5x the plain versions').
 7. Trace: one warm chat and one warm summarize request under
    torch.profiler: device busy, idle share, top kernels; then each class
    with the decode kernel's split-KV plan against one slice per
    (sequence, KV head), alternating.
 
 Each path's kernel launch counts are zeroed just before it and read just
-after; while the fleet and serving paths run, the plain versions are
+after (every bf16 flash launch of the serving path must be a tensor-core
+one); while the fleet and serving paths run, the plain versions are
 watched, and a CUDA tensor reaching one fails the run.
 
 Output: one line per measurement, then a ``{"kernels": [...]}`` JSON line,
@@ -49,6 +57,7 @@ the ``nvidia-smi`` name/power-limit line, and as the last line
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -85,12 +94,19 @@ H, HKV, HD, D_MODEL = 16, 8, 128, 2048
 # S_max, lengths; RMSNorm: rows, d).  Decode is listed at each class's last
 # step, the longest cache it reads.
 FLASH_MAIN = [(8, 512, 512, H, HKV, HD, True), (2, 4096, 4096, H, HKV, HD, True)]
+# Ragged flash shapes against the tensor-core kernel's 128-row query and
+# 128-key tiles: S and T not tile multiples, S < T, S > T (rows with no live
+# key give 0), not causal, groups 1, 2 and 4, d 64 and 128, grids of fewer
+# blocks than SMs (B * H * ceil(S / 128) = 16 for the first); d 32 stays on
+# the FMA kernel in bf16 too.
 FLASH_RAGGED = [(1, 100, 333, H, HKV, HD, True), (2, 77, 77, H, HKV, HD, True),
-                (1, 130, 130, H, HKV, HD, False), (3, 1000, 1000, H, 4, HD, True), (2, 45, 45, 4, 1, 64, True)]
+                (1, 130, 130, H, HKV, HD, False), (3, 1000, 1000, H, 4, HD, True), (2, 45, 45, 4, 1, 64, True),
+                (1, 300, 200, H, HKV, HD, True), (2, 150, 40, 4, 4, 64, True), (1, 300, 200, 8, 2, 64, False),
+                (1, 200, 200, 8, 8, 64, True), (2, 45, 45, 4, 2, 32, True)]
 DECODE_MAIN = [(8, 576, (575,) * 8), (2, 4112, (4111,) * 2)]
 DECODE_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129)), (3, 1000, (1, 999, 500))]
 RMS_MAIN = [(8 * 512, D_MODEL)]
-RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL)]
+RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL), (1001, 4096), (4096, 4096)]
 
 
 def log(msg: str) -> None:
@@ -136,23 +152,53 @@ def device_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
+def _cuobjdump() -> str:
+    """cuobjdump from the CUDA toolkit, or the copy in Triton's package."""
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(found).exists():
+        return found
+    try:
+        import triton
+    except ImportError:
+        triton = None
+    if triton is not None:
+        bundled = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if bundled.exists():
+            return str(bundled)
+    raise RuntimeError("no cuobjdump (PATH, /usr/local/cuda/bin, triton/backends/nvidia/bin): cannot read the SASS")
+
+
 def phase_build() -> float:
-    """Compile every kernel at once (one nvcc each), then load each."""
+    """Compile every kernel at once (one nvcc each, each timed), load each,
+    and check that the tensor-core flash kernel's SASS holds wgmma (HGMMA)
+    and TMA loads (UTMALDG)."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import decode_attention, disagg_solve, flash_attention, rmsnorm
 
     t0 = time.perf_counter()
-    logs = kbuild.compile_all(list(KERNELS))
+    built = kbuild.compile_all(list(KERNELS))
     for mod in (disagg_solve, flash_attention, decode_attention, rmsnorm):
         mod.build()
     dt = time.perf_counter() - t0
     for name in KERNELS:
-        for line in logs[name].strip().splitlines():
+        nvcc_log, secs = built[name]
+        log(f"  nvcc {name}.cu: {secs:.2f} s")
+        for line in nvcc_log.strip().splitlines():
             if "ptxas info" in line and ("registers" in line or "Compiling" in line or "spill" in line) \
-                    or "bytes stack frame" in line:
+                    or "bytes stack frame" in line or "warning" in line:
                 log(f"  nvcc {name}: {line.strip()}")
     log(f"build: {', '.join(f'{k}.cu' for k in KERNELS)} -> sm_90a in {dt:.2f} s (parallel)")
+    sass = subprocess.run([_cuobjdump(), "-sass", str(kbuild.library_path("flash_attention_tc"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"sass flash_attention_tc: {counts}")
+    assert all(counts.values()), f"the tensor-core flash kernel's SASS lacks wgmma or TMA loads: {counts}"
+    for d in flash_attention.TC_HEAD_DIMS:
+        plan = flash_attention.tc_plan(*FLASH_MAIN[-1][:5], d)
+        assert flash_attention.tc_smem_bytes(d) == plan["smem_bytes"], (d, plan["smem_bytes"])
+    log(f"flash tc plan at summarize: grid {plan['grid']} x {plan['threads']} threads, "
+        f"{plan['smem_bytes']} B dynamic shared memory, {sum(plan['key_tiles'])} key tiles per (batch, head)")
     return dt
 
 
@@ -420,13 +466,16 @@ def rms_work(rows, d, dtype):
     return _elem(dtype) * 2 * rows * d + 4 * d, 4.0 * rows * d
 
 
-def _record(rows, key, err, tol, t_kernel, t_plain, t_lib, work, dtype, label):
+def _record(rows, key, err, tol, t_kernel, t_plain, t_lib, work, dtype, label, **more):
+    """One parity row; ``more`` holds the variant that ran and the errors
+    over the row RMS (``err_rms``, ``planted_err_rms``)."""
     bound, by = _bound(*work, dtype)
-    rows[key] = dict(err=err, ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=by)
+    rows[key] = dict(err=err, ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=by, **more)
     lib = "n/a" if t_lib is None else f"{t_lib:.5f}"
+    extra = "".join(f" {k}={v:.3e}" if isinstance(v, float) else f" {k}={v}" for k, v in more.items())
     log(
         f"parity {label}: max_abs_err={err:.3e} (tol {tol:g}) kernel_ms={t_kernel:.5f} "
-        f"plain_ms={t_plain:.5f} library_ms={lib} bound_us={bound * 1e3:.3f} ({by})"
+        f"plain_ms={t_plain:.5f} library_ms={lib} bound_us={bound * 1e3:.3f} ({by}){extra}"
     )
 
 
@@ -434,14 +483,55 @@ def _tol(dtype) -> float:
     # fp32: the same fp32 sums in another order (the reference's 2e-5).
     # bf16: both round an fp32 result to bf16 once; outputs up to ~4 differ
     # by at most one bf16 step (2^-7 there) where the orders straddle a
-    # rounding boundary (the reference's own bf16 tolerance, 2e-2).
+    # rounding boundary (the reference's own bf16 tolerance, 2e-2); bf16
+    # attention rows are also held to 2e-2 of their RMS (``_check``).
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
-def _check(got, want, tol, what) -> float:
-    err = float((got.float() - want.float()).abs().max())
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=lambda m: f"{what}: {m}")
+def _check(got, want, tol, what, rows=False) -> float:
+    """Max |got - want|, after asserting |got - want| <= atol + tol |want|.
+    atol is ``tol``, or with ``rows`` (bf16 attention outputs) ``tol`` times
+    the RMS of the reference's row over the last axis, capped at 1: a long
+    row's outputs are ~1/sqrt(keys) small, so a fixed atol of 2e-2 would
+    pass a wrong key tile there.  Rounding P and the output to bf16 moves a
+    row by a few thousandths of its RMS."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if not rows:
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol, msg=lambda m: f"{what}: {m}")
+        return err
+    scale = w.square().mean(-1, keepdim=True).sqrt()
+    bad = ~(diff <= tol * scale.clamp(max=1.0) + tol * w.abs())  # NaN is bad
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} elements off by more than {tol:g} of "
+                             f"their row's RMS (capped at 1) plus {tol:g} of their value; max abs err {err:.3e}")
     return err
+
+
+def _row_err(got, want) -> float:
+    """Max |got - want| over the reference row's RMS (rows of RMS 0 must be
+    exact, which ``_check`` asserts)."""
+    w = want.float()
+    scale = w.square().mean(-1, keepdim=True).sqrt()
+    return float(((got.float() - w).abs() / scale.clamp(min=1e-30)).masked_fill(scale == 0, 0).max())
+
+
+def _planted_tile_fault(ref, q, k, v, want, tol) -> float:
+    """The bf16 check must catch one wrong key tile in long rows: the plain
+    version with key tile j = ceil(T / 128) - 2 (K and V) read from tile
+    j - 1's keys, as a kernel that reads the wrong ring stage once would
+    give; only rows that reach tile j see it.  Returns the fault's max
+    error over the row RMS; fails if ``_check`` passes it."""
+    j = -(-k.shape[1] // 128) - 2
+    kf, vf = k.clone(), v.clone()
+    kf[:, j * 128:(j + 1) * 128], vf[:, j * 128:(j + 1) * 128] = k[:, (j - 1) * 128:j * 128], v[:, (j - 1) * 128:j * 128]
+    faulty = ref.flash_attention(q, kf, vf, True)
+    try:
+        _check(faulty, want, tol, "planted fault", rows=True)
+    except AssertionError:
+        return _row_err(faulty, want)
+    raise AssertionError("the bf16 attention check passed a wrong key tile")
 
 
 def phase_attention_parity(ref) -> dict:
@@ -462,7 +552,14 @@ def phase_attention_parity(ref) -> dict:
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
             got = fa.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            err = _check(got, ref.flash_attention(q, k, v, causal), tol, "flash_attention")
+            want = ref.flash_attention(q, k, v, causal)
+            bf16 = dtype == torch.bfloat16
+            err = _check(got, want, tol, "flash_attention", rows=bf16)
+            more = dict(variant=fa.variant(dtype, d))
+            if bf16:
+                more["err_rms"] = _row_err(got, want)
+            if bf16 and (b, s, t, h, hkv, d, causal) in FLASH_MAIN:
+                more["planted_err_rms"] = _planted_tile_fault(ref, q, k, v, want, tol)
             reps = 5 if s * t > 2**22 else 25
             t_kernel = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps)
             t_plain = device_ms(lambda: ref.flash_attention(q, k, v, causal), reps)
@@ -473,14 +570,16 @@ def phase_attention_parity(ref) -> dict:
                     qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
             _record(rows, ("flash_attention", (b, s, t, h, hkv, d, causal), tag), err, tol, t_kernel, t_plain,
                     t_lib, flash_work(b, s, t, h, hkv, d, causal, dtype), dtype,
-                    f"flash {tag} B={b} S={s} T={t} H={h} Hkv={hkv} d={d} causal={causal}")
+                    f"flash {tag} B={b} S={s} T={t} H={h} Hkv={hkv} d={d} causal={causal}", **more)
         for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED:
             q = rnd(b, H, HD, dtype=dtype)
             kc, vc = rnd(b, smax, HKV, HD, dtype=dtype), rnd(b, smax, HKV, HD, dtype=dtype)
             lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             got = da.decode_attention(q, kc, vc, lens)
             torch.cuda.synchronize()
-            err = _check(got, ref.decode_attention(q, kc, vc, lens), tol, "decode_attention")
+            want = ref.decode_attention(q, kc, vc, lens)
+            err = _check(got, want, tol, "decode_attention", rows=dtype == torch.bfloat16)
+            more = dict(err_rms=_row_err(got, want)) if dtype == torch.bfloat16 else {}
             t_kernel = device_ms(lambda: da.decode_attention(q, kc, vc, lens))
             t_plain = device_ms(lambda: ref.decode_attention(q, kc, vc, lens))
             qt, kt, vt = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
@@ -488,7 +587,7 @@ def phase_attention_parity(ref) -> dict:
             t_lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
             _record(rows, ("decode_attention", (b, smax, lengths), tag), err, tol, t_kernel, t_plain, t_lib,
                     decode_work(b, H, HKV, HD, lengths, dtype), dtype,
-                    f"decode {tag} B={b} S_max={smax} lengths={list(lengths)}")
+                    f"decode {tag} B={b} S_max={smax} lengths={list(lengths)}", **more)
         for n, d in RMS_MAIN + RMS_RAGGED:
             x, g = rnd(n, d, dtype=dtype), rnd(d, dtype=torch.float32)
             got = rn.rmsnorm(x, g)
@@ -500,7 +599,8 @@ def phase_attention_parity(ref) -> dict:
             t_plain = device_ms(lambda: ref.rmsnorm(x, g))
             t_lib = device_ms(lambda: F.rms_norm(x, (d,), g_lib, 1e-5))
             _record(rows, ("rmsnorm", (n, d), tag), err, tol_rms, t_kernel, t_plain, t_lib,
-                    rms_work(n, d, dtype), dtype, f"rmsnorm {tag} rows={n} d={d}")
+                    rms_work(n, d, dtype), dtype, f"rmsnorm {tag} rows={n} d={d}",
+                    variant=rn.variant(dtype, d))
     return rows
 
 
@@ -686,6 +786,9 @@ def phase_consistency(api, masters, params, ref, device="cuda") -> None:
         f"(scale {float(logits_p.float().abs().max()):.3f}; bf16 vs fp32 compute: kernels {gap(logits_k):.3e}, "
         f"plain {gap(logits_p):.3e}); greedy tokens equal {agree}/{toks_k.numel()}, "
         f"identical for the first {first} of {steps} steps")
+    # The tensor-core flash kernel rounds P to bf16 before P V; that may add
+    # error beyond the plain version's fp32 P, but not half as much again.
+    assert gap(logits_k) <= 1.5 * gap(logits_p), (gap(logits_k), gap(logits_p))
 
 
 
@@ -736,13 +839,14 @@ def _watch_plain(ref, names):
     return calls, restore
 
 
-def _summary(name, replaces, launches, main, shapes):
+def _summary(name, replaces, launches, main, shapes, source=None):
     """One kernel's entry of the ``kernels`` line: its main-path shapes'
-    rows summed (times, bounds) or maxed (error)."""
-    return {
+    rows summed (times, bounds) or maxed (error); for a kernel with
+    variants, the one that ran."""
+    entry = {
         "name": name,
         "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "source": source or f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["err"] for r in main),
@@ -752,7 +856,11 @@ def _summary(name, replaces, launches, main, shapes):
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main) else "operations",
         "library_ms": sum(r["library_ms"] for r in main),
         "shapes": json.loads(json.dumps(shapes)),  # tuples as lists
+        "ms_per_shape": [r["ms"] for r in main],
     }
+    if "variant" in main[0]:
+        entry["variant"] = "+".join(sorted({r["variant"] for r in main}))
+    return entry
 
 
 def main() -> int:
@@ -775,6 +883,7 @@ def main() -> int:
     def zero_counts():
         for fn in counted:
             fn.launches = 0
+        fa.flash_attention.launches_tc = 0
 
     t_all = time.perf_counter()
     smi = nvidia_smi_line()
@@ -820,14 +929,17 @@ def main() -> int:
     finally:
         restore()
     flash_launches, decode_launches = fa.flash_attention.launches, da.decode_attention.launches
+    flash_tc = fa.flash_attention.launches_tc
     assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
     layers = api.cfg.num_layers
     prefills = len(SCHEDULE) + len(CLASSES)  # every request + each class's cold start
     decode_steps = sum(CLASSES[n]["steps"] - 1 for n in SCHEDULE)
     assert flash_launches == layers * prefills, (flash_launches, layers, prefills)
+    assert flash_tc == flash_launches, f"bf16 serving flash launches not on the tensor-core kernel: {flash_tc} of {flash_launches}"
     assert decode_launches == layers * decode_steps, (decode_launches, layers, decode_steps)
     assert serve_out["eff"] <= 1e-5, serve_out["eff"]
-    log(f"serve launches: flash_attention {flash_launches} = {layers} layers x {prefills} prefills; "
+    log(f"serve launches: flash_attention {flash_launches} = {layers} layers x {prefills} prefills "
+        f"({flash_tc} on the tensor-core kernel); "
         f"decode_attention {decode_launches} = {layers} layers x {decode_steps} decode steps")
     stats = report_serving(serve_out)
     log(f"phase serving path: {time.perf_counter() - t0:.1f} s")
@@ -863,7 +975,8 @@ def main() -> int:
         _summary("disagg_gram", "src/repro/kernels/disagg_solve.py:84", gram_launches,
                  [rows[k] for k in MAIN_SHAPES], MAIN_SHAPES),
         _summary("flash_attention", "src/repro/kernels/flash_attention.py:134", flash_launches,
-                 [arows[("flash_attention", k, "bfloat16")] for k in FLASH_MAIN], FLASH_MAIN),
+                 [arows[("flash_attention", k, "bfloat16")] for k in FLASH_MAIN], FLASH_MAIN,
+                 source="src/repro_torch/kernels/csrc/flash_attention_tc.cu"),
         _summary("decode_attention", "src/repro/kernels/decode_attention.py:119", decode_launches,
                  [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN),
         _summary("rmsnorm", "src/repro/kernels/rmsnorm.py:52", rms_launches,

@@ -2,7 +2,9 @@
 
 - ``disagg_solve``     -- CUDA ``disagg_gram`` (``csrc/disagg_gram.cu``), the
   gram assembly of the fleet engine, plus its NNLS/ridge solve wrappers.
-- ``flash_attention``  -- CUDA forward GQA attention for prefill
+- ``flash_attention``  -- CUDA forward GQA attention for prefill: the
+  tensor-core kernel for bf16 at d in {64, 128}
+  (``csrc/flash_attention_tc.cu``), the FMA kernel for the rest
   (``csrc/flash_attention.cu``).
 - ``decode_attention`` -- CUDA single-token attention against a KV cache
   (``csrc/decode_attention.cu``).
@@ -15,4 +17,4 @@ Kernels are built at first use, never at import.
 """
 
 #: Every kernel source under ``csrc/``, in the order ``chip_smoke.py`` lists them.
-KERNELS = ("disagg_gram", "flash_attention", "decode_attention", "rmsnorm")
+KERNELS = ("disagg_gram", "flash_attention", "flash_attention_tc", "decode_attention", "rmsnorm")

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -80,11 +81,17 @@ def load_library(name: str) -> tuple[ctypes.CDLL, str]:
     return lib, log
 
 
-def compile_all(names: list[str]) -> dict[str, str]:
+def compile_all(names: list[str]) -> dict[str, tuple[str, float]]:
     """Compile several kernels at once, one ``nvcc`` process each, all
-    started together.  Returns each one's nvcc output."""
+    started together.  Returns each one's nvcc output and the seconds its
+    build took."""
+
+    def timed(name: str) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        return compile_library(name), time.perf_counter() - t0
+
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        return dict(zip(names, pool.map(compile_library, names)))
+        return dict(zip(names, pool.map(timed, names)))
 
 
 def check_launch(name: str, err: int) -> None:

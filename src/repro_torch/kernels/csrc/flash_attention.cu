@@ -1,12 +1,16 @@
 // Forward GQA attention with a blocked online softmax (FlashAttention
 // semantics): out = softmax(Q K^T * scale, masked) V, for q (B, S, H, D) and
 // k, v (B, T, Hkv, D), fp32 or bf16 in, fp32 statistics, out in q's type.
+// It serves fp32 at every D and bf16 at D in {16, 32}; bf16 at D in
+// {64, 128} goes to the tensor-core kernel in flash_attention_tc.cu (the
+// wrapper, kernels/flash_attention.py, picks one before launch).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention (body _fa_kernel). That kernel walks a grid whose fourth,
-// sequential axis visits the kv blocks and carries (acc, m, l) in VMEM
-// scratch; its wrapper pads S and T up to the block sizes. Here blocks run in
-// parallel and in no order, so the kv loop lives inside the block:
+// flash_attention (body _fa_kernel) for those types. That kernel walks a
+// grid whose fourth, sequential axis visits the kv blocks and carries
+// (acc, m, l) in VMEM scratch; its wrapper pads S and T up to the block
+// sizes. Here blocks run in parallel and in no order, so the kv loop lives
+// inside the block:
 //
 //   grid   (ceil(S/64), H, B): one 64-row query tile of one head per block,
 //          the tiles nearest the causal diagonal's end launched first;
@@ -28,11 +32,10 @@
 // Bound on an H100: causal prefill at the serving shapes does 2 * 2 * d
 // flops per live (q, k) pair against reading Q, K, V and writing O once, far
 // above the card's ridge point at S = T >= 512: it is bound by operations.
-// This first kernel does its products with plain fp32 FMAs (no tensor cores;
+// This kernel does its products with plain fp32 FMAs (no tensor cores;
 // bf16 inputs are widened on read), which caps it near the 67 TFLOP/s fp32
-// rate, far from the 989 TFLOP/s bf16 tensor-core bound. mma.sync or wgmma
-// for the two products, cp.async / TMA double-buffering of the K and V
-// tiles, and a wider query tile are left for a later, measured change.
+// rate: the bound of its fp32 inputs, but far from the 989 TFLOP/s bf16
+// tensor-core bound, which is why bf16 at D in {64, 128} does not come here.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -232,16 +235,21 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b, int 
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if constexpr (sizeof(T) == 4) {  // bf16 at 64 and 128 is flash_attention_tc.cu's
+    switch (d) {
+      case 64: return launch<T, 64>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
+      case 128: return launch<T, 128>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D): contiguous,
-// 16-byte aligned, one element type; D in {16, 32, 64, 128}; H % Hkv == 0.
+// 16-byte aligned, one element type; D in {16, 32, 64, 128} for fp32 and
+// {16, 32} for bf16; H % Hkv == 0.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int b,
                                    int s, int t, int h, int hkv, int d, int causal, float scale,

@@ -46,7 +46,11 @@ def flash_attention(
     multiples, padded keys are masked, the causal mask is offset by T - S,
     and kv blocks past a q block's last live key are skipped.  The running
     (max, sum, accumulator) stay fp32; rows are normalised once at the end
-    with the ``max(l, 1e-30)`` floor.
+    with the ``max(l, 1e-30)`` floor.  A masked key's probability is 0, so a
+    query row with no live key (causal, S > T, rows before S - T) gives 0,
+    as both CUDA kernels do.  The reference's blocked versions give such a
+    row the mean of V over the key slots of the kv blocks they visit, which
+    depends on their block sizes; every other row is the same either way.
     """
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -78,7 +82,10 @@ def flash_attention(
                 live = live & (q_pos[:, None] >= k_pos[None, :])
             scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
             m_new = torch.maximum(m, scores.amax(dim=-1))
-            p = torch.exp(scores - m_new[..., None])
+            # A row with no live key yet still has the sentinel max: taken
+            # against 0 instead, its masked scores get probability 0.
+            m_exp = torch.where(m_new == NEG_INF, torch.zeros_like(m_new), m_new)
+            p = torch.exp(scores - m_exp[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p, vb[:, ki])

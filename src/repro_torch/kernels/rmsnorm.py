@@ -1,4 +1,4 @@
-"""CUDA fused RMSNorm: one pass of fp32 statistics per row.
+"""CUDA fused RMSNorm: fp32 statistics per row, streamed at the HBM rate.
 
 The Hopper twin of the reference's Pallas kernel
 (``repro/kernels/rmsnorm.py::rmsnorm``).  The source is ``csrc/rmsnorm.cu``,
@@ -8,6 +8,12 @@ kernel on CUDA tensors and raises on anything else; ``kernels.ops.rmsnorm``
 sends CPU tensors to the plain version.  Its ``launches`` attribute counts
 kernel launches.  As in the reference, the models call the plain
 ``models.common.rms_norm``; this kernel is reached through ``ops.rmsnorm``.
+
+Which loop serves a row (``variant``, as ``csrc/rmsnorm.cu`` chooses):
+``"row"`` holds the row in registers (d = 2048 in either type, d = 4096 in
+bf16), ``"vector"`` loops over 16-byte vectors, ``"scalar"`` over elements
+(rows whose bytes are not a multiple of 16).  Every variant runs on a
+persistent grid sized to the card's SM count.
 """
 
 from __future__ import annotations
@@ -19,6 +25,14 @@ import torch
 from repro_torch.kernels.build import check_launch, kernel_input, load_library, stream_of
 
 _fns: dict | None = None  # dtype -> loaded C entry point, set by ``build``
+ROW_LENGTHS = {torch.bfloat16: (2048, 4096), torch.float32: (2048,)}  # served with the row in registers
+
+
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The loop that serves rows of length ``d``: "row", "vector" or "scalar"."""
+    if (d * torch.empty((), dtype=dtype).element_size()) % 16:
+        return "scalar"
+    return "row" if d in ROW_LENGTHS.get(dtype, ()) else "vector"
 
 
 def build() -> str:
@@ -59,7 +73,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
     out = torch.empty_like(xf)
     rows = xf.numel() // d if d else 0
     if rows:
-        vec = int((d * xf.element_size()) % 16 == 0)  # both tensors are 16-byte aligned
+        vec = int(variant(x.dtype, d) != "scalar")  # both tensors are 16-byte aligned
         build()
         with torch.cuda.device(x.device):
             err = _fns[x.dtype](

@@ -278,6 +278,116 @@ def test_ops_routes_by_device(monkeypatch):
     assert seen == [("plain", "flash_attention"), ("plain", "decode_attention"), ("plain", "rmsnorm")]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_rows_without_live_keys(dtype):
+    """Causal with S > T: rows before S - T see no key.  The plain version
+    (as the CUDA kernels) gives them 0; every other row matches the Pallas
+    kernel in interpret mode and the dense oracle.  (The reference's blocked
+    versions give a dead row the mean of V over the kv slots they visit.)"""
+    jnp, _, ref_kernels, _ = _reference()
+    from repro.kernels.flash_attention import flash_attention as pallas_flash
+
+    jdt, tdt = _np_dtype_pair(dtype)
+    b, s, t, h, hkv, d = 2, 70, 40, 4, 2, 32
+    rng = np.random.default_rng(7)
+    q, k, v = (jnp.asarray(rng.standard_normal(shape), jdt) for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+    got = ref.flash_attention(*(_to_torch(x, tdt) for x in (q, k, v)), True, 16, 32).float().numpy()
+    want = np.asarray(pallas_flash(q, k, v, causal=True, q_block=16, kv_block=32, interpret=True), np.float32)
+    oracle = np.asarray(ref_kernels.attention_dense(q, k, v, causal=True), np.float32)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    for other in (want, oracle):
+        np.testing.assert_allclose(got[:, s - t:], other[:, s - t:], atol=tol, rtol=tol)
+    assert not got[:, : s - t].any()
+
+
+@pytest.mark.parametrize(
+    "dtype,d,kind",
+    [(torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 32, "fma"),
+     (torch.bfloat16, 16, "fma"), (torch.float32, 128, "fma"), (torch.float32, 64, "fma")],
+)
+def test_flash_variant_by_dtype_and_head_dim(dtype, d, kind):
+    """bf16 at d 64 and 128 takes the tensor-core kernel, everything else
+    the FMA kernel, and ``check_args`` returns the same choice."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.variant(dtype, d) == kind
+    q, kv = torch.zeros(1, 3, 4, d, dtype=dtype), torch.zeros(1, 5, 2, d, dtype=dtype)
+    assert fa.check_args(q, kv, kv) == kind
+
+
+@pytest.mark.parametrize(
+    "q_shape,kv_shape,dtypes,match",
+    [
+        ((1, 4, 2, 128), (1, 4, 1, 128), (torch.bfloat16,) * 3, "CUDA"),             # CPU tensors
+        ((1, 4, 2, 96), (1, 4, 1, 96), (torch.bfloat16,) * 3, "head_dim"),           # d 96
+        ((1, 4, 2, 128), (1, 4, 1, 128), (torch.bfloat16, torch.float32, torch.bfloat16), "one of"),  # mixed
+        ((1, 4, 2, 128), (1, 4, 1, 128), (torch.float16,) * 3, "one of"),            # fp16
+        ((1, 4, 3, 64), (1, 4, 2, 64), (torch.bfloat16,) * 3, "GQA"),                 # H % Hkv
+    ],
+)
+def test_flash_wrapper_refusals(q_shape, kv_shape, dtypes, match):
+    """The wrapper raises before any launch and counts nothing; the
+    tensor-core kernel refuses what it does not serve."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (torch.zeros(shape, dtype=dt) for shape, dt in zip((q_shape, kv_shape, kv_shape), dtypes))
+    before, before_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention(q, k, v)
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_tc) == (before, before_tc)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.tc_plan(1, 4, 4, 2, 1, 96)
+
+
+@pytest.mark.parametrize(
+    "b,s,t,h,hkv,d,causal",
+    [(2, 4096, 4096, 16, 8, 128, True), (8, 512, 512, 16, 8, 128, True), (1, 100, 333, 16, 8, 128, True),
+     (1, 300, 200, 16, 8, 128, True), (2, 150, 40, 4, 4, 64, True), (1, 130, 130, 4, 4, 64, False)],
+)
+def test_flash_tc_plan(b, s, t, h, hkv, d, causal):
+    """The tensor-core launch's geometry: one block per 128-row query tile
+    and head and batch, the key tiles each block walks (counted here pair
+    by pair), tensor maps whose byte strides are the tensors' own, and
+    shared memory for Q and a 3-stage K/V ring inside 227 KB."""
+    from repro_torch.kernels import flash_attention as fa
+
+    plan = fa.tc_plan(b, s, t, h, hkv, d, causal)
+    nq = -(-s // 128)
+    assert plan["grid"] == (nq, h, b) and plan["threads"] == 384
+    tiles = []
+    for qt in range(nq):
+        rows = range(qt * 128, min(qt * 128 + 128, s))
+        live = [kt for kt in range(-(-t // 128))
+                if any((not causal or kt * 128 <= r + t - s) and kt * 128 < t for r in rows)]
+        tiles.append(max(live) + 1 if live else 0)
+    assert plan["key_tiles"] == tiles[::-1]  # longest first
+    assert plan["key_tiles"] == sorted(plan["key_tiles"], reverse=True)
+    for name, (seq, heads, rows) in {"q": (s, h, 128), "k": (t, hkv, 128), "v": (t, hkv, 128)}.items():
+        m = plan["maps"][name]
+        x = torch.empty(b, seq, heads, d, dtype=torch.bfloat16, device="meta")
+        assert m["dims"] == (d, heads, seq, b)
+        assert m["strides"] == tuple(2 * st for st in reversed(x.stride()[:3]))
+        assert m["box"] == (64, 1, rows, 1) and m["box"][0] * 2 == 128  # one 128-byte swizzle row
+    assert plan["smem_bytes"] == (d // 64) * 128 * 128 * (1 + 2 * 3) + 1024 <= 232448
+
+
+@pytest.mark.parametrize(
+    "dtype,d,kind",
+    [(torch.bfloat16, 2048, "row"), (torch.bfloat16, 4096, "row"), (torch.float32, 2048, "row"),
+     (torch.float32, 4096, "vector"), (torch.bfloat16, 128, "vector"), (torch.bfloat16, 33, "scalar"),
+     (torch.float32, 6, "scalar")],
+)
+def test_rmsnorm_variant(dtype, d, kind):
+    """Rows of 2048 (and 4096 in bf16) are held in registers, other
+    16-byte rows loop over vectors, the rest over elements; the launch
+    refuses CPU tensors."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    assert rn.variant(dtype, d) == kind
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm(torch.ones(2, d, dtype=dtype), torch.ones(d))
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels against their plain versions, on the card only.
 # ---------------------------------------------------------------------------
@@ -292,7 +402,7 @@ def cuda_attention():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
 
-    kbuild.compile_all(["flash_attention", "decode_attention", "rmsnorm"])
+    kbuild.compile_all(["flash_attention", "flash_attention_tc", "decode_attention", "rmsnorm"])
     for mod in (fa, da, rn):
         mod.build()
     return fa, da, rn
@@ -304,24 +414,50 @@ def _cuda_tol(dtype):
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
+def _assert_attention_close(got, want, dtype):
+    """fp32: atol = rtol = 2e-5.  bf16: rtol 2e-2 with an atol of 2e-2 of
+    the reference row's RMS over d, capped at 2e-2: a row over n keys has
+    outputs ~1/sqrt(n) small, where a fixed 2e-2 would pass a wrong key
+    tile."""
+    tol = _cuda_tol(dtype)
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+        return
+    atol = tol * w.square().mean(-1, keepdim=True).sqrt().clamp(max=1.0)
+    bad = ~((g - w).abs() <= atol + tol * w.abs())
+    assert not bad.any(), f"{int(bad.sum())} of {bad.numel()} elements off; max abs err {float((g - w).abs().max()):.3e}"
+
+
+# Shapes that are awkward for the tensor-core kernel's 128-row query tiles
+# and 128-key tiles (bf16 at d 64 and 128 takes it; fp32 the FMA kernel).
+FLASH_CUDA_CASES = FLASH_CASES + [
+    (1, 100, 333, 16, 8, 128, True),   # S < T, neither a tile multiple; B*H*ceil(S/128) = 16 blocks
+    (2, 77, 77, 16, 8, 128, True),     # one partial query tile
+    (1, 130, 130, 4, 4, 128, False),   # not causal, group 1
+    (1, 200, 200, 8, 4, 64, True),     # d 64, group 2, diagonal inside a tile
+    (1, 300, 200, 16, 8, 128, True),   # S > T: the first 100 rows have no live key
+    (2, 150, 40, 4, 4, 64, True),      # S > T by more than one warpgroup's 64 rows, group 1
+    (1, 300, 200, 8, 2, 64, False),    # S > T not causal, group 4
+    (1, 1000, 1000, 16, 4, 128, True), # 8 key tiles: the 3-stage ring wraps, group 4
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "b,s,t,h,hkv,d,causal",
-    FLASH_CASES + [(1, 100, 333, 16, 8, 128, True), (2, 77, 77, 16, 8, 128, True), (1, 130, 130, 4, 4, 128, False)],
-)
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", FLASH_CUDA_CASES)
 def test_cuda_flash_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
     fa = cuda_attention[0]
     rng = np.random.default_rng(s + t)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
                for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d)))
-    before = fa.flash_attention.launches
+    before, before_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.launches_tc == before_tc + (fa.variant(dtype, d) == "tc")
     want = ref.flash_attention(q, k, v, causal)
-    tol = _cuda_tol(dtype)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    _assert_attention_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -341,13 +477,17 @@ def test_cuda_decode_vs_plain(b, s, h, hkv, d, lengths, dtype, cuda_attention):
     got = da.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
     assert da.decode_attention.launches == before + 1
-    tol = _cuda_tol(dtype)
-    torch.testing.assert_close(got.float(), ref.decode_attention(q, k, v, lens).float(), atol=tol, rtol=tol)
+    _assert_attention_close(got, ref.decode_attention(q, k, v, lens), dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 7, 64), (101, 128), (3, 33), (4097, 2048)])
+@pytest.mark.parametrize(
+    "shape",
+    # d 2048 and 4096 take the row-in-registers loop (bf16; fp32 at 2048);
+    # 4097 and 1001 rows are not multiples of a block's 8 rows.
+    [(4, 7, 64), (101, 128), (3, 33), (4097, 2048), (9, 2048), (1001, 4096)],
+)
 def test_cuda_rmsnorm_vs_plain(shape, dtype, cuda_attention):
     rn = cuda_attention[2]
     rng = np.random.default_rng(shape[0])
@@ -359,6 +499,15 @@ def test_cuda_rmsnorm_vs_plain(shape, dtype, cuda_attention):
     assert rn.rmsnorm.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.rmsnorm(x, g).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_tc_smem_matches_plan(d, cuda_attention):
+    """The built kernel asks for the dynamic shared memory ``tc_plan``
+    computes, within the card's 227 KB per block."""
+    fa = cuda_attention[0]
+    assert fa.tc_smem_bytes(d) == fa.tc_plan(1, 128, 128, 1, 1, d)["smem_bytes"] <= 232448
 
 
 def test_build_names_libraries_by_source_headers_and_flags(tmp_path, monkeypatch):

@@ -9,13 +9,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    switches TF32 off, builds every CUDA source of ``src/repro_torch`` at
    once (one nvcc each), prints each one's build time and ptxas report,
    and counts the tensor-core flash kernel's ``HGMMA`` and ``UTMALDG``
-   instructions in its SASS (``cuobjdump``): none, or no ``cuobjdump``,
-   fails the run.
+   instructions and the decode kernel's asynchronous loads (``LDGSTS`` or
+   ``UTMALDG``) in their SASS (``cuobjdump``): none, or no ``cuobjdump``,
+   fails the run.  The flash and decode plans' shared memory (and the
+   decode tile) must be what the built kernels compute.
 2. Kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at its main path's shapes and at ragged ones, in bf16 and fp32
    for the attention and RMSNorm kernels; per shape the kernel's, the plain
-   version's and one PyTorch library call's device times (cold L2) and the
-   memory/compute bound.  Flash in bf16 at d 64/128 is the tensor-core
+   version's and one PyTorch library call's device times (cold L2), the
+   kernel's and the library call's warm back-to-back time per launch, and
+   the memory/compute bound.  The decode and gram kernels must give the
+   same bits on a second call.  Flash in bf16 at d 64/128 is the tensor-core
    kernel.  bf16 attention outputs are held per row against the reference
    row's scale, and at the main shapes a planted one-key-tile fault must
    fail that check.
@@ -40,9 +44,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    fp32, and in bf16 the logits' distance from fp32 compute for both (the
    kernels' at most 1.5x the plain versions').
 7. Trace: one warm chat and one warm summarize request under
-   torch.profiler: device busy, idle share, top kernels; then each class
-   with the decode kernel's split-KV plan against one slice per
-   (sequence, KV head), alternating.
+   torch.profiler: device busy, idle share, top kernels; every
+   ``decode_attention`` call must be one kernel on the device.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after (every bf16 flash launch of the serving path must be a tensor-core
@@ -52,11 +55,15 @@ watched, and a CUDA tensor reaching one fails the run.
 Output: one line per measurement, then a ``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; no network.
+
+``python3 chip_smoke.py --bench [DIR]`` runs only the decode and gram
+kernel timings (``bench_main``), of this tree or another one.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -74,12 +81,20 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+L2_ROTATE_BYTES = 125e6  # 2.5x the 50 MB L2: the warm rate's rotating copies read HBM
 
 B_NODES, DURATION_S, PLATFORM = 64, 1800.0, "server"
 N_INIT, N_K = 100, 60  # ProfilerConfig defaults (paper §6)
 S_STEPS = (int(DURATION_S) - N_INIT) // N_K
 MAIN_SHAPES = [(B_NODES * S_STEPS, N_K, 8), (B_NODES, N_INIT, 8)]  # step hoist, X_0
-PARITY_SHAPES = MAIN_SHAPES + [(64, 1800, 64), (8, 1000, 256), (4, 1, 5), (6, 197, 5), (16, 130, 17)]
+# M >= 64 takes the tiled kernel (M 65 and 33: rows not 16-byte aligned);
+# N * M not a multiple of 4 (197 * 5, 130 * 17) makes the warp kernel's
+# copies ragged.
+PARITY_SHAPES = MAIN_SHAPES + [(64, 1800, 64), (8, 1000, 256), (4, 1, 5), (6, 197, 5), (16, 130, 17),
+                               (4, 300, 65), (5, 257, 33)]
+# The bench's gram shapes: the main ones, M >= 64, M either side of the
+# variants' threshold (16 and 17), and a long N at G = 1.
+BENCH_GRAM = MAIN_SHAPES + [(64, 1800, 64), (8, 1000, 256), (16, 130, 16), (16, 130, 17), (1, 5000, 8)]
 
 # Serving path: internlm2-1.8b (24 layers, 16 heads, 8 KV heads, head_dim
 # 128, d_model 2048) as two function classes on one set of weights.
@@ -104,7 +119,8 @@ FLASH_RAGGED = [(1, 100, 333, H, HKV, HD, True), (2, 77, 77, H, HKV, HD, True),
                 (1, 300, 200, H, HKV, HD, True), (2, 150, 40, 4, 4, 64, True), (1, 300, 200, 8, 2, 64, False),
                 (1, 200, 200, 8, 8, 64, True), (2, 45, 45, 4, 2, 32, True)]
 DECODE_MAIN = [(8, 576, (575,) * 8), (2, 4112, (4111,) * 2)]
-DECODE_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129)), (3, 1000, (1, 999, 500))]
+# One sequence over a long cache takes the largest cluster (8 slices).
+DECODE_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129)), (3, 1000, (1, 999, 500)), (1, 4112, (4111,))]
 RMS_MAIN = [(8 * 512, D_MODEL)]
 RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL), (1001, 4096), (4096, 4096)]
 
@@ -123,9 +139,10 @@ def nvidia_smi_line() -> str:
 
 def gram_work(g: int, n: int, m: int) -> tuple[float, float]:
     """(bytes, flops) of one gram assembly: inputs read once, outputs written
-    once, 2 flops per multiply-add of C^T C and C^T w."""
+    once, 2 flops per multiply-add of the M(M+1)/2 unique entries of the
+    symmetric C^T C and of C^T w, whatever computes them."""
     nbytes = 4.0 * (g * n * m + g * n + g * m * m + g * m)
-    flops = 2.0 * g * n * m * m + 2.0 * g * n * m
+    flops = 1.0 * g * n * m * (m + 1) + 2.0 * g * n * m
     return nbytes, flops
 
 
@@ -152,6 +169,73 @@ def device_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
+def warm_ms(fn, args, nbytes: float, launches: int = 100) -> float:
+    """Back-to-back device time per launch of ``fn(*args)`` in ms, rotating
+    over enough copies of ``args`` that they exceed the L2 (each launch
+    reads HBM, as in a serving loop).  A spin kernel holds the GPU while
+    the host enqueues all ``launches``, so the two events time device work
+    only, with no launch gaps."""
+    copies = max(2, min(launches, math.ceil(L2_ROTATE_BYTES / max(nbytes, 1.0))))
+    sets = [[a.clone() for a in args] for _ in range(copies)]
+    for inputs in sets:
+        fn(*inputs)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for i in range(launches):
+        fn(*sets[i % copies])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def _sdpa_with_lengths(q, kc, vc, lens):
+    """SDPA's layout of decode's inputs, and a call that attends to the rows
+    below each length: ``fn(*args)`` is the library twin of decode."""
+    import torch.nn.functional as F
+
+    mask = (torch.arange(kc.shape[1], device=kc.device)[None, :] < lens[:, None])[:, None, None, :]
+    args = (q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous())
+    return lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True), args
+
+
+def time_decode(da, q, kc, vc, lens, warm: bool = False) -> dict:
+    """Cold-L2 ms of ``da.decode_attention`` (any tree's module) and of SDPA
+    with a length mask on the same inputs; with ``warm``, both warm
+    back-to-back rates too."""
+    sdpa, args = _sdpa_with_lengths(q, kc, vc, lens)
+    row = dict(ms=device_ms(lambda: da.decode_attention(q, kc, vc, lens)), library_ms=device_ms(lambda: sdpa(*args)))
+    if warm:
+        nbytes = decode_work(q.shape[0], q.shape[1], kc.shape[2], q.shape[2], lens.tolist(), q.dtype)[0]
+        row["warm_ms"] = warm_ms(da.decode_attention, (q, kc, vc, lens), nbytes)
+        row["library_warm_ms"] = warm_ms(sdpa, args, nbytes)
+    return row
+
+
+def _bmm_gram(cw):
+    return torch.bmm(cw.mT, cw)
+
+
+def time_gram(ds, c, w, warm: bool = False) -> dict:
+    """Cold-L2 ms of ``ds.disagg_gram`` (any tree's module) and of
+    ``torch.bmm`` of [C, w]^T [C, w], which holds gram and rhs; with
+    ``warm``, both warm back-to-back rates too."""
+    cw = torch.cat([c, w[..., None]], dim=-1)
+    row = dict(ms=device_ms(lambda: ds.disagg_gram(c, w)), library_ms=device_ms(lambda: _bmm_gram(cw)))
+    if warm:
+        nbytes = gram_work(*c.shape)[0]
+        row["warm_ms"] = warm_ms(ds.disagg_gram, (c, w), nbytes)
+        row["library_warm_ms"] = warm_ms(_bmm_gram, (cw,), nbytes)
+    return row
+
+
+def _sass_count(lib: Path, ops) -> dict:
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return {op: sass.count(op) for op in ops}
+
+
 def _cuobjdump() -> str:
     """cuobjdump from the CUDA toolkit, or the copy in Triton's package."""
     found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -170,8 +254,9 @@ def _cuobjdump() -> str:
 
 def phase_build() -> float:
     """Compile every kernel at once (one nvcc each, each timed), load each,
-    and check that the tensor-core flash kernel's SASS holds wgmma (HGMMA)
-    and TMA loads (UTMALDG)."""
+    check that the tensor-core flash kernel's SASS holds wgmma (HGMMA) and
+    TMA loads (UTMALDG) and the decode kernel's asynchronous copies
+    (LDGSTS or UTMALDG), and that the plans' geometry is the kernels'."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import decode_attention, disagg_solve, flash_attention, rmsnorm
@@ -189,11 +274,22 @@ def phase_build() -> float:
                     or "bytes stack frame" in line or "warning" in line:
                 log(f"  nvcc {name}: {line.strip()}")
     log(f"build: {', '.join(f'{k}.cu' for k in KERNELS)} -> sm_90a in {dt:.2f} s (parallel)")
-    sass = subprocess.run([_cuobjdump(), "-sass", str(kbuild.library_path("flash_attention_tc"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    counts = _sass_count(kbuild.library_path("flash_attention_tc"), ("HGMMA", "UTMALDG"))
     log(f"sass flash_attention_tc: {counts}")
     assert all(counts.values()), f"the tensor-core flash kernel's SASS lacks wgmma or TMA loads: {counts}"
+    counts = _sass_count(kbuild.library_path("decode_attention"), ("LDGSTS", "UTMALDG"))
+    log(f"sass decode_attention: {counts}")
+    assert any(counts.values()), f"the decode kernel's SASS has no asynchronous loads: {counts}"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, smax, _ in DECODE_MAIN:
+        for dtype in (torch.bfloat16, torch.float32):
+            elem = _elem(dtype)
+            dplan = decode_attention.decode_plan(b, H, HKV, smax, HD, elem, sms)
+            built = decode_attention.kernel_geometry(HD, elem, dplan["group"])
+            assert built == (dplan["tile"], dplan["smem_bytes"]), (b, smax, dtype, built, dplan)
+            log(f"decode plan {str(dtype)[6:]} B={b} S_max={smax}: grid {dplan['grid']} in clusters of "
+                f"{dplan['cluster']}, slices of {dplan['chunk']} keys in {dplan['tile']}-key tiles x "
+                f"{dplan['stages']} stages, {dplan['smem_bytes']} B dynamic shared memory")
     for d in flash_attention.TC_HEAD_DIMS:
         plan = flash_attention.tc_plan(*FLASH_MAIN[-1][:5], d)
         assert flash_attention.tc_smem_bytes(d) == plan["smem_bytes"], (d, plan["smem_bytes"])
@@ -211,7 +307,9 @@ def phase_kernel_parity(ds, ref) -> dict:
         c = torch.from_numpy(np.abs(rng.standard_normal((g, n, m))).astype(np.float32)).cuda()
         w = torch.from_numpy(np.abs(rng.standard_normal((g, n))).astype(np.float32)).cuda()
         gram, rhs = ds.disagg_gram(c, w)
+        gram2, rhs2 = ds.disagg_gram(c, w)
         torch.cuda.synchronize()
+        assert torch.equal(gram, gram2) and torch.equal(rhs, rhs2), f"disagg_gram not deterministic at {(g, n, m)}"
         pg, pr = ref.disagg_gram(c, w)
         # An N-term fp32 sum taken in another order: rtol 1e-5 plus an atol
         # of 1e-6 * N * max|C| * max(|C|, |w|).
@@ -220,20 +318,20 @@ def phase_kernel_parity(ds, ref) -> dict:
         err = max(float((gram - pg).abs().max()), float((rhs - pr).abs().max()))
         torch.testing.assert_close(gram, pg, rtol=1e-5, atol=atol)
         torch.testing.assert_close(rhs, pr, rtol=1e-5, atol=atol)
-        cw = torch.cat([c, w[..., None]], dim=-1)  # bmm(cw^T, cw) holds gram and rhs
-        t_kernel = device_ms(lambda: ds.disagg_gram(c, w))
-        t_plain = device_ms(lambda: ref.disagg_gram(c, w))
-        t_lib = device_ms(lambda: torch.bmm(cw.mT, cw))
+        timed = time_gram(ds, c, w, warm=(g, n, m) in MAIN_SHAPES or m >= 64)
         nbytes, flops = gram_work(g, n, m)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
-        rows[(g, n, m)] = dict(
-            err=err, ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
+        plan = ds.gram_plan(g, n, m, torch.cuda.get_device_properties(0).multi_processor_count)
+        rows[(g, n, m)] = row = dict(
+            err=err, plain_ms=device_ms(lambda: ref.disagg_gram(c, w)), bound_ms=bound,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S else "operations",
+            variant=plan["variant"], **timed,
         )
+        warm = "".join(f" {k}={row[k]:.5f}" for k in ("warm_ms", "library_warm_ms") if k in row)
         log(
-            f"parity G={g} N={n} M={m}: max_abs_err={err:.3e} (atol {atol:.3e}) "
-            f"kernel_ms={t_kernel:.5f} plain_ms={t_plain:.5f} library_ms={t_lib:.5f} "
-            f"bound_us={bound * 1e3:.3f} ({rows[(g, n, m)]['bound_by']})"
+            f"parity G={g} N={n} M={m} ({plan['variant']}): max_abs_err={err:.3e} (atol {atol:.3e}) "
+            f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f}{warm} "
+            f"bound_us={bound * 1e3:.3f} ({row['bound_by']})"
         )
     return rows
 
@@ -356,11 +454,13 @@ def phase_main_path(device: str, b: int = B_NODES, duration: float = DURATION_S)
     return out, replays
 
 
-def phase_trace(replays) -> None:
+def phase_trace(replays, kernel_calls=None) -> None:
     """Replay each main-path call warm, untraced and then under
     torch.profiler: device busy time is the sum of the traced run's CUDA
     kernel intervals (one stream, so they do not overlap), idle share is
-    1 - busy / the warm untraced wall time."""
+    1 - busy / the warm untraced wall time.  ``kernel_calls`` maps a kernel
+    name to a wrapper whose ``launches`` count the traced run must match
+    one device kernel per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -370,6 +470,7 @@ def phase_trace(replays) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        before = {k: f.launches for k, f in (kernel_calls or {}).items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -379,6 +480,13 @@ def phase_trace(replays) -> None:
         if not kernels:
             log(f"trace {name}: no device events recorded; device busy share not measured")
             continue
+        for kname, f in (kernel_calls or {}).items():
+            calls = f.launches - before[kname]
+            matched = [e for e in kernels if kname in e.name]
+            on_device = len(matched)
+            ms = sum(e.time_range.elapsed_us() for e in matched) * 1e-3
+            log(f"trace {name}: {kname} {on_device} device kernels for {calls} calls, {ms:.3f} ms")
+            assert on_device == calls, f"{kname}: {on_device} device kernels for {calls} calls"
         busy = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
         by_name: dict = {}
         for e in kernels:
@@ -576,15 +684,16 @@ def phase_attention_parity(ref) -> dict:
             kc, vc = rnd(b, smax, HKV, HD, dtype=dtype), rnd(b, smax, HKV, HD, dtype=dtype)
             lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             got = da.decode_attention(q, kc, vc, lens)
+            again = da.decode_attention(q, kc, vc, lens)
             torch.cuda.synchronize()
+            assert torch.equal(got, again), f"decode_attention not deterministic at {(b, smax, lengths)}"
             want = ref.decode_attention(q, kc, vc, lens)
             err = _check(got, want, tol, "decode_attention", rows=dtype == torch.bfloat16)
             more = dict(err_rms=_row_err(got, want)) if dtype == torch.bfloat16 else {}
-            t_kernel = device_ms(lambda: da.decode_attention(q, kc, vc, lens))
+            timed = time_decode(da, q, kc, vc, lens, warm=(b, smax, lengths) in DECODE_MAIN)
+            t_kernel, t_lib = timed.pop("ms"), timed.pop("library_ms")
+            more.update(timed)
             t_plain = device_ms(lambda: ref.decode_attention(q, kc, vc, lens))
-            qt, kt, vt = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-            mask = (torch.arange(smax, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-            t_lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
             _record(rows, ("decode_attention", (b, smax, lengths), tag), err, tol, t_kernel, t_plain, t_lib,
                     decode_work(b, H, HKV, HD, lengths, dtype), dtype,
                     f"decode {tag} B={b} S_max={smax} lengths={list(lengths)}", **more)
@@ -792,31 +901,6 @@ def phase_consistency(api, masters, params, ref, device="cuda") -> None:
 
 
 
-def phase_split_ab(server, pairs: int = 3) -> None:
-    """Each class's warm request with the decode kernel's split-KV plan
-    against the same kernel forced to one slice per (sequence, KV head)
-    (its first design), alternating, in this one process and card."""
-    from repro_torch.kernels import decode_attention as da
-
-    auto = da.split_plan
-    single = lambda b, hkv, s_max, sms: (1, -(-s_max // da.TILE) * da.TILE)
-    for name in CLASSES:
-        engine, batch, steps = server.functions[name]
-        times: dict = {"split": [], "single": []}
-        for i in range(pairs):
-            for label in (("split", "single") if i % 2 == 0 else ("single", "split")):
-                da.split_plan = auto if label == "split" else single
-                try:
-                    t0 = time.perf_counter()
-                    engine.generate(batch, steps)
-                    times[label].append(time.perf_counter() - t0)
-                finally:
-                    da.split_plan = auto
-        log(f"decode split A/B {name}: split median_s={statistics.median(times['split']):.4f} "
-            f"single median_s={statistics.median(times['single']):.4f} "
-            f"(runs split {[round(t, 4) for t in times['split']]} single {[round(t, 4) for t in times['single']]})")
-
-
 def _watch_plain(ref, names):
     """Wrap the named plain versions so each call records its device;
     returns (calls, restore)."""
@@ -858,6 +942,9 @@ def _summary(name, replaces, launches, main, shapes, source=None):
         "shapes": json.loads(json.dumps(shapes)),  # tuples as lists
         "ms_per_shape": [r["ms"] for r in main],
     }
+    if all("warm_ms" in r for r in main):
+        entry["warm_ms"] = sum(r["warm_ms"] for r in main)
+        entry["library_warm_ms"] = sum(r["library_warm_ms"] for r in main)
     if "variant" in main[0]:
         entry["variant"] = "+".join(sorted({r["variant"] for r in main}))
     return entry
@@ -968,8 +1055,7 @@ def main() -> int:
     for name in CLASSES:
         engine, batch, steps = server.functions[name]
         replays[f"serve {name}"] = (lambda e=engine, b=batch, n=steps: e.generate(b, n), stats[name]["first_s"])
-    phase_trace(replays)
-    phase_split_ab(server)
+    phase_trace(replays, {"decode_kernel": da.decode_attention})
 
     kernels = [
         _summary("disagg_gram", "src/repro/kernels/disagg_solve.py:84", gram_launches,
@@ -991,5 +1077,69 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Kernel bench (``--bench``): decode and gram on any tree, no path run
+# ---------------------------------------------------------------------------
+
+
+def bench_main(argv: list) -> int:
+    """Time the decode-attention and gram kernels of any tree of the port.
+
+    ``python3 chip_smoke.py --bench [DIR]`` imports ``repro_torch`` from
+    ``DIR`` (default: this checkout's ``src``), so that one call can time
+    two trees on one card.  Per kernel and shape it prints ``time_decode``'s
+    or ``time_gram``'s row (cold and warm, the kernel's and the library
+    call's), at decode's main shapes (bf16) and at the gram's main shapes,
+    its parity shapes with M >= 64 and those either side of the variants'
+    threshold.  For decode it adds ``len1_ms`` (every length 1: the
+    launch's fixed cost at that grid) and ``host_us`` (the wrapper's host
+    time per call over 1,000 calls with no synchronisation, the median of
+    five rounds).  The last line is all of it as JSON.
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke --bench: torch.cuda.is_available() is false; this needs a CUDA GPU", file=sys.stderr)
+        return 2
+    src = Path(argv[0] if argv else SRC).resolve()
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import disagg_solve as ds
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | {smi} | repro_torch from {da.__file__}", flush=True)
+    ds.build()
+    da.build()
+    out = dict(src=str(src), device=smi, decode={}, gram={})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, smax, lengths in DECODE_MAIN:
+        q = torch.randn(b, H, HD, generator=gen, device="cuda").bfloat16()
+        kc, vc = (torch.randn(b, smax, HKV, HD, generator=gen, device="cuda").bfloat16() for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        row = time_decode(da, q, kc, vc, lens, warm=True)
+        ones = torch.ones_like(lens)
+        row["len1_ms"] = device_ms(lambda: da.decode_attention(q, kc, vc, ones))
+        rounds = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                da.decode_attention(q, kc, vc, lens)
+            rounds.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        row["host_us"] = statistics.median(rounds)
+        row["host_us_rounds"] = rounds
+        out["decode"][f"B={b} S_max={smax} len={lengths[0]}"] = row
+        print(f"decode B={b} S_max={smax}: " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    rng = np.random.default_rng(0)
+    for g, n, m in BENCH_GRAM:
+        c = torch.from_numpy(np.abs(rng.standard_normal((g, n, m))).astype(np.float32)).cuda()
+        w = torch.from_numpy(np.abs(rng.standard_normal((g, n))).astype(np.float32)).cuda()
+        row = time_gram(ds, c, w, warm=True)
+        out["gram"][f"{g}x{n}x{m}"] = row
+        print(f"gram G={g} N={n} M={m}: " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(bench_main(sys.argv[2:]) if sys.argv[1:2] == ["--bench"] else main())

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}  # one handle per library and process
+_sms: dict[int, int] = {}  # device index -> SM count
 
 
 def _nvcc() -> str:
@@ -112,6 +113,15 @@ def kernel_input(x: torch.Tensor, name: str) -> torch.Tensor:
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: cannot align a {tuple(x.shape)} tensor to 16 bytes")
     return x
+
+
+def sm_count(dev: torch.device) -> int:
+    """SM count of a CUDA device, read once per process (the kernels' plans
+    size their grids by it)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def stream_of(x: torch.Tensor) -> int:

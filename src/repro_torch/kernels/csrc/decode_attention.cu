@@ -6,195 +6,370 @@
 // decode_attention (body _dec_kernel). That kernel scalar-prefetches the
 // lengths, walks (batch, kv head, kv block) with the kv blocks sequential,
 // carries the online softmax in VMEM scratch and lets the G = H / Hkv query
-// heads of a KV head share each staged block. Here (split-KV, as in
-// flash-decoding):
+// heads of a KV head share each staged block.
 //
-//   grid   (Hkv, B, splits): one block per (sequence, KV head, slice of the
-//          cache); each block reads its own lengths[b] (the twin of scalar
-//          prefetch) and walks its slice, clipped at that length;
-//   block  128 threads; a loop over 64-key tiles: K and V rows are read
-//          with 16-byte loads, widened to fp32 in shared memory; the G x 64
-//          scores are one dot product per thread and entry; one warp per
-//          query row takes the tile's max and sum; the G x D accumulator is
-//          rescaled and advanced in shared memory;
-//   merge  with one slice the block normalises and writes the output; with
-//          several it writes its unnormalised (acc, m, l) to scratch and a
-//          second kernel, one block per (sequence, query head), rescales the
-//          slices to their common max and divides once.
+// Bound on an H100: each step reads the live K and V rows once and does ~1
+// flop per byte, far below the ridge point, so it is bound by bytes. At the
+// serving shapes (B = 2..8, Hkv = 8) there are only 16-64 (sequence, KV head)
+// pairs for 132 SMs, so each pair's cache is cut into slices worked by the
+// blocks of one thread-block cluster. What the design does about the bytes:
+//
+//   grid     (splits, Hkv * head chunks, B), cluster (splits, 1, 1): a block
+//            owns one slice of one (sequence, KV head) and the query heads of
+//            one head chunk (all G heads when G <= 8); each block reads its
+//            own lengths[b] (the twin of scalar prefetch) and clips its slice
+//            there. kernels/decode_attention.py::decode_plan picks the slice
+//            and cluster sizes (up to 8, the portable limit) from the SM
+//            count: about one block per SM.
+//   ring     K and V stay in their stored type in shared memory, in a
+//            4-stage ring of TK-key tiles (16 KB of K + V a stage), filled
+//            with cp.async 16 bytes a thread at offsets fixed per thread;
+//            each thread's copies complete on the stage's mbarrier
+//            (cp.async.mbarrier.arrive.noinc), so three stages (48 KB) stay
+//            in flight while one is computed. Rows at or past lengths[b] are
+//            never requested.
+//   compute  eight warps, straight from the staged tile: LPK = D / (16 B)
+//            lanes share a key, each holding a 16-byte piece of the row,
+//            widened in registers; the G dot products are reduced with
+//            shuffles; each lane keeps its piece of the G x D accumulator and
+//            the heads' running max and sum (log2 domain, ex2.approx) in
+//            registers. CUDA-core FMAs only: at ~1 flop a byte there is
+//            nothing for the tensor cores.
+//   merge    in the same launch: a warp's key groups merge by shuffles, the
+//            block's warps through shared memory, then the cluster's slices
+//            through distributed shared memory in rank order, each block
+//            writing a share of the output. No global scratch, no second
+//            kernel, and the same inputs give the same bits.
+//
+// What still holds it back (PERF.md): a launch's fixed cost (reading
+// lengths, the first tile's latency, the two cluster barriers of the merge)
+// is several microseconds beside 6-11 us of streaming at the serving shapes;
+// bulk (TMA) row copies and deeper or wider rings measured no faster.
 //
 // Cache rows at or past lengths[b] are never read, so a padded or unfilled
 // cache tail cannot leak into the result. A sequence of length 0 gives 0.
-//
-// Bound on an H100: each step reads the live K and V rows once, ~1 flop per
-// byte, far below the ridge point: it is bound by bytes. At the serving
-// shapes (B = 2..8, Hkv = 8) one block per (sequence, KV head) gives only
-// 16-64 blocks for 132 SMs, each loading its tiles one after another; the
-// wrapper therefore splits the cache into slices of at least 128 keys until
-// there are about two blocks per SM. Tiles within a block are still loaded
-// synchronously (no cp.async or TMA pipeline): that is left for a later,
-// measured change.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound through ctypes (plain C interface below).
 
+#include <cooperative_groups.h>
+
 #include "convert.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TK = 64;        // keys per staged tile
-constexpr int THREADS = 128;  // four warps
+constexpr int THREADS = 256;  // eight warps
 constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 4;             // ring depth
+constexpr int STAGE_TARGET = 16384;   // bytes of K + V in one stage
+constexpr int MAX_TILE = 128;         // keys per stage, at most
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-size_t smem_bytes(int g) {
-  // q [G][D], K [TK][D+1], V [TK][D], scores [G][TK], acc [G][D], m, l, corr [G]
-  return sizeof(float) * (static_cast<size_t>(g) * D + TK * (D + 1) + TK * D +
-                          static_cast<size_t>(g) * TK + static_cast<size_t>(g) * D + 3 * g);
+// Keys per ring stage at head_dim d and element size elem (mirrored by
+// kernels/decode_attention.py::tile_keys).
+__host__ __device__ constexpr int tile_keys(int d, int elem) {
+  return STAGE_TARGET / (2 * d * elem) < MAX_TILE ? STAGE_TARGET / (2 * d * elem) : MAX_TILE;
 }
 
-// Partial results of one slice, for the merge: acc [G][D] unnormalised,
-// then m [G] and l [G], at ((b * Hkv + hk) * splits + split).
-template <typename T, int D>
+// Dynamic shared memory: the ring, the warps' partial states and the
+// block's state (GC heads x (m, l, D accumulators) each, fp32), then the
+// stages' mbarriers (mirrored by decode_attention.py::smem_bytes).
+__host__ __device__ constexpr int ring_bytes(int d, int elem) { return STAGES * 2 * tile_keys(d, elem) * d * elem; }
+__host__ __device__ constexpr int part_bytes(int d, int gc) { return ((WARPS + 1) * gc * (d + 2) * 4 + 15) / 16 * 16; }
+__host__ __device__ constexpr int smem_bytes(int d, int elem, int gc) {
+  return ring_bytes(d, elem) + part_bytes(d, gc) + STAGES * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; 0 for x << 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The stage's mbarrier counts this thread's arrival once all its earlier
+// cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Vec<T>::N elements of shared memory, widened to fp32.
+template <typename T>
+__device__ __forceinline__ void lds16(const unsigned char* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) f[i] = to_f32(e[i]);
+}
+
+// GC: a power of two >= the block's head count (its registers are sized by
+// it; heads past the count are computed on zeros and never stored).
+template <typename T, int D, int GC>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-              const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ part_acc,
-              float* __restrict__ part_ml, int s_max, int h, int hkv, int chunk, float scale) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int CHUNKS = D / VEC;  // 16-byte chunks per cache row
-  constexpr int LDK = D + 1;       // K rows padded: lanes on consecutive keys hit distinct banks
-  extern __shared__ __align__(16) float sm[];
+              const int* __restrict__ lengths, T* __restrict__ out, int s_max, int h, int hkv,
+              int nchunk, int gchunk, int chunk, float qscale) {
+  constexpr int ELEM = static_cast<int>(sizeof(T));
+  constexpr int VEC = Vec<T>::N;       // elements in a lane's 16-byte piece
+  constexpr int LPK = D / VEC;         // lanes per key
+  constexpr int KPW = 32 / LPK;        // keys a warp takes at once
+  constexpr int ROW = D * ELEM;        // bytes of a cache row
+  constexpr int CH = ROW / 16;         // 16-byte pieces per row
+  constexpr int TK = tile_keys(D, ELEM);
+  constexpr int KW = TK / WARPS;       // keys per warp and tile
+  constexpr int NK = KW / KPW;         // keys per lane group and tile
+  constexpr int STAGE = 2 * TK * ROW;  // K tile, then V tile
+  constexpr int RPP = THREADS / CH;    // rows of a tile one pass of the block copies
+  constexpr int PASSES = TK / RPP;     // copies per thread into each of the K and V tiles
+  constexpr int PART = GC * (D + 2);   // m [GC], l [GC], acc [GC][D]
+  static_assert(NK >= 1 && KW % KPW == 0 && PASSES >= 1 && TK % RPP == 0, "tile shape");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wpart = reinterpret_cast<float*>(smem + ring_bytes(D, ELEM));
+  float* res = wpart + WARPS * PART;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ring_bytes(D, ELEM) + part_bytes(D, GC));
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.block_rank());  // the cluster spans gridDim.x
+  const int splits = gridDim.x;
+  const int hk = blockIdx.y / nchunk;
+  const int hc = blockIdx.y % nchunk;
+  const int b = blockIdx.z;
   const int g = h / hkv;
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
-  float* qs = sm;                 // [G][D]
-  float* ks = qs + g * D;         // [TK][LDK]
-  float* vs = ks + TK * LDK;      // [TK][D]
-  float* ss = vs + TK * D;        // [G][TK] scores, then probabilities
-  float* acc = ss + g * TK;       // [G][D]
-  float* mrow = acc + g * D;      // [G]
-  float* lrow = mrow + g;         // [G]
-  float* crow = lrow + g;         // [G]
+  const int head0 = hk * g + hc * gchunk;
+  const int gcount = min(gchunk, g - hc * gchunk);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int piece = lane % LPK;  // which 16 bytes of a row this lane holds
+  const int sub = lane / LPK;    // which of the warp's KPW keys
 
+  // This lane's piece of each head's query, prescaled by scale * log2(e);
+  // loaded while lengths[b] is in flight.
+  float qr[GC][VEC];
+#pragma unroll
+  for (int gi = 0; gi < GC; ++gi) {
+    if (gi < gcount) {
+      load16(q + (static_cast<int64_t>(b) * h + head0 + gi) * D + piece * VEC, qr[gi]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qr[gi][e] = 0.0f;
+    }
+  }
   const int len = max(0, min(lengths[b], s_max));
-  const int k_end = min(len, (split + 1) * chunk);  // this slice: [split * chunk, k_end)
-  const T* qb = q + (static_cast<int64_t>(b) * h + static_cast<int64_t>(hk) * g) * D;
-  for (int e = tid; e < g * D; e += THREADS) {
-    qs[e] = to_f32(qb[e]);
-    acc[e] = 0.0f;
-  }
-  for (int e = tid; e < g; e += THREADS) {
-    mrow[e] = NEG_INF;
-    lrow[e] = 0.0f;
-  }
+  const int k0 = split * chunk;
+  const int k_end = min(len, k0 + chunk);  // this slice: [k0, k_end)
+  const int ntiles = k_end > k0 ? (k_end - k0 + TK - 1) / TK : 0;
 
   const int64_t row_stride = static_cast<int64_t>(hkv) * D;  // between cache positions
   const T* kb = kc + static_cast<int64_t>(b) * s_max * row_stride + static_cast<int64_t>(hk) * D;
   const T* vb = vc + static_cast<int64_t>(b) * s_max * row_stride + static_cast<int64_t>(hk) * D;
 
-  for (int k0 = split * chunk; k0 < k_end; k0 += TK) {
-    const int valid = min(TK, k_end - k0);
-    __syncthreads();  // the previous tile's readers (and the set-up above) are done
-    for (int e = tid; e < valid * CHUNKS; e += THREADS) {
-      const int r = e / CHUNKS;
-      const int c = (e % CHUNKS) * VEC;
-      const int64_t off = (k0 + r) * row_stride + c;
-      float f[VEC];
-      load16(kb + off, f);
+  if (tid == 0) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) ks[r * LDK + c + i] = f[i];
-      load16(vb + off, f);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) vs[r * D + c + i] = f[i];
-    }
-    __syncthreads();
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], THREADS);
+  }
+  __syncthreads();
 
-    for (int e = tid; e < g * TK; e += THREADS) {
-      const int gi = e / TK;
-      const int c = e % TK;
-      float dot = 0.0f;
-      if (c < valid) {
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) dot = fmaf(qs[gi * D + d], ks[c * LDK + d], dot);
+  // Thread tid copies piece tid % CH of rows tid / CH + i * RPP of each
+  // tile's K and V: the offsets are fixed, only the tile's first row moves.
+  const int crow = tid / CH;
+  const int64_t csrc = crow * row_stride + (tid % CH) * VEC;
+  const uint32_t cdst = smem_u32(smem) + crow * ROW + (tid % CH) * 16;
+  auto issue = [&](int t) {
+    const int base = k0 + t * TK;
+    const int64_t off = static_cast<int64_t>(base) * row_stride + csrc;
+    const uint32_t dst = cdst + (t % STAGES) * STAGE;
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      if (base + crow + i * RPP < k_end) {
+        cp_async16(dst + i * RPP * ROW, kb + off + i * RPP * row_stride);
+        cp_async16(dst + TK * ROW + i * RPP * ROW, vb + off + i * RPP * row_stride);
       }
-      ss[e] = c < valid ? dot * scale : NEG_INF;
     }
-    __syncthreads();
+    cp_async_arrive(&full[t % STAGES]);
+  };
+  for (int t = 0; t < min(STAGES, ntiles); ++t) issue(t);
 
-    for (int gi = warp; gi < g; gi += WARPS) {
-      float mx = mrow[gi];
-      for (int c = lane; c < TK; c += 32) mx = fmaxf(mx, ss[gi * TK + c]);
-      mx = warp_max(mx);
+  float m[GC], l[GC], acc[GC][VEC];
+#pragma unroll
+  for (int gi = 0; gi < GC; ++gi) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qr[gi][e] *= qscale;
+      acc[gi][e] = 0.0f;
+    }
+    m[gi] = NEG_INF;
+    l[gi] = 0.0f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    const unsigned char* ks = smem + (t % STAGES) * STAGE;
+    const unsigned char* vs = ks + TK * ROW;
+    const int r0 = warp * KW + sub;  // this lane group's keys: r0 + j * KPW
+    const int live = k_end - (k0 + t * TK);
+
+    float s[NK][GC];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      float kf[VEC];
+      lds16<T>(ks + (r0 + j * KPW) * ROW + piece * 16, kf);
+#pragma unroll
+      for (int gi = 0; gi < GC; ++gi) {
+        float dot = 0.0f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
+        s[j][gi] = dot;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < LPK; off <<= 1) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int gi = 0; gi < GC; ++gi) s[j][gi] += __shfl_xor_sync(0xffffffffu, s[j][gi], off);
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < GC; ++gi) {
+      float mx = m[gi];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        if (r0 + j * KPW < live) mx = fmaxf(mx, s[j][gi]);
+      }
+      const float corr = fast_exp2(m[gi] - mx);
+      m[gi] = mx;
       float sum = 0.0f;
-      for (int c = lane; c < TK; c += 32) {
-        const float p = c < valid ? expf(ss[gi * TK + c] - mx) : 0.0f;
-        ss[gi * TK + c] = p;
-        sum += p;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        s[j][gi] = r0 + j * KPW < live ? fast_exp2(s[j][gi] - mx) : 0.0f;  // now a probability
+        sum += s[j][gi];
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(mrow[gi] - mx);
-        crow[gi] = corr;
-        lrow[gi] = lrow[gi] * corr + sum;
-        mrow[gi] = mx;
+      l[gi] = fmaf(l[gi], corr, sum);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[gi][e] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      if (r0 + j * KPW < live) {  // a stale row may hold anything, NaN included
+        float vf[VEC];
+        lds16<T>(vs + (r0 + j * KPW) * ROW + piece * 16, vf);
+#pragma unroll
+        for (int gi = 0; gi < GC; ++gi) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[gi][e] = fmaf(s[j][gi], vf[e], acc[gi][e]);
+        }
       }
     }
-    __syncthreads();
+    if (t + STAGES < ntiles) {
+      __syncthreads();  // every warp is done with this stage
+      issue(t + STAGES);
+    }
+  }
 
-    for (int e = tid; e < g * D; e += THREADS) {
-      const int gi = e / D;
-      const int d = e % D;
-      float a = acc[e] * crow[gi];
-      for (int c = 0; c < valid; ++c) a = fmaf(ss[gi * TK + c], vs[c * D + d], a);
-      acc[e] = a;
+  // Merge the warp's KPW key groups: lanes lane and lane ^ (LPK * 2^i) hold
+  // the same piece of the row.
+#pragma unroll
+  for (int off = LPK; off < 32; off <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < GC; ++gi) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[gi], off);
+      const float mx = fmaxf(m[gi], mo);
+      const float wa = fast_exp2(m[gi] - mx);
+      const float wb = fast_exp2(mo - mx);
+      l[gi] = l[gi] * wa + lo * wb;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[gi][e], off);
+        acc[gi][e] = acc[gi][e] * wa + ao * wb;
+      }
+      m[gi] = mx;
+    }
+  }
+  if (sub == 0) {
+    float* wp = wpart + warp * PART;
+#pragma unroll
+    for (int gi = 0; gi < GC; ++gi) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) wp[2 * GC + gi * D + piece * VEC + e] = acc[gi][e];
+      if (piece == 0) {
+        wp[gi] = m[gi];
+        wp[GC + gi] = l[gi];
+      }
     }
   }
   __syncthreads();
 
-  if (splits == 1) {
-    T* ob = out + (static_cast<int64_t>(b) * h + static_cast<int64_t>(hk) * g) * D;
-    for (int e = tid; e < g * D; e += THREADS) ob[e] = from_f32<T>(acc[e] / fmaxf(lrow[e / D], 1e-30f));
-    return;
+  // The block's state: its warps merged in order, into `res` (same layout).
+  for (int e = tid; e < GC * D; e += THREADS) {
+    const int gi = e / D;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wpart[w * PART + gi]);
+    float a = 0.0f, ls = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = fast_exp2(wpart[w * PART + gi] - mx);
+      a = fmaf(wpart[w * PART + 2 * GC + e], wt, a);
+      ls = fmaf(wpart[w * PART + GC + gi], wt, ls);
+    }
+    res[2 * GC + e] = a;
+    if (e % D == 0) {
+      res[gi] = mx;
+      res[GC + gi] = ls;
+    }
   }
-  const int64_t slot = (static_cast<int64_t>(b) * hkv + hk) * splits + split;
-  float* pa = part_acc + slot * g * D;
-  float* pml = part_ml + slot * 2 * g;
-  for (int e = tid; e < g * D; e += THREADS) pa[e] = acc[e];
-  for (int e = tid; e < g; e += THREADS) {
-    pml[e] = mrow[e];
-    pml[g + e] = lrow[e];
-  }
-}
+  cluster.sync();  // every block's state is written and visible to the cluster
 
-// Merge the slices of one (sequence, query head): D threads, one output
-// element each. An empty slice has m = -1e30 and l = 0 and weighs nothing.
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                    T* __restrict__ out, int h, int hkv, int splits) {
-  const int head = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = h / hkv;
-  const int hk = head / g;
-  const int gi = head % g;
-  const int d = threadIdx.x;
-  const int64_t base = (static_cast<int64_t>(b) * hkv + hk) * splits;
-  float mx = NEG_INF;
-  for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, part_ml[(base + sp) * 2 * g + gi]);
-  float l = 0.0f, a = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) {
-    const float* pml = part_ml + (base + sp) * 2 * g;
-    const float w = expf(pml[gi] - mx);
-    l = fmaf(pml[g + gi], w, l);
-    a = fmaf(part_acc[((base + sp) * g + gi) * D + d], w, a);
+  // The cluster's slices, merged in rank order; block r writes outputs
+  // r * THREADS + tid, stepping by the cluster's threads.
+  for (int e = split * THREADS + tid; e < gcount * D; e += splits * THREADS) {
+    const int gi = e / D;
+    float mx = NEG_INF;
+    for (int r = 0; r < splits; ++r) mx = fmaxf(mx, *cluster.map_shared_rank(res + gi, r));
+    float a = 0.0f, ls = 0.0f;
+    for (int r = 0; r < splits; ++r) {
+      const float* peer = cluster.map_shared_rank(res, r);
+      const float wt = fast_exp2(peer[gi] - mx);
+      a = fmaf(peer[2 * GC + e], wt, a);
+      ls = fmaf(peer[GC + gi], wt, ls);
+    }
+    out[(static_cast<int64_t>(b) * h + head0 + gi) * D + e % D] = from_f32<T>(a / fmaxf(ls, 1e-30f));
   }
-  out[(static_cast<int64_t>(b) * h + head) * D + d] = from_f32<T>(a / fmaxf(l, 1e-30f));
+  cluster.sync();  // no block leaves while a peer may still read its state
 }
 
 struct Args {
@@ -203,37 +378,58 @@ struct Args {
   const void* v;
   const int* lengths;
   void* out;
-  float* part_acc;
-  float* part_ml;
-  int b, s_max, h, hkv, splits, chunk;
+  int b, s_max, h, hkv, splits, chunk, nchunk, gchunk;
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, int D, int GC>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(a.h / a.hkv);
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr int SMEM = smem_bytes(D, static_cast<int>(sizeof(T)), GC);
+  auto kernel = decode_kernel<T, D, GC>;
+  static uint64_t configured = 0;  // a bit per device: attributes set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_kernel<T, D><<<dim3(a.hkv, a.b, a.splits), THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lengths,
-      static_cast<T*>(a.out), a.part_acc, a.part_ml, a.s_max, a.h, a.hkv, a.chunk, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  decode_merge_kernel<T, D><<<dim3(a.h, a.b), D, 0, stream>>>(a.part_acc, a.part_ml,
-                                                              static_cast<T*>(a.out), a.h, a.hkv,
-                                                              a.splits);
+  if (dev >= 64 || !(configured >> dev & 1)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) configured |= uint64_t{1} << dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.hkv * a.nchunk, a.b);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                           static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.out), a.s_max, a.h,
+                           a.hkv, a.nchunk, a.gchunk, a.chunk, a.scale * LOG2E);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int by_group(const Args& a, cudaStream_t stream) {
+  if (a.gchunk <= 1) return launch<T, D, 1>(a, stream);
+  if (a.gchunk <= 2) return launch<T, D, 2>(a, stream);
+  if (a.gchunk <= 4) return launch<T, D, 4>(a, stream);
+  if (a.gchunk <= 8) return launch<T, D, 8>(a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int dispatch(const Args& a, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(a, stream);
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 16: return by_group<T, 16>(a, stream);
+    case 32: return by_group<T, 32>(a, stream);
+    case 64: return by_group<T, 64>(a, stream);
+    case 128: return by_group<T, 128>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -242,23 +438,28 @@ int dispatch(const Args& a, int d, cudaStream_t stream) {
 
 // q (B, H, D), k_cache and v_cache (B, S_max, Hkv, D), out (B, H, D):
 // contiguous, 16-byte aligned, one element type; lengths (B,) int32 on the
-// same device; D in {16, 32, 64, 128}; H % Hkv == 0. The cache is cut into
-// `splits` slices of `chunk` keys (a multiple of 64, splits * chunk >=
-// S_max); with splits > 1, part_acc holds B * Hkv * splits * (H / Hkv) * D
-// floats and part_ml twice B * Hkv * splits * (H / Hkv).
+// same device; D in {16, 32, 64, 128}; H % Hkv == 0. The grid is
+// (splits, Hkv * nchunk, B) in clusters of `splits` blocks: slices of
+// `chunk` keys (splits * chunk >= S_max), the G = H / Hkv heads in `nchunk`
+// chunks of at most `gchunk` <= 8 (decode_attention.py::decode_plan).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
-                                    const int* lengths, void* out, float* part_acc, float* part_ml,
-                                    int b, int s_max, int h, int hkv, int d, int splits, int chunk,
-                                    float scale, cudaStream_t stream) {
-  const Args a{q, k, v, lengths, out, part_acc, part_ml, b, s_max, h, hkv, splits, chunk, scale};
+extern "C" int decode_attention_f32(const void* q, const void* k, const void* v, const int* lengths, void* out,
+                                    int b, int s_max, int h, int hkv, int d, int splits, int chunk, int nchunk,
+                                    int gchunk, float scale, cudaStream_t stream) {
+  const Args a{q, k, v, lengths, out, b, s_max, h, hkv, splits, chunk, nchunk, gchunk, scale};
   return dispatch<float>(a, d, stream);
 }
 
-extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
-                                     const int* lengths, void* out, float* part_acc,
-                                     float* part_ml, int b, int s_max, int h, int hkv, int d,
-                                     int splits, int chunk, float scale, cudaStream_t stream) {
-  const Args a{q, k, v, lengths, out, part_acc, part_ml, b, s_max, h, hkv, splits, chunk, scale};
+extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out,
+                                     int b, int s_max, int h, int hkv, int d, int splits, int chunk, int nchunk,
+                                     int gchunk, float scale, cudaStream_t stream) {
+  const Args a{q, k, v, lengths, out, b, s_max, h, hkv, splits, chunk, nchunk, gchunk, scale};
   return dispatch<__nv_bfloat16>(a, d, stream);
 }
+
+// The kernel's dynamic shared memory for element size `elem` (4 or 2),
+// head_dim d and a head chunk of `gc` (a power of two <= 8).
+extern "C" int decode_attention_smem_bytes(int elem, int d, int gc) { return smem_bytes(d, elem, gc); }
+
+// Keys per ring stage for element size `elem` and head_dim d.
+extern "C" int decode_attention_tile_keys(int elem, int d) { return tile_keys(d, elem); }

@@ -54,8 +54,8 @@ def decode_attention(
     kv_block: int = 2048,
 ) -> torch.Tensor:
     """Single-token GQA attention against a KV cache: (B, H, d).  The CUDA
-    kernel streams its own 64-key tiles and ignores ``kv_block``; so does
-    the plain version, which is unblocked like the reference's."""
+    kernel streams its own K/V tiles and ignores ``kv_block``; so does the
+    plain version, which is unblocked like the reference's."""
     if _on_cuda("decode_attention", q):
         return da.decode_attention(q, k_cache, v_cache, lengths.to(torch.int32))
     return ref.decode_attention(q, k_cache, v_cache, lengths)

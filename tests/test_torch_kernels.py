@@ -110,11 +110,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,n,m", GRAM_SHAPES + [(1792, 60, 8), (64, 100, 8), (3, 1, 5), (5, 130, 17)])
+@pytest.mark.parametrize(
+    "g,n,m",
+    GRAM_SHAPES + [(1792, 60, 8), (64, 100, 8), (3, 1, 5), (5, 130, 17),
+                   (64, 1800, 64), (8, 1000, 256), (7, 333, 7), (4, 300, 65), (2, 50, 33), (2, 1500, 8)],
+)
 def test_cuda_gram_vs_plain(g, n, m, cuda_device):
     """CUDA kernel vs the plain version on the card: rtol 1e-5 with an atol
     of 1e-6 * N * max|C| * max(|C|, |w|), the scale of an N-term fp32 sum
-    taken in another order."""
+    taken in another order.  Both variants (M <= 16 and above, and a long
+    N at M = 8), N * M not a multiple of 4 (333 * 7; M 65 and 33 with
+    unaligned rows), and a second call gives the same bits."""
     rng = np.random.default_rng(n * 1000 + m)
     c = torch.from_numpy(np.abs(rng.standard_normal((g, n, m))).astype(np.float32)).to(cuda_device)
     w = torch.from_numpy(np.abs(rng.standard_normal((g, n))).astype(np.float32)).to(cuda_device)
@@ -122,6 +128,8 @@ def test_cuda_gram_vs_plain(g, n, m, cuda_device):
     gram, rhs = ds.disagg_gram(c, w)
     torch.cuda.synchronize()
     assert ds.disagg_gram.launches == before + 1
+    gram2, rhs2 = ds.disagg_gram(c, w)
+    assert torch.equal(gram, gram2) and torch.equal(rhs, rhs2)
     pg, pr = ref.disagg_gram(c, w)
     scale = float(c.abs().max()) * max(float(c.abs().max()), float(w.abs().max()))
     torch.testing.assert_close(gram, pg, rtol=1e-5, atol=1e-6 * n * scale)
@@ -464,7 +472,13 @@ def test_cuda_flash_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,s,h,hkv,d,lengths",
-    [(3, 100, 8, 8, 32, [1, 100, 37]), (2, 70, 4, 2, 16, [70, 1]), (8, 600, 16, 8, 128, [575, 1, 64, 65, 600, 2, 300, 128])],
+    [(3, 100, 8, 8, 32, [1, 100, 37]), (2, 70, 4, 2, 16, [70, 1]), (8, 600, 16, 8, 128, [575, 1, 64, 65, 600, 2, 300, 128]),
+     (2, 4112, 16, 8, 128, [4111, 0]),   # a sequence of length 0, and a cluster of 8 slices
+     (1, 4112, 16, 8, 128, [4111]),      # one sequence: still a cluster of 8, the portable limit
+     (4, 300, 16, 4, 64, [300, 0, 17, 299]),  # G 4
+     (3, 900, 8, 8, 128, [900, 450, 0]),  # G 1
+     (2, 129, 12, 4, 64, [129, 64]),     # G 3: a register group of 4 with one head unused
+     (1, 257, 16, 1, 32, [257])],         # G 16: two head chunks of 8
 )
 def test_cuda_decode_vs_plain(b, s, h, hkv, d, lengths, dtype, cuda_attention):
     da = cuda_attention[1]
@@ -473,11 +487,19 @@ def test_cuda_decode_vs_plain(b, s, h, hkv, d, lengths, dtype, cuda_attention):
     k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(np.float32)).to("cuda", dtype)
             for _ in range(2))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    plan = da.decode_plan(b, h, hkv, s, d, q.element_size(), da.sm_count(q.device))
+    assert plan["cluster"] <= da.MAX_CLUSTER and (s < 4000 or plan["cluster"] == da.MAX_CLUSTER)
     before = da.decode_attention.launches
     got = da.decode_attention(q, k, v, lens)
+    again = da.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
-    assert da.decode_attention.launches == before + 1
-    _assert_attention_close(got, ref.decode_attention(q, k, v, lens), dtype)
+    assert da.decode_attention.launches == before + 2
+    assert torch.equal(got, again)  # the in-launch merge runs in a fixed order
+    # A sequence of length 0 gives 0 (the plain version spreads its softmax
+    # over every cache slot instead); every other row is held to the plain one.
+    live = lens > 0
+    _assert_attention_close(got[live], ref.decode_attention(q, k, v, lens)[live], dtype)
+    assert not got[~live].any()
 
 
 @pytest.mark.cuda
@@ -537,17 +559,205 @@ def test_build_names_libraries_by_source_headers_and_flags(tmp_path, monkeypatch
     kbuild.check_launch("rmsnorm", 0)
 
 
-@pytest.mark.parametrize("b,hkv,s_max", [(8, 8, 576), (2, 8, 4112), (3, 8, 100), (1, 1, 1), (64, 8, 100_000)])
-def test_decode_split_plan(b, hkv, s_max):
-    """The split-KV grid: slices are whole tiles of at least MIN_SLICE keys,
-    cover the cache, and stop at about BLOCKS_PER_SM blocks per SM (or one
-    slice when the (sequence, KV head) pairs already fill the card)."""
+@pytest.mark.parametrize("b,hkv,s_max", [(8, 8, 576), (2, 8, 4112), (1, 8, 4112), (3, 8, 100), (1, 1, 1),
+                                         (64, 8, 100_000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
+def test_decode_split_plan(b, hkv, s_max, dtype, sms):
+    """The one-launch split-KV plan: slices are the fewest whole tiles that
+    cover the cache, a cluster is a power of two within the portable limit
+    of 8, the shared memory fits in 227 KB, and there is one block per
+    (sequence, KV head) when those pairs already fill the card."""
     from repro_torch.kernels import decode_attention as da
 
-    sms = 132
-    splits, chunk = da.split_plan(b, hkv, s_max, sms)
-    assert chunk % da.TILE == 0 and chunk >= da.MIN_SLICE
-    assert splits * chunk >= s_max and (splits - 1) * chunk < s_max
+    h, d = 2 * hkv, 128
+    elem = torch.empty((), dtype=dtype).element_size()
+    plan = da.decode_plan(b, h, hkv, s_max, d, elem, sms)
+    splits, chunk, tile = plan["cluster"], plan["chunk"], plan["tile"]
+    assert plan["grid"] == (splits, hkv, b) and plan["threads"] == da.THREADS
+    assert tile == da.tile_keys(d, elem) and chunk % tile == 0
+    assert splits * chunk >= s_max and chunk - tile < -(-max(s_max, 1) // splits)  # the least whole tiles
+    assert splits & (splits - 1) == 0 and 1 <= splits <= da.MAX_CLUSTER == 8
+    if b * hkv * da.MAX_CLUSTER <= da.BLOCKS_PER_SM * sms and s_max >= da.MAX_CLUSTER * da.MIN_SLICE_TILES * tile:
+        assert splits == da.MAX_CLUSTER  # few pairs and a long cache: the largest cluster
+    assert plan["smem_bytes"] <= 232448
+    assert 2 * tile * d * elem == da.STAGE_TARGET or tile == da.MAX_TILE  # a 16 KB stage
     if b * hkv >= da.BLOCKS_PER_SM * sms:
         assert splits == 1
-    assert splits <= max(1, -(-da.BLOCKS_PER_SM * sms // (b * hkv)))
+    if splits > 1:
+        assert chunk >= da.MIN_SLICE_TILES * tile and b * hkv * splits <= 2 * da.BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8, 12, 16, 32])
+def test_decode_head_chunks(g):
+    """A block serves at most MAX_GROUP query heads: G splits into as few
+    chunks as will do, each within a power-of-two register group."""
+    from repro_torch.kernels import decode_attention as da
+
+    nchunk, gchunk, group = da.head_chunks(g)
+    assert nchunk * gchunk >= g > (nchunk - 1) * gchunk
+    assert gchunk <= group <= da.MAX_GROUP and group & (group - 1) == 0 and group < 2 * gchunk
+    assert nchunk == -(-g // da.MAX_GROUP)
+    plan = da.decode_plan(2, g * 8, 8, 4112, 64, 2, 132)
+    assert plan["grid"][1] == 8 * nchunk and plan["heads_per_block"] == gchunk and plan["group"] == group
+
+
+@pytest.mark.parametrize("b,h,hkv,s_max,lengths", [(2, 16, 8, 4112, [4111, 0]), (8, 4, 2, 576, [575, 1, 64, 65, 300, 2, 576, 129]),
+                                                    (3, 6, 2, 1000, [1, 999, 500])])
+def test_decode_plan_slices_merge_to_plain(b, h, hkv, s_max, lengths):
+    """The kernel's arithmetic in torch on the CPU: each cluster rank's
+    slice of the plan (clipped at the length) as an unnormalised log2-domain
+    softmax state, merged in rank order, equals the plain version (fp32,
+    2e-5); an empty sequence gives 0, as the kernel does."""
+    from repro_torch.kernels import decode_attention as da
+
+    d = 64
+    rng = np.random.default_rng(b * 100 + h)
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, s_max, hkv, d)).astype(np.float32)) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    plan = da.decode_plan(b, h, hkv, s_max, d, 4, 132)
+    assert plan["cluster"] > 1
+    g = h // hkv
+    qs = q.reshape(b, hkv, g, d) * (d ** -0.5 * 1.4426950408889634)
+    out = torch.zeros(b, hkv, g, d)
+    for bi in range(b):
+        states = []
+        for r in range(plan["cluster"]):
+            lo, hi = r * plan["chunk"], min(int(lens[bi]), (r + 1) * plan["chunk"])
+            if hi <= lo:
+                states.append((torch.full((hkv, g), -1e30), torch.zeros(hkv, g), torch.zeros(hkv, g, d)))
+                continue
+            s2 = torch.einsum("hgd,khd->hgk", qs[bi], k[bi, lo:hi])
+            m = s2.amax(-1)
+            p = torch.exp2(s2 - m[..., None])
+            states.append((m, p.sum(-1), torch.einsum("hgk,khd->hgd", p, v[bi, lo:hi])))
+        mx = torch.stack([st[0] for st in states]).amax(0)
+        acc, l = torch.zeros(hkv, g, d), torch.zeros(hkv, g)
+        for m, ls, a in states:
+            wt = torch.exp2(m - mx)
+            acc, l = acc + a * wt[..., None], l + ls * wt
+        out[bi] = acc / l.clamp(min=1e-30)[..., None]
+    want = ref.decode_attention(q, k, v, lens)
+    live = lens > 0  # the plain version spreads an empty sequence's softmax over every slot
+    torch.testing.assert_close(out.reshape(b, h, d)[live], want[live], atol=2e-5, rtol=2e-5)
+    assert not out[~live].any()
+
+
+@pytest.mark.parametrize(
+    "q_shape,kv_shape,dtypes,lengths,match",
+    [
+        ((2, 4, 128), (2, 8, 2, 128), (torch.bfloat16,) * 3, [3, 4], "CUDA"),                      # CPU tensors
+        ((2, 4, 96), (2, 8, 2, 96), (torch.bfloat16,) * 3, [3, 4], "head_dim"),                     # d 96
+        ((2, 4, 128), (2, 8, 2, 128), (torch.bfloat16, torch.float32, torch.bfloat16), [3, 4], "one of"),  # mixed
+        ((2, 4, 128), (2, 8, 2, 128), (torch.float16,) * 3, [3, 4], "one of"),                      # fp16
+        ((2, 3, 64), (2, 8, 2, 64), (torch.float32,) * 3, [3, 4], "GQA"),                           # H % Hkv
+        ((2, 4, 64), (2, 8, 2, 64), (torch.float32,) * 3, [3], "lengths"),                          # lengths (1,)
+    ],
+)
+def test_decode_wrapper_refusals(q_shape, kv_shape, dtypes, lengths, match):
+    """The decode wrapper raises before any launch and counts nothing."""
+    from repro_torch.kernels import decode_attention as da
+
+    q, k, v = (torch.zeros(shape, dtype=dt) for shape, dt in zip((q_shape, kv_shape, kv_shape), dtypes))
+    before = da.decode_attention.launches
+    with pytest.raises(ValueError, match=match):
+        da.decode_attention(q, k, v, torch.tensor(lengths, dtype=torch.int32))
+    assert da.decode_attention.launches == before
+
+
+@pytest.mark.parametrize(
+    "c_shape,w_shape,dtype,match",
+    [((4, 60, 8), (4, 60), torch.float32, "CUDA"),     # CPU tensors
+     ((4, 60, 8), (4, 61), torch.float32, "need c"),   # N mismatch
+     ((60,), (60,), torch.float32, "need c"),           # no M axis
+     ((4, 60, 8), (4, 60), torch.int32, "floating")],  # integer inputs
+)
+def test_gram_wrapper_refusals(c_shape, w_shape, dtype, match):
+    """The gram wrapper raises before any launch and counts nothing."""
+    c, w = torch.ones(c_shape, dtype=dtype), torch.ones(w_shape, dtype=dtype)
+    before = ds.disagg_gram.launches
+    with pytest.raises(ValueError, match=match):
+        ds.disagg_gram(c, w)
+    assert ds.disagg_gram.launches == before
+
+
+@pytest.mark.parametrize(
+    "g,n,m,kind",
+    [(1792, 60, 8, "warp"), (64, 100, 8, "warp"), (4, 1, 5, "warp"), (16, 130, 16, "warp"), (16, 130, 17, "tiled"),
+     (2, 50, 33, "tiled"), (64, 1800, 64, "tiled"), (8, 1000, 256, "tiled"), (1, 10, 300, "tiled"),
+     (1, 1024, 8, "warp"), (1, 5000, 8, "tiled")],
+)
+def test_gram_plan(g, n, m, kind):
+    """The variant is chosen by M and N (one warp walks at most WARP_MAX_N
+    rows); the warp variant's chunks cover N
+    and fit a 1024-float stage, its grid spreads G over the SMs; the tiled
+    variant walks the upper-triangle tiles once each and splits N into
+    whole slabs that cover it, in a cluster within the portable limit."""
+    sms = 132
+    plan = ds.gram_plan(g, n, m, sms)
+    assert ds.variant(m, n) == kind == plan["variant"]
+    if kind == "warp":
+        rows, warps = plan["rows"], plan["warps"]
+        assert 1 <= rows <= min(n, ds.WARP_MAX_ROWS) and (rows * m <= ds.WARP_STAGE_FLOATS or rows == 1)
+        assert plan["chunks"] * rows >= n > (plan["chunks"] - 1) * rows
+        assert 1 <= warps <= ds.MAX_WARPS and plan["threads"] == 32 * warps
+        assert plan["grid"][0] <= ds.BLOCKS_PER_SM * sms
+        assert plan["grid"][0] * warps >= g or plan["grid"][0] == ds.BLOCKS_PER_SM * sms
+        assert plan["smem_bytes"] <= 232448
+        if g <= sms:
+            assert warps == 1 and plan["grid"][0] == g  # one warp on each of G SMs
+        return
+    tile, tiles, splits = plan["tile"], plan["tiles"], plan["splits"]
+    nt = -(-m // tile)
+    assert tile == (32 if m <= 128 else 64)
+    assert sorted(tiles) == list(tiles) and len(tiles) == nt * (nt + 1) // 2 == len(set(tiles))
+    assert all(i <= j < nt for i, j in tiles)
+    covered = {(i, j) for i, j in tiles} | {(j, i) for i, j in tiles}
+    assert covered == {(i, j) for i in range(nt) for j in range(nt)}
+    assert plan["grid"] == (splits, g, len(tiles)) and splits & (splits - 1) == 0 and splits <= ds.MAX_CLUSTER
+    assert plan["rows"] % ds.SLAB_ROWS == 0 and splits * plan["rows"] >= n > (splits - 1) * plan["rows"] - ds.SLAB_ROWS
+
+
+@pytest.mark.parametrize("g,n,m", [(16, 130, 17), (2, 50, 33), (3, 130, 64), (1, 300, 100), (2, 1500, 8)])
+def test_gram_plan_tiles_sum_to_plain(g, n, m):
+    """The tiled variant's arithmetic in torch on the CPU: each cluster
+    rank's N slice of each upper tile, added in rank order and mirrored,
+    with rhs from the diagonal tiles, equals the plain version (rtol 1e-5,
+    atol 1e-6 * N, the scale of an N-term fp32 sum in another order)."""
+    rng = np.random.default_rng(n + m)
+    c = torch.from_numpy(np.abs(rng.standard_normal((g, n, m))).astype(np.float32))
+    w = torch.from_numpy(np.abs(rng.standard_normal((g, n))).astype(np.float32))
+    plan = ds.gram_plan(g, n, m, 132)
+    tile, rows = plan["tile"], plan["rows"]
+    gram, rhs = torch.full((g, m, m), float("nan")), torch.full((g, m), float("nan"))
+    for i, j in plan["tiles"]:
+        ri, rj = slice(i * tile, (i + 1) * tile), slice(j * tile, (j + 1) * tile)
+        block = torch.zeros(g, len(range(m)[ri]), len(range(m)[rj]))
+        part_rhs = torch.zeros(g, len(range(m)[ri]))
+        for r in range(plan["splits"]):
+            cs = c[:, r * rows:(r + 1) * rows]
+            block = block + cs[:, :, ri].mT @ cs[:, :, rj]
+            if i == j:
+                part_rhs = part_rhs + (cs[:, :, ri] * w[:, r * rows:(r + 1) * rows, None]).sum(1)
+        gram[:, ri, rj] = block
+        gram[:, rj, ri] = block.mT
+        if i == j:
+            rhs[:, ri] = part_rhs
+    pg, pr = ref.disagg_gram(c, w)
+    scale = float(c.max()) * max(float(c.max()), float(w.max()))
+    torch.testing.assert_close(gram, pg, rtol=1e-5, atol=1e-6 * n * scale)
+    torch.testing.assert_close(rhs, pr, rtol=1e-5, atol=1e-6 * n * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_cuda_decode_geometry_matches_plan(d, dtype, group, cuda_attention):
+    """The built decode kernel's tile and dynamic shared memory are the
+    plan's, within the card's 227 KB per block."""
+    da = cuda_attention[1]
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert da.kernel_geometry(d, elem, group) == (da.tile_keys(d, elem), da.smem_bytes(d, elem, group))
+    assert da.smem_bytes(d, elem, group) <= 232448

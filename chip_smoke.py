@@ -29,27 +29,42 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    ``fleet_profile_batched`` and ``run_fleet_gram`` (the ``disagg_gram``
    kernel) against ``run_fleet``; replayed under torch.profiler; then the
    same profiling on 3 nodes x 300 s on the card and on the CPU.
-4. Serving path: internlm2-1.8b at its full published width (random
+4. Streaming control plane (no hand kernel is on this path, as in the
+   reference; every kernel count must stay 0): on the fleet phase's
+   packed inputs, ``run_fleet_stream`` against ``run_fleet`` (1e-5 of
+   scale, per-tick power 1e-4) and a tick-at-a-time ``fleet_step`` loop
+   against it (bitwise), with the per-tick cost against the segment
+   engine's amortised one (``seg_us_per_tick``, ``stream_us_per_tick``,
+   ``overhead_ratio``); a hookless ``start_fleet_stream`` session from its
+   first engine tick to its last under
+   ``torch.cuda.set_sync_debug_mode("error")``, its buffers' storage
+   unchanged, and its reports against the same session on the CPU;
+   ``EnergyFirstControlPlane.profile_fleet`` on the 64 x 1800 s fleet
+   with ``prefetch=0``, ``prefetch=2`` and ``drain=True`` (ticks/s each,
+   conservation on every tick, reports against ``fleet_profile_batched``,
+   the three runs equal bitwise); 3 nodes x 300 s on the card and the
+   CPU (1e-5 of scale); 120 ticks of a session under torch.profiler.
+5. Serving path: internlm2-1.8b at its full published width (random
    weights from a seeded generator, bf16 compute) serves 24 requests of two
    function classes (chat: batch 8, prompt 512, 64 tokens; summarize: batch
    2, prompt 4096, 16 tokens; 2:1) through ``MeteredServer`` and the flash
    and decode attention kernels; the measured trace is metered by the
    simulated telemetry and ``FaasMeterProfiler`` and priced.
-5. RMSNorm path: ``ops.rmsnorm`` (the kernel) on the served model's final
+6. RMSNorm path: ``ops.rmsnorm`` (the kernel) on the served model's final
    hidden states, against the model's plain ``rms_norm``.
-6. Model consistency at full width: fp32 prefill vs full forward (2e-3)
+7. Model consistency at full width: fp32 prefill vs full forward (2e-3)
    and one decode step vs the full forward over the extended sequence
    (5e-3), through the kernels; then 16 greedy steps with the kernels
    against the plain versions patched into ``ops`` here: equal tokens in
    fp32, and in bf16 the logits' distance from fp32 compute for both (the
    kernels' at most 1.5x the plain versions').
-7. Trace: one warm chat and one warm summarize request under
+8. Trace: one warm chat and one warm summarize request under
    torch.profiler: device busy, idle share, top kernels; every
    ``decode_attention`` call must be one kernel on the device.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after (every bf16 flash launch of the serving path must be a tensor-core
-one); while the fleet and serving paths run, the plain versions are
+one); while the fleet, streaming and serving paths run, the plain versions are
 watched, and a CUDA tensor reaching one fails the run.
 
 Output: one line per measurement, then a ``{"kernels": [...]}`` JSON line,
@@ -376,7 +391,9 @@ def _engine_inputs(traces, sims, device, n):
 
 def phase_main_path(device: str, b: int = B_NODES, duration: float = DURATION_S):
     """Drive the port's main path on ``device``.  Returns its checks and
-    times, and closures that replay its two engine calls for tracing."""
+    times, closures that replay its two engine calls for tracing, and the
+    fleet (traces, simulations, packed engine inputs, batched reports) that
+    the streaming phase reuses."""
     from repro_torch.core.engine import EngineConfig, run_fleet, run_fleet_gram
     from repro_torch.core.profiler import FaasMeterProfiler, ProfilerConfig, fleet_profile_batched
     from repro_torch.telemetry.simulator import NodeSimulator, SimulatorConfig
@@ -451,7 +468,9 @@ def phase_main_path(device: str, b: int = B_NODES, duration: float = DURATION_S)
             out["run_fleet_gram_s"],
         ),
     }
-    return out, replays
+    fleet = dict(traces=traces, sims=sims, inputs=inputs, init_c=init_c, init_w=init_w,
+                 reports=reports, duration=duration)
+    return out, replays, fleet
 
 
 def phase_trace(replays, kernel_calls=None) -> None:
@@ -528,6 +547,321 @@ def phase_small_agreement() -> float:
     # on the card; 1e-4 of the scale is 10x the CPU pins against the reference.
     assert worst <= 1e-4, worst
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Streaming control plane
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, want) -> float:
+    """max |got - want| relative to the scale max(1, max |want|)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _windows(tels):
+    """Each telemetry series of the fleet stacked (N, B) in numpy."""
+    col = lambda get: np.stack([np.asarray(get(t)) for t in tels], axis=1).astype(np.float32)
+    return (col(lambda t: t.system_power), col(lambda t: t.chip_power),
+            col(lambda t: t.cp_cpu_frac), col(lambda t: t.sys_cpu_frac))
+
+
+def phase_stream_engine(fleet, device="cuda") -> dict:
+    """The streaming engine on the fleet phase's packed inputs: parity with
+    ``run_fleet``, a tick-at-a-time ``fleet_step`` loop against
+    ``run_fleet_stream`` (bitwise), and the per-tick cost against the
+    segment engine's amortised one (the reference's ``streaming_overhead``
+    metrics: each tick of the loop synchronised)."""
+    from repro_torch.core.engine import (
+        EngineConfig,
+        fleet_initial_estimate,
+        fleet_step,
+        fleet_stream_init,
+        fleet_ticks,
+        run_fleet,
+        run_fleet_stream,
+    )
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    inputs, init_c, init_w = fleet["inputs"], fleet["init_c"], fleet["init_w"]
+    b, s, n_w, m = inputs.c.shape
+    t_total = s * n_w
+    cfg = EngineConfig()
+    out = {"engine_shape": [b, s, n_w, m], "ticks": t_total}
+    seg = lambda: run_fleet(inputs, cfg, init_c=init_c, init_w=init_w, device=device)
+    stream = run_fleet_stream(inputs, cfg, init_c=init_c, init_w=init_w, device=device)
+    want = seg()
+    out["stream_vs_segment_x_rel"] = max(
+        _rel(stream.x0, want.x0), _rel(stream.x_final, want.x_final),
+        _rel(stream.x_trajectory, want.x_trajectory),
+    )
+    out["stream_vs_segment_tick_power_rel"] = max(
+        _rel(stream.tick_power, want.tick_power), _rel(stream.unattributed, want.unattributed)
+    )
+    ticks = fleet_ticks(inputs)
+    tick_list = [ticks.at(t) for t in range(t_total)]
+
+    def loop(lat=None):
+        state = fleet_stream_init(fleet_initial_estimate(init_c, init_w, cfg), n_w, device=device)
+        sync()
+        xs = []
+        for tk in tick_list:
+            t1 = time.perf_counter()
+            state, att = fleet_step(state, tk, cfg)
+            if lat is not None:
+                sync()
+                lat.append(time.perf_counter() - t1)
+            if att.step_completed:
+                xs.append(att.x)
+        sync()
+        return state, xs
+
+    state, xs = loop()
+    out["tick_loop_bitwise"] = bool(
+        torch.equal(torch.stack(xs, dim=1), stream.x_trajectory)
+        and torch.equal(state.kalman.x, stream.x_final)
+    )
+    t0 = time.perf_counter()
+    for _ in range(3):
+        seg()
+    sync()
+    out["seg_us_per_tick"] = (time.perf_counter() - t0) / 3 / t_total * 1e6
+    lat: list = []
+    loop(lat)
+    lat_us = np.asarray(lat) * 1e6
+    out["stream_us_per_tick"] = float(lat_us.mean())
+    out["stream_p50_us"] = float(np.percentile(lat_us, 50))
+    out["stream_p99_us"] = float(np.percentile(lat_us, 99))
+    out["stream_boundary_us_mean"] = float(lat_us[n_w - 1 :: n_w].mean())
+    t0 = time.perf_counter()
+    loop()
+    out["stream_unsynced_us_per_tick"] = (time.perf_counter() - t0) / t_total * 1e6
+    out["overhead_ratio"] = out["stream_us_per_tick"] / out["seg_us_per_tick"]
+    _log_all("stream engine", out)
+    assert out["stream_vs_segment_x_rel"] <= 1e-5, out
+    assert out["stream_vs_segment_tick_power_rel"] <= 1e-4, out
+    assert out["tick_loop_bitwise"], "tick-at-a-time fleet_step differs from run_fleet_stream"
+    return out
+
+
+def _log_all(prefix: str, out: dict) -> None:
+    for k, v in out.items():
+        log(f"{prefix} {k}: {v}")
+
+
+def _open_stream(fleet, device, **kw):
+    from repro_torch.core.profiler import FaasMeterProfiler, ProfilerConfig
+
+    tels = [sim.telemetry for sim in fleet["sims"]]
+    return FaasMeterProfiler(ProfilerConfig()).start_fleet_stream(
+        [(t.fn_id, t.start, t.end) for t in fleet["traces"]], num_fns=fleet["traces"][0].num_fns,
+        duration=fleet["duration"], idle_watts=[t.idle_watts for t in tels],
+        has_chip=True, has_cp=True, device=device, **kw,
+    )
+
+
+def phase_stream_gate(fleet) -> tuple[dict, list]:
+    """A session with no ``on_tick`` hook, from its first engine tick to its
+    last, under ``torch.cuda.set_sync_debug_mode("error")``: any implicit
+    synchronisation of the dispatch stage raises.  Its carried buffers keep
+    their storage.  The same session on the CPU (the one the CPU tests pin
+    to the reference) gives the same skews and the same footprints and
+    trajectory within 1e-5 of scale: the session computes the trace's
+    statistics on the host, so card and CPU start from the same bits and
+    part only by the engine's float order.  Returns the hookless dispatch
+    rate and the card's reports."""
+    windows = _windows([sim.telemetry for sim in fleet["sims"]])
+    ptrs, armed = {}, []
+
+    def arm(sess):
+        ptrs.update(sess.buffer_pointers())
+        torch.cuda.synchronize()
+        armed.append(time.perf_counter())
+        torch.cuda.set_sync_debug_mode("error")
+
+    sess = _open_stream(fleet, "cuda", on_bootstrap=arm)
+    try:
+        for t in range(windows[0].shape[0]):
+            sess.push_window(*(w[t] for w in windows))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - armed[0]
+    t_total = sess.s * sess.cfg.step_windows
+    assert sess.ticks_dispatched == t_total, (sess.ticks_dispatched, t_total)
+    assert sess.buffer_pointers() == ptrs, "a carried buffer moved during the stream"
+    reports = sess.finalize()
+    cpu = _open_stream(fleet, "cpu")
+    for t in range(windows[0].shape[0]):
+        cpu.push_window(*(w[t] for w in windows))
+    worst = 0.0
+    for g, c in zip(reports, cpu.finalize()):
+        assert g.skew_windows == c.skew_windows
+        for f in ("x_power", "x_trajectory"):
+            worst = max(worst, _rel(getattr(g, f), getattr(c, f)))
+    out = {"gate_ticks": sess.ticks_dispatched, "gate_hookless_ticks_per_s": t_total / wall,
+           "full_fleet_card_vs_cpu_rel": worst}
+    _log_all("stream gate", out)
+    assert worst <= 1e-5, worst
+    return out, reports
+
+
+def _tracker_state(tr):
+    return (tr.j_indiv, tr.invocations, np.asarray([tr.elapsed_s, tr.steps_seen, tr.ticks_seen]))
+
+
+def phase_control_plane(fleet, gate_reports, device="cuda") -> dict:
+    """``EnergyFirstControlPlane.profile_fleet`` on the card over the fleet
+    phase's traces (the same seeded telemetry): conservation on every tick
+    (1e-3 W), efficiency of each report (1e-5 relative), ticks/s per ingest
+    mode, and the three modes equal bitwise (reports and trackers) and
+    equal to the hookless session's reports.  Against
+    ``fleet_profile_batched`` each node's skew stays within 1 window and its
+    Total-Error within the batched one + 0.05 (the reference's bounds for a
+    synced fleet); the footprints' gap is recorded, not bounded by the
+    reference test's 2 W: the session estimates skew on the init window
+    only, and on this fleet the reference's own session is 7.03 W from its
+    batched path at node 58 (tests/test_torch_control_plane.py)."""
+    from repro_torch.serving import EnergyFirstControlPlane
+    from repro_torch.workload.functions import paper_functions
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cp = EnergyFirstControlPlane(paper_functions(), device=device)
+    t_first = N_INIT
+    t_total = (int(fleet["duration"]) - N_INIT) // N_K * N_K
+    out, runs = {}, {}
+    for name, kw in (("prefetch0", dict(prefetch=0)), ("prefetch2", dict(prefetch=2)),
+                     ("prefetch2_drain", dict(prefetch=2, drain=True))):
+        seen, stamps, worst = [], [], [0.0]
+
+        def on_tick(tk, trackers, seen=seen, stamps=stamps, worst=worst):
+            stamps.append(time.perf_counter())
+            seen.append(tk.t)
+            recon = tk.tick_power.sum(-1) + tk.unattributed
+            worst[0] = max(worst[0], float(np.abs(recon - tk.target).max()))
+
+        t0 = time.perf_counter()
+        res = cp.profile_fleet(fleet["traces"], on_tick=on_tick, **kw)
+        sync()
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        out[f"{name}_ticks_per_s"] = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        out[f"{name}_conservation_max_w"] = worst[0]
+        log(f"control plane {name}: wall_s={out[f'{name}_wall_s']:.3f} "
+            f"ticks_per_s={out[f'{name}_ticks_per_s']:.1f} conservation_max_w={worst[0]:.3e}")
+        assert seen == list(range(t_first, t_first + t_total)), (name, seen[:3], len(seen))
+        assert worst[0] <= 1e-3, (name, worst[0])
+        runs[name] = res
+    res = runs["prefetch2"]
+    skew_d, x_d, terr_d, eff = [], [], [], []
+    for pw, rb in zip(res, fleet["reports"]):
+        rep = pw.report
+        assert rep.x_power.device.type == device
+        skew_d.append(abs(rep.skew_windows - rb.skew_windows))
+        x_d.append(float((rep.x_power - rb.x_power).abs().max()))
+        terr_d.append(rep.total_error - rb.total_error)
+        total = float(rep.spectrum.j_indiv.sum()) + rep.cp_energy + rep.idle_energy
+        eff.append(abs(float(rep.spectrum.j_total.sum()) - total) / total)
+        assert pw.footprint_stream.ticks_seen == t_total
+    out.update(vs_batched_skew_max=max(skew_d), vs_batched_x_power_max_w=max(x_d),
+               vs_batched_x_power_argmax=int(np.argmax(x_d)),
+               vs_batched_nodes_over_2w=int(sum(d > 2.0 for d in x_d)),
+               vs_batched_total_error_max_excess=max(terr_d), efficiency_max_rel_err=max(eff))
+    _log_all("control plane", out)
+    assert max(skew_d) < 1.0 and max(terr_d) <= 0.05, out
+    assert max(eff) <= 1e-5, out
+    for name in ("prefetch0", "prefetch2_drain"):
+        for a, b in zip(res, runs[name]):
+            for f in ("x_power", "x_trajectory", "x_cp"):
+                assert torch.equal(getattr(a.report, f), getattr(b.report, f)), (name, f)
+            assert torch.equal(a.report.spectrum.j_total, b.report.spectrum.j_total), name
+            assert a.report.total_error == b.report.total_error, name
+            for u, v in zip(_tracker_state(a.footprint_stream), _tracker_state(b.footprint_stream)):
+                assert np.array_equal(u, v), (name, "tracker")
+    for a, g in zip(res, gate_reports):
+        assert torch.equal(a.report.x_trajectory, g.x_trajectory), "profile_fleet vs hookless session"
+    out["modes_bitwise_equal"] = True
+    return out
+
+
+def phase_stream_small_agreement() -> float:
+    """``profile_fleet`` of a 3-node x 300 s fleet on the card and on the
+    CPU: max |card - cpu| over reports and trackers, relative to scale."""
+    from repro_torch.serving import EnergyFirstControlPlane
+    from repro_torch.workload.azure import WorkloadConfig, fleet_traces
+    from repro_torch.workload.functions import paper_functions
+
+    reg = paper_functions()
+    traces = fleet_traces(reg, WorkloadConfig(duration_s=300.0, seed=20), 3)
+    card = EnergyFirstControlPlane(reg).profile_fleet(traces)
+    cpu = EnergyFirstControlPlane(reg, device="cpu").profile_fleet(traces)
+    worst = 0.0
+    for g, c in zip(card, cpu):
+        assert abs(g.report.skew_windows - c.report.skew_windows) <= 1e-5
+        for f in ("x_power", "x_trajectory"):
+            worst = max(worst, _rel(getattr(g.report, f), getattr(c.report, f)))
+        worst = max(worst, _rel(g.report.spectrum.j_total, c.report.spectrum.j_total))
+        worst = max(worst, _rel(torch.from_numpy(g.footprint_stream.per_invocation_total),
+                                torch.from_numpy(c.footprint_stream.per_invocation_total)))
+    return worst
+
+
+def phase_stream_trace(fleet, device="cuda") -> dict:
+    """A hookless session on the card, past its first Kalman step: 120
+    ticks (two steps) timed untraced, the next 120 under torch.profiler
+    (device busy, idle share against the untraced wall, device operations,
+    top kernels), then 59 mid-step ticks traced alone: device operations
+    per mid-step tick, and per boundary tick from the difference."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    windows = _windows([sim.telemetry for sim in fleet["sims"]])
+    sess = _open_stream(fleet, device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    pushed = [0]
+
+    def run_to(tick):
+        while sess._next_tick < tick:
+            sess.push_window(*(w[pushed[0]] for w in windows))
+            pushed[0] += 1
+        sync()
+
+    def traced(tick):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_to(tick)
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+        return ev, kern
+
+    base = sess.init_n + N_K
+    run_to(base)
+    t0 = time.perf_counter()
+    run_to(base + 2 * N_K)
+    wall = time.perf_counter() - t0
+    ev, kern = traced(base + 4 * N_K)
+    out = {"trace_ticks": 2 * N_K, "trace_untraced_wall_s": wall}
+    if device != "cuda":
+        return out  # a CPU rehearsal has no device to trace
+    assert ev, "torch.profiler recorded no device events: device busy and idle share not measured"
+    busy = sum(e.time_range.elapsed_us() for e in ev) * 1e-6
+    mid_ev, mid_kern = traced(base + 5 * N_K - 1)
+    k_mid = len(mid_kern) / (N_K - 1)
+    ops_mid = len(mid_ev) / (N_K - 1)
+    out.update(
+        trace_device_busy_s=busy, trace_idle_share=1.0 - busy / wall,
+        trace_device_ops=len(ev), trace_kernels=len(kern),
+        kernels_per_mid_tick=k_mid, device_ops_per_mid_tick=ops_mid,
+        kernels_per_boundary_tick=(len(kern) - (2 * N_K - 2) * k_mid) / 2,
+        device_ops_per_boundary_tick=(len(ev) - (2 * N_K - 2) * ops_mid) / 2,
+        mid_tick_device_us=sum(e.time_range.elapsed_us() for e in mid_ev) / (N_K - 1),
+    )
+    _log_all("stream trace", out)
+    by_name: dict = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"stream trace:   {ms:9.3f} ms  {kname[:90]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -991,7 +1325,7 @@ def main() -> int:
     plain_calls, restore = _watch_plain(ref, plain_names)
     zero_counts()
     try:
-        main_out, replays = phase_main_path("cuda")
+        main_out, replays, fleet = phase_main_path("cuda")
     finally:
         restore()
     gram_launches = ds.disagg_gram.launches
@@ -1005,6 +1339,29 @@ def main() -> int:
     worst = phase_small_agreement()
     log(f"small fleet card vs cpu: max rel diff {worst:.3e}")
     log(f"phase fleet path: {time.perf_counter() - t0:.1f} s")
+
+    # Streaming control plane: the reference's streaming path reaches no
+    # Pallas kernel (no gram_fn on it), so none of the hand kernels may
+    # launch while it runs; counts zeroed just before, read just after.
+    t0 = time.perf_counter()
+    plain_calls, restore = _watch_plain(ref, plain_names)
+    zero_counts()
+    try:
+        stream_out = phase_stream_engine(fleet)
+        gate_out, gate_reports = phase_stream_gate(fleet)
+        stream_out.update(gate_out)
+        stream_out.update(phase_control_plane(fleet, gate_reports))
+        stream_out["card_vs_cpu_rel"] = phase_stream_small_agreement()
+        stream_out.update(phase_stream_trace(fleet))
+    finally:
+        restore()
+    stream_launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"streaming card_vs_cpu_rel: {stream_out['card_vs_cpu_rel']:.3e}; hand-kernel launches {stream_launches}")
+    assert not any(stream_launches.values()), stream_launches
+    assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
+    assert stream_out["card_vs_cpu_rel"] <= 1e-5, stream_out["card_vs_cpu_rel"]
+    del fleet, gate_reports
+    log(f"phase streaming control plane: {time.perf_counter() - t0:.1f} s")
 
     # Serving path: same discipline.
     t0 = time.perf_counter()

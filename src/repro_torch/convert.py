@@ -2,7 +2,8 @@
 reference package.
 
 What crosses from ``repro`` is the metering path's engine inputs, Kalman
-state, telemetry and configs, and the model zoo's parameter trees.  Every
+and streaming state, telemetry and configs, and the model zoo's parameter
+trees.  Every
 function here takes plain numpy arrays (``np.asarray(jax_array)``) or plain
 fields, never a reference object, so this module imports nothing of the
 reference.
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.disaggregation import DisaggregationConfig
-from repro_torch.core.engine.types import EngineConfig, FleetInputs
+from repro_torch.core.engine.types import EngineConfig, FleetInputs, FleetStep, FleetStreamState
 from repro_torch.core.kalman import KalmanConfig, KalmanState
 from repro_torch.core.profiler import ProfilerConfig, Telemetry
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -42,14 +43,41 @@ def kalman_state_from_numpy(
     x, p, seen, lat_mean, lat_m2, lat_count,
     *, device: str | torch.device = DEFAULT_DEVICE,
 ) -> KalmanState:
-    """``KalmanState`` on ``device`` (``seen`` as bool, the rest float32)."""
+    """``KalmanState`` on ``device`` (``seen`` as bool, the rest float32),
+    every leaf a copy: the streaming engine updates the state in place."""
     dev = resolve_device(device)
     return KalmanState(
         x=_f32(x, dev), p=_f32(p, dev),
-        seen=torch.as_tensor(np.asarray(seen, bool), device=dev),
+        seen=torch.tensor(np.asarray(seen, bool), device=dev),
         lat_mean=_f32(lat_mean, dev), lat_m2=_f32(lat_m2, dev),
         lat_count=_f32(lat_count, dev),
     )
+
+
+def stream_state_from_numpy(
+    kalman, c_buf, w_buf, a, lat_sum, lat_sumsq, tick_in_step, step_idx,
+    *, device: str | torch.device = DEFAULT_DEVICE,
+) -> FleetStreamState:
+    """``FleetStreamState`` on ``device`` from the reference's stream state
+    as numpy: ``kalman`` is the six ``KalmanState`` leaves in order, the
+    counters (device scalars there) become host ints."""
+    dev = resolve_device(device)
+    return FleetStreamState(
+        kalman=kalman_state_from_numpy(*kalman, device=dev),
+        c_buf=_f32(c_buf, dev), w_buf=_f32(w_buf, dev), a=_f32(a, dev),
+        lat_sum=_f32(lat_sum, dev), lat_sumsq=_f32(lat_sumsq, dev),
+        tick_in_step=int(np.asarray(tick_in_step)),
+        step_idx=int(np.asarray(step_idx)),
+    )
+
+
+def fleet_step_from_numpy(
+    c, w, a, lat_sum, lat_sumsq, valid=None,
+    *, device: str | torch.device = DEFAULT_DEVICE,
+) -> FleetStep:
+    """One streaming tick (``FleetStep``) on ``device`` from numpy."""
+    dev = resolve_device(device)
+    return FleetStep(*(_f32(x, dev) for x in (c, w, a, lat_sum, lat_sumsq, valid)))
 
 
 def telemetry_from_numpy(

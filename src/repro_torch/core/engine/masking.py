@@ -1,18 +1,19 @@
 """Masking stage: the ragged-fleet semantics folds, written once.
 
   ``_apply_mask``      segment inputs — tick mask + fn mask into the data;
+  ``fold_step_valid``  streaming tick — per-node liveness into the data;
   ``_mask_fn_axis``    outputs — masked functions' rows forced to 0.0.
 
-Every segment engine path routes through these (via ``core.engine.plan``),
-so the paths cannot disagree on what a masked tick or padded function
-means.
+Every engine path routes through these (via ``core.engine.plan`` on the
+segment side, directly on the streaming side), so the paths cannot
+disagree on what a masked tick or padded function means.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.engine.types import FleetInputs, FleetResult, Tensor
+from repro_torch.core.engine.types import FleetInputs, FleetResult, FleetStep, Tensor
 
 
 def _apply_mask(inputs: FleetInputs) -> FleetInputs:
@@ -44,6 +45,21 @@ def _apply_mask(inputs: FleetInputs) -> FleetInputs:
     return FleetInputs(
         c=c, w=w, a=a, lat_sum=ls, lat_sumsq=lq,
         mask=inputs.mask, fn_mask=inputs.fn_mask,
+    )
+
+
+def fold_step_valid(step: FleetStep) -> FleetStep:
+    """Fold a streaming tick's per-node liveness into its data (identity
+    when ``step.valid is None``): invalid node-ticks become zero telemetry,
+    so they write zero rows into the ring buffer, add nothing to the
+    invocation sums and attribute exactly 0 W."""
+    if step.valid is None:
+        return step
+    v = step.valid.to(step.c.dtype)
+    return FleetStep(
+        c=step.c * v[:, None], w=step.w * v,
+        a=step.a * v[:, None], lat_sum=step.lat_sum * v[:, None],
+        lat_sumsq=step.lat_sumsq * v[:, None],
     )
 
 

@@ -10,10 +10,11 @@ Pipeline per accounting segment:
   4. Kalman steps over subsequent N_K batches -> X trajectory (§4.2);
   5. assemble the Shapley footprint spectrum (§4.4, Eq. 4).
 
-Pure mode only: combined mode (§4.3, the CPU-counter model) and the
-streaming sessions are not ported yet and raise (see ROADMAP.md).  Entry
-points take ``device=`` (default ``"cuda"``); the simulator's float32 CPU
-telemetry and the trace arrays are moved there on the way in.
+Pure mode only: combined mode (§4.3, the CPU-counter model) is not ported
+yet and raises (see ROADMAP.md).  ``start_fleet_stream`` opens the live
+``StreamingFleetSession`` (``core.sessions``).  Entry points take
+``device=`` (default ``"cuda"``); the simulator's float32 CPU telemetry and
+the trace arrays are moved there on the way in.
 """
 
 from __future__ import annotations
@@ -30,18 +31,24 @@ from repro_torch.core.disaggregation import DisaggregationConfig, disaggregate
 from repro_torch.core.engine.plan import segment_plan
 from repro_torch.core.engine.segment import _NO_MESH
 from repro_torch.core.kalman import KalmanConfig, kalman_init, run_kalman
+from repro_torch.core.sessions.base import _NO_COMBINED
+from repro_torch.core.sessions.drain import StreamTick
 from repro_torch.core.sessions.report import (
     FootprintReport,
     _finalize_report,
     _node_durations,
     _per_fn_latency_stats,
+    _trace_tensors,
 )
+from repro_torch.core.sessions.streaming import StreamingFleetSession
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = [
     "FaasMeterProfiler",
     "FootprintReport",
     "ProfilerConfig",
+    "StreamTick",
+    "StreamingFleetSession",
     "Telemetry",
     "fleet_profile",
     "fleet_profile_batched",
@@ -49,12 +56,6 @@ __all__ = [
 ]
 
 Tensor = torch.Tensor
-
-_NO_COMBINED = (
-    "mode='combined' (§4.3 CPU-counter model) is not ported yet: "
-    "ROADMAP Queue 1 item 6"
-)
-
 
 class Telemetry(NamedTuple):
     """Signals resampled onto the delta window grid (length N each)."""
@@ -93,15 +94,6 @@ class ProfilerConfig:
     disagg: DisaggregationConfig = DisaggregationConfig()
     sync_max_shift: int = 16       # bound on skew search (windows)
     account_control_plane: bool = True
-
-
-def _trace_tensors(fn_id, start, end, dev):
-    """(fn_id, start, end) as int64/float32/float32 tensors on ``dev``."""
-    return (
-        torch.as_tensor(fn_id, dtype=torch.int64, device=dev),
-        torch.as_tensor(start, dtype=torch.float32, device=dev),
-        torch.as_tensor(end, dtype=torch.float32, device=dev),
-    )
 
 
 class FaasMeterProfiler:
@@ -177,6 +169,46 @@ class FaasMeterProfiler:
             idle_watts=telemetry.idle_watts, duration=duration, skew=skew,
         )
 
+    def start_fleet_stream(
+        self,
+        traces: list[tuple],
+        *,
+        num_fns: int,
+        duration: float | Sequence[float],
+        idle_watts,
+        has_chip,
+        has_cp: bool,
+        on_tick=None,
+        on_bootstrap=None,
+        mesh=None,
+        slots: int | None = None,
+        fn_counters=None,
+        counter_model=None,
+        window_features=None,
+        device: str | torch.device = DEFAULT_DEVICE,
+    ) -> StreamingFleetSession:
+        """Open an online profiling session for a fleet on ``device``.
+
+        The streaming counterpart of ``fleet_profile_batched``: returns a
+        ``StreamingFleetSession`` to be fed one telemetry window at a time
+        via ``push_window`` (or a whole tick stream via ``ingest``);
+        ``finalize`` yields the same per-node ``FootprintReport`` list.
+        ``duration`` may be a per-node sequence (ragged fleet) and
+        ``has_chip`` a per-node bool sequence (chipless rows zeroed on
+        ingest).  Raises ``ValueError`` for configurations the streaming
+        engine does not cover (non-default disaggregation, segments too
+        short for a Kalman step, ragged nodes too short to bootstrap) and
+        ``NotImplementedError`` for the unported mesh, slot-pool and
+        combined-mode arguments (ROADMAP Queue 1 items 6 and 8).
+        """
+        return StreamingFleetSession(
+            self, traces, num_fns=num_fns, duration=duration,
+            idle_watts=idle_watts, has_chip=has_chip, has_cp=has_cp,
+            on_tick=on_tick, on_bootstrap=on_bootstrap, mesh=mesh, slots=slots,
+            fn_counters=fn_counters, counter_model=counter_model,
+            window_features=window_features, device=device,
+        )
+
     def _prep_node(self, fn_id, start, end, telemetry, num_fns, n_windows):
         """Steps 1-2 for one node: synchronize the system signal against the
         chip reference (Eq. 5), then assemble the contribution matrix with
@@ -207,16 +239,22 @@ class FaasMeterProfiler:
         """Pure-mode disaggregation target: idle-subtracted (X_No_Idle)."""
         return torch.clamp(w_sys - telemetry.idle_watts, min=0.0)
 
-    def _per_step_stats(self, fn_id, start, end, num_fns, m_aug, init_n, s):
+    def _per_step_stats(
+        self, fn_id, start, end, num_fns, m_aug, init_n, s,
+        *, step_windows: int | None = None,
+    ):
         """Per-Kalman-step invocation counts + latency moments, by start time.
 
         Step indices come from float32 ``floor((start - t_begin) / step_len)``
         as in the reference, so invocations on a step edge land in the same
-        step.
+        step.  ``step_windows`` overrides the config's step size: the
+        streaming session passes 1 for *per-window* statistics, whose sums
+        over a step's windows are the per-step values.
         """
         cfg = self.config
+        sw = cfg.step_windows if step_windows is None else step_windows
         t_begin = init_n * cfg.delta
-        step_len = cfg.step_windows * cfg.delta
+        step_len = sw * cfg.delta
         step_idx = torch.floor((start - t_begin) / step_len).to(torch.int64)
         valid = (fn_id >= 0) & (step_idx >= 0) & (step_idx < s)
         seg = torch.where(valid, step_idx * num_fns + torch.clamp(fn_id, 0, num_fns - 1), s * num_fns)

@@ -1,17 +1,38 @@
-"""Session layer between ``core.engine`` and ``core.profiler``.
+"""Live session layer between ``core.engine`` and ``core.profiler``.
 
-- ``report`` — ``FootprintReport`` and the shared finalizer (steps 5-6)
-  every profiling path ends in.
+Everything here owns mutable host-side state — telemetry buffers,
+background ingest/drain threads — and drives the engine one call at a
+time.  The ``FaasMeterProfiler`` a session needs is received duck-typed,
+never imported.
 
-The live streaming, slot-serving, drain and combined-mode sessions are not
-ported yet (see ROADMAP.md).
+- ``base``      — ``FleetSession``: engine config plumbing and the stream
+                  diagnostics (ticks dispatched, carried buffer storage).
+- ``report``    — ``FootprintReport`` and the shared finalizer (steps 5-6)
+                  every profiling path ends in.
+- ``drain``     — ``StreamTick`` + the background emit worker of a drained
+                  ingest.
+- ``streaming`` — ``StreamingFleetSession``: window-by-window profiling in
+                  pure mode, with prefetched ingest and an optional drain
+                  thread.
+
+Not yet ported (see ROADMAP.md): combined mode and live retraining
+(Queue 1 item 6) and the slot-pool session (item 8).
 """
 
+from repro_torch.core.sessions.base import FleetSession
+from repro_torch.core.sessions.drain import StreamTick, _DrainWorker
 from repro_torch.core.sessions.report import (
     FootprintReport,
     _finalize_report,
     _node_durations,
     _per_fn_latency_stats,
+    finalize_streaming_session,
 )
+from repro_torch.core.sessions.streaming import StreamingFleetSession
 
-__all__ = ["FootprintReport"]
+__all__ = [
+    "FleetSession",
+    "FootprintReport",
+    "StreamTick",
+    "StreamingFleetSession",
+]

@@ -1,8 +1,10 @@
 """Shared report finalization: steps 5-6 of the pipeline, once for all paths.
 
-Per-node and batched-segment profiling both end in a ``FootprintReport``
-assembled by ``_finalize_report`` from the (estimates, trajectory,
-contributions) tuple their engines produced, so the paths cannot drift.
+Per-node, batched-segment and streaming profiling all end in a
+``FootprintReport`` assembled by ``_finalize_report`` from the (estimates,
+trajectory, contributions) tuple their engines produced, so the paths
+cannot drift.  The small per-trace helpers the profiler and the sessions
+share live here too, below both.
 """
 
 from __future__ import annotations
@@ -94,6 +96,15 @@ def _finalize_report(
     )
 
 
+def _trace_tensors(fn_id, start, end, dev):
+    """(fn_id, start, end) as int64/float32/float32 tensors on ``dev``."""
+    return (
+        torch.as_tensor(fn_id, dtype=torch.int64, device=dev),
+        torch.as_tensor(start, dtype=torch.float32, device=dev),
+        torch.as_tensor(end, dtype=torch.float32, device=dev),
+    )
+
+
 def _per_fn_latency_stats(fn_id, start, end, num_fns):
     """(counts, mean, lat_sum, lat_sumsq) per function over a whole trace."""
     dur = torch.clamp(end - start, min=0.0)
@@ -123,3 +134,59 @@ def _node_durations(duration, b: int) -> tuple[list[float], bool]:
             f"duration sequence has {len(durations)} entries for {b} node(s)"
         )
     return durations, len(set(durations)) > 1
+
+
+def finalize_streaming_session(sess) -> list[FootprintReport]:
+    """Close a ``StreamingFleetSession`` segment and build per-node reports.
+
+    Requires the full ``n_windows`` segment to have been pushed (the sync
+    lookahead then unlocks every remaining tick).  On a ragged fleet each
+    node finalizes against its own step count S_i and duration; a node with
+    zero post-init steps reports its X_0 trajectory, as the per-node path
+    would.  (The reference's slot-pool and combined-mode branches wait for
+    ROADMAP Queue 1 items 8 and 6.)
+    """
+    if sess._n_raw < sess.n_windows:
+        raise ValueError(
+            f"finalize needs the full segment: got {sess._n_raw} of "
+            f"{sess.n_windows} windows"
+        )
+    sess._advance()
+    assert sess._next_tick == sess.n_used and len(sess._traj) == sess.s
+    cfg = sess.cfg
+    dev = sess.device
+    traj = torch.stack(sess._traj, dim=1)                       # (B, S, M_aug)
+    x_final = sess.state.kalman.x.clone()
+    w_sys = torch.as_tensor(np.stack(sess._w_sync, axis=1), device=dev)  # (B, n_used)
+    c_aug = sess._c_aug_block(0, sess.n_windows)
+    cp_col = (
+        torch.as_tensor(np.stack(sess._cp_col, axis=1), device=dev) if sess.has_cp else None
+    )
+    reports = []
+    for i in range(sess.b):
+        s_i = sess.s_nodes[i]
+        n_used_i = sess.init_n + s_i * cfg.step_windows
+        idle_i = float(sess.idle_watts[i])
+        reports.append(
+            _finalize_report(
+                x_fns=x_final[i, : sess.num_fns],
+                x_cp=x_final[i, sess.num_fns] if sess.has_cp else torch.zeros((), device=dev),
+                x0=sess.x0[i],
+                traj=traj[i, :s_i] if s_i > 0 else sess.x0[i][None],
+                c_aug=c_aug[i],
+                c_steps=(
+                    c_aug[i, sess.init_n : n_used_i].reshape(s_i, cfg.step_windows, sess.m_aug)
+                    if s_i > 0
+                    else None
+                ),
+                w_sys=w_sys[i],
+                offset=idle_i,
+                init_n=sess.init_n, s=s_i, step_windows=cfg.step_windows,
+                counts=sess.counts[i], mean_lat=sess.mean_latency[i],
+                cp_col=cp_col[i] if sess.has_cp else None,
+                idle_watts=idle_i,
+                duration=sess.durations[i],
+                skew=float(sess.skews[i]),
+            )
+        )
+    return reports

@@ -4,14 +4,16 @@ Module map (paper section -> module):
 
 - §4.1 statistical power disaggregation -> ``contribution``, ``disaggregation``
 - §4.2 online Kalman estimation         -> ``kalman``
+- §4.3 CPU power modeling               -> ``cpu_model``
 - §4.4 Shapley fair attribution         -> ``shapley``, ``footprints``
-- §5   skew sync                        -> ``sync``
+- §5   skew sync + power capping        -> ``sync``, ``capping``
 - §5.1 validation metrics               -> ``metrics``
-- fleet segment engine                  -> ``engine``
+- §6   pricing                          -> ``pricing``
+- fleet engine (segment + streaming)    -> ``engine``
+- live sessions                         -> ``sessions``
 - orchestrator                          -> ``profiler``
 
-Not yet ported (ROADMAP.md Queue 1): the CPU power model (§4.3), capping,
-pricing, baselines and the streaming sessions.
+Not yet ported (ROADMAP.md Queue 1): the baselines (item 13).
 """
 
 from repro_torch.core.contribution import (
@@ -36,6 +38,14 @@ from repro_torch.core.metrics import (
     marginal_energy,
     total_power_error,
 )
+from repro_torch.core.cpu_model import (
+    CpuModelConfig,
+    LinearPowerModel,
+    fit_linear_svr,
+    fit_ridge,
+    predict_function_power,
+    predict_power,
+)
 from repro_torch.core.profiler import (
     FaasMeterProfiler,
     FootprintReport,
@@ -43,6 +53,7 @@ from repro_torch.core.profiler import (
     Telemetry,
     fleet_profile,
     fleet_profile_batched,
+    prepare_combined_fleet,
 )
 from repro_torch.core.shapley import (
     shapley_control_plane_share,
@@ -66,6 +77,12 @@ __all__ = [
     "kalman_init",
     "kalman_step",
     "run_kalman",
+    "CpuModelConfig",
+    "LinearPowerModel",
+    "fit_linear_svr",
+    "fit_ridge",
+    "predict_function_power",
+    "predict_power",
     "coefficient_of_variation",
     "cosine_similarity",
     "individual_difference",
@@ -78,6 +95,7 @@ __all__ = [
     "Telemetry",
     "fleet_profile",
     "fleet_profile_batched",
+    "prepare_combined_fleet",
     "shapley_control_plane_share",
     "shapley_idle_share",
     "total_footprint",

@@ -10,9 +10,10 @@ Module DAG, imports only downward:
     segment      run_fleet / run_fleet_gram / run_fleet_sequential
     streaming    fleet_step / run_fleet_stream: one update per tick
     packing      per-window arrays → (B, S, n_w, ...) batches
+    targets      pure vs §4.3 combined ('rest') disaggregation targets
 
-Not yet ported (see ROADMAP.md): length buckets (Queue 1 item 8),
-combined-mode targets (item 6) and mesh sharding (item 8).
+Not yet ported (see ROADMAP.md): length buckets and mesh sharding (Queue 1
+item 8).
 """
 
 from repro_torch.core.engine.attribution import fleet_spectrum, tick_attribution
@@ -27,6 +28,7 @@ from repro_torch.core.engine.streaming import (
     fleet_ticks,
     run_fleet_stream,
 )
+from repro_torch.core.engine.targets import combined_rest_target, fleet_rest_idle
 from repro_torch.core.engine.types import (
     EngineConfig,
     FleetInputs,
@@ -44,8 +46,10 @@ __all__ = [
     "FleetStep",
     "FleetStreamState",
     "TickAttribution",
+    "combined_rest_target",
     "finish_result",
     "fleet_initial_estimate",
+    "fleet_rest_idle",
     "fleet_spectrum",
     "fleet_step",
     "fleet_stream_init",

@@ -13,10 +13,6 @@ from __future__ import annotations
 from repro_torch.core import engine as eng
 from repro_torch.core.engine.segment import _NO_MESH
 
-_NO_COMBINED = (
-    "mode='combined' (§4.3 CPU-counter model, live retraining) is not "
-    "ported yet: ROADMAP Queue 1 item 6"
-)
 _NO_SLOTS = (
     "slots= (the slot-pool serving mode) is not ported yet: ROADMAP Queue 1 "
     "item 8 (elastic serving)"

@@ -106,7 +106,13 @@ def _trace_tensors(fn_id, start, end, dev):
 
 
 def _per_fn_latency_stats(fn_id, start, end, num_fns):
-    """(counts, mean, lat_sum, lat_sumsq) per function over a whole trace."""
+    """(counts, mean, lat_sum, lat_sumsq) per function over a whole trace.
+
+    Summed on the host in a fixed order (CUDA's ``index_add_`` adds floats
+    in a run-dependent one; see ``core.contribution``) and returned on the
+    trace's device."""
+    dev = start.device
+    fn_id, start, end = fn_id.cpu(), start.cpu(), end.cpu()
     dur = torch.clamp(end - start, min=0.0)
     valid = fn_id >= 0
     seg = torch.where(valid, fn_id.to(torch.int64), num_fns)
@@ -119,7 +125,7 @@ def _per_fn_latency_stats(fn_id, start, end, num_fns):
     lat_sum = seg_sum(torch.where(valid, dur, 0.0))
     lat_sumsq = seg_sum(torch.where(valid, dur * dur, 0.0))
     mean = lat_sum / torch.clamp(counts, min=1.0)
-    return counts, mean, lat_sum, lat_sumsq
+    return tuple(x.to(dev) for x in (counts, mean, lat_sum, lat_sumsq))
 
 
 def _node_durations(duration, b: int) -> tuple[list[float], bool]:
@@ -143,8 +149,10 @@ def finalize_streaming_session(sess) -> list[FootprintReport]:
     lookahead then unlocks every remaining tick).  On a ragged fleet each
     node finalizes against its own step count S_i and duration; a node with
     zero post-init steps reports its X_0 trajectory, as the per-node path
-    would.  (The reference's slot-pool and combined-mode branches wait for
-    ROADMAP Queue 1 items 8 and 6.)
+    would.  In combined mode each node's footprints add its ``x_cpu`` and
+    its reconstruction offset is its raw chip series plus its rest-side
+    idle, as on the batch paths.  (The reference's slot-pool branch waits
+    for ROADMAP Queue 1 item 8.)
     """
     if sess._n_raw < sess.n_windows:
         raise ValueError(
@@ -162,14 +170,23 @@ def finalize_streaming_session(sess) -> list[FootprintReport]:
     cp_col = (
         torch.as_tensor(np.stack(sess._cp_col, axis=1), device=dev) if sess.has_cp else None
     )
+    if sess.combined:
+        chip = torch.as_tensor(np.stack(sess._raw_chip, axis=1), device=dev)  # (B, n_raw)
+        resid = sess._x_cpu_resid.cpu()
     reports = []
     for i in range(sess.b):
         s_i = sess.s_nodes[i]
         n_used_i = sess.init_n + s_i * cfg.step_windows
         idle_i = float(sess.idle_watts[i])
+        x_fns_i = x_final[i, : sess.num_fns]
+        offset_i, idle_extra_i = idle_i, 0.0
+        if sess.combined:
+            x_fns_i = x_fns_i + sess.x_cpu[i]
+            offset_i = chip[i, : int(sess._n_nodes[i])] + float(sess._rest_idle_nodes[i])
+            idle_extra_i = float(resid[i])
         reports.append(
             _finalize_report(
-                x_fns=x_final[i, : sess.num_fns],
+                x_fns=x_fns_i,
                 x_cp=x_final[i, sess.num_fns] if sess.has_cp else torch.zeros((), device=dev),
                 x0=sess.x0[i],
                 traj=traj[i, :s_i] if s_i > 0 else sess.x0[i][None],
@@ -180,13 +197,14 @@ def finalize_streaming_session(sess) -> list[FootprintReport]:
                     else None
                 ),
                 w_sys=w_sys[i],
-                offset=idle_i,
+                offset=offset_i,
                 init_n=sess.init_n, s=s_i, step_windows=cfg.step_windows,
                 counts=sess.counts[i], mean_lat=sess.mean_latency[i],
                 cp_col=cp_col[i] if sess.has_cp else None,
                 idle_watts=idle_i,
                 duration=sess.durations[i],
                 skew=float(sess.skews[i]),
+                idle_extra_watts=idle_extra_i,
             )
         )
     return reports

@@ -25,8 +25,10 @@ counts and latency moments (with the control-plane principal's column) —
 is computed on the host, where float sums are taken in a fixed order (CUDA
 ``index_add_`` adds floats atomically, in a run-dependent order), and moved
 to the device once in ``__init__``.  Per tick, only the synchronized power
-row and the principal's contribution cross to the device, in one
-non-blocking copy from pinned memory.
+row, in combined mode (§4.3) the raw chip row, and the principal's
+contribution cross to the device, in one non-blocking copy from pinned
+memory.  Combined mode's chip side (``x_cpu``) is static per segment until
+a live refit (``core.sessions.retrain``) rewrites it in place.
 """
 
 from __future__ import annotations
@@ -37,9 +39,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import contribution as contrib
+from repro_torch.core import cpu_model as cpumod
 from repro_torch.core import sync as syncmod
 from repro_torch.core.engine.plan import segment_plan
-from repro_torch.core.sessions.base import _NO_COMBINED, _NO_SLOTS, FleetSession
+from repro_torch.core.sessions.base import _NO_SLOTS, FleetSession
+from repro_torch.core.sessions.combined import (
+    _as_fleet_counters,
+    _as_fleet_model,
+    combined_chip_power,
+)
 from repro_torch.core.sessions.drain import StreamTick, _DrainWorker
 from repro_torch.core.sessions.report import (
     FootprintReport,
@@ -48,6 +56,7 @@ from repro_torch.core.sessions.report import (
     _trace_tensors,
     finalize_streaming_session,
 )
+from repro_torch.core.sessions.retrain import RetrainMixin
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 Tensor = torch.Tensor
@@ -69,7 +78,7 @@ def _host(t: Tensor) -> np.ndarray:
     return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
 
 
-class StreamingFleetSession(FleetSession):
+class StreamingFleetSession(RetrainMixin, FleetSession):
     """Online fleet profiling: telemetry in window-by-window, state out live.
 
     Callers push one delta-window of fleet telemetry at a time
@@ -87,14 +96,23 @@ class StreamingFleetSession(FleetSession):
     Tail windows are flushed with the batch path's edge clamp at
     ``finalize``.
 
-    Restrictions (those of ``fleet_profile_batched``): pure mode, default
-    NNLS/no_idle disaggregation, equal num_fns across nodes, every node
-    covering the common init window, and at least one node with a full
-    Kalman step after it.  Durations may differ per node (a *ragged*
-    fleet): nodes whose stream ends mid-segment stop feeding the engine
-    (``FleetStep.valid``) and finalize against their own window count.
-    ``has_chip`` may be per node: chipless rows are zeroed on ingest and
-    their skew is 0.
+    Combined mode (§4.3): the engine disaggregates the chip-subtracted
+    'rest' power, ``combined_rest_target(w, chip, rest_idle)`` per tick,
+    with the rest-side idle estimated from the chip floor over the init
+    block; the chip side ``x_cpu`` comes from the per-node counter models
+    (``combined_chip_power``).  With ``window_features`` each node's model
+    is scored at every Kalman-step boundary (``retrain_needed``,
+    ``model_errors``), and ``refit_counter_models`` / ``resync`` maintain
+    the models and skews live (``RetrainMixin``).
+
+    Restrictions (those of ``fleet_profile_batched``): default NNLS/no_idle
+    disaggregation, equal num_fns across nodes, every node covering the
+    common init window, and at least one node with a full Kalman step after
+    it.  Durations may differ per node (a *ragged* fleet): nodes whose
+    stream ends mid-segment stop feeding the engine (``FleetStep.valid``)
+    and finalize against their own window count.  ``has_chip`` may be per
+    node: chipless rows are zeroed on ingest, their skew is 0, and in
+    combined mode their target is exactly the pure one.
     """
 
     def __init__(
@@ -114,10 +132,11 @@ class StreamingFleetSession(FleetSession):
         fn_counters=None,
         counter_model=None,
         window_features=None,
+        retrain_config: cpumod.CpuModelConfig = cpumod.CpuModelConfig(),
         device: str | torch.device = DEFAULT_DEVICE,
     ):
         """Args:
-          profiler: configured ``FaasMeterProfiler`` (pure mode).
+          profiler: configured ``FaasMeterProfiler`` (pure or combined mode).
           traces: per-node (fn_id, start, end) invocation arrays (numpy or
             CPU tensors).
           num_fns: number of unique functions M.
@@ -130,19 +149,19 @@ class StreamingFleetSession(FleetSession):
             fractions (appends the shared principal column, §4.1).
           on_tick: ``callable(StreamTick)`` invoked per engine tick.
           on_bootstrap: ``callable(session)`` invoked once after X_0.
+          fn_counters: (B, M, F) normalized per-function counters (combined
+            mode; see ``prepare_combined_fleet``).
+          counter_model: fleet-batched / per-node-list / shared
+            ``LinearPowerModel`` (combined mode).
+          window_features: optional (B, N, F) per-window counter features
+            (host data) — enables the retrain checks at step boundaries.
+          retrain_config: thresholds for those checks.
           device: where the engine runs (default the card).
-        mesh, slots, combined mode (fn_counters, counter_model) and live
-        retraining (window_features) raise ``NotImplementedError``.
+        mesh and slots raise ``NotImplementedError`` (ROADMAP Queue 1
+        item 8).
         """
         cfg = profiler.config
-        if (
-            cfg.mode == "combined"
-            or fn_counters is not None
-            or counter_model is not None
-            or window_features is not None
-        ):
-            raise NotImplementedError(_NO_COMBINED)
-        if cfg.mode != "pure":
+        if cfg.mode not in ("pure", "combined"):
             raise ValueError(f"unknown profiler mode {cfg.mode!r}")
         if not cfg.disagg.nonneg or cfg.disagg.mode != "no_idle":
             raise ValueError(
@@ -170,6 +189,17 @@ class StreamingFleetSession(FleetSession):
         # Chipless rows are forced to exactly 0.0 on ingest.
         self._chip_zero = self._chip_mask.astype(np.float32)
         self.has_chip = bool(self._chip_mask.any())
+        self.combined = cfg.mode == "combined"
+        if self.combined:
+            if not self.has_chip:
+                raise ValueError(
+                    "combined mode needs a chip reference on at least one node (has_chip)"
+                )
+            if fn_counters is None or counter_model is None:
+                raise ValueError(
+                    "combined mode needs fn_counters and counter_model "
+                    "(see prepare_combined_fleet)"
+                )
         self.has_cp = has_cp
         self.on_tick = on_tick
         self.on_bootstrap = on_bootstrap
@@ -244,6 +274,7 @@ class StreamingFleetSession(FleetSession):
         self._a_win = a_win.to(dev)                            # (B, n_post, M_aug)
         self._ls_win = ls_win.to(dev)
         self._lq_win = lq_win.to(dev)
+        self._busy = torch.stack(c_nodes).sum(dim=1).to(dev)   # (B, M) seconds
         self.counts = torch.stack(counts_nodes).to(dev)        # (B, M)
         self.mean_latency = torch.stack(lat_nodes).to(dev)
         self.init_invocations = torch.stack(init_a).to(dev)    # (B, M_aug)
@@ -259,6 +290,37 @@ class StreamingFleetSession(FleetSession):
             init_iters=cfg.disagg.nnls_iters,
             init_ridge_lambda=cfg.disagg.ridge_lambda,
         )
+
+        # Combined mode (§4.3): the chip-side split is static per segment
+        # (the trace — hence busy seconds and counters — is known up front;
+        # only the power telemetry streams), so X_CPU is computed once here
+        # and exposed for live consumers.  The models live on the device and,
+        # for the emit stage's retrain checks, in a host copy; a refit
+        # rewrites both, and ``x_cpu``, in place.
+        self.x_cpu: Tensor | None = None
+        self._x_cpu_resid: Tensor | None = None
+        self._models: cpumod.LinearPowerModel | None = None
+        self._models_host: cpumod.LinearPowerModel | None = None
+        self._win_feats: np.ndarray | None = None
+        self._retrain_cfg = retrain_config
+        self.model_errors: list[np.ndarray] = []
+        self.retrain_needed = np.zeros(self.b, bool)
+        self.refits: list[tuple[int, np.ndarray]] = []       # (window, flags)
+        self.skew_history: list[tuple[int, np.ndarray]] = []  # (window, skews)
+        self._fnc: Tensor | None = None
+        self._durations_dev = torch.as_tensor(self.durations, dtype=torch.float32, device=dev)
+        if self.combined:
+            self._models = _as_fleet_model(counter_model, self.b, dev)
+            self._models_host = cpumod.LinearPowerModel(*(x.cpu().clone() for x in self._models))
+            self._fnc = _as_fleet_counters(fn_counters, self.b, num_fns, dev)
+            self.x_cpu, self._x_cpu_resid = combined_chip_power(
+                self._models, self._fnc, self._busy, self._durations_dev
+            )
+            self._force_chipless_zero()
+            if window_features is not None:
+                self._win_feats = torch.as_tensor(window_features, dtype=torch.float32).cpu().numpy()
+        self._rest_idle_nodes: np.ndarray | None = None    # (B,) set at bootstrap
+        self._rest_idle_dev: Tensor | None = None
 
         # Streaming state.
         self._raw_w = np.zeros((self.n_windows, self.b), np.float32)
@@ -361,6 +423,16 @@ class StreamingFleetSession(FleetSession):
 
     # -- internals ---------------------------------------------------------
 
+    def _force_chipless_zero(self) -> None:
+        """Pin chipless nodes' chip-side split at exactly 0.0, in place.
+
+        Their counter models come out zero from ``prepare_combined_fleet``
+        already; this makes the guarantee independent of the caller's
+        model (a shared model broadcast over a mixed fleet, say)."""
+        cm = torch.as_tensor(self._chip_zero, device=self.x_cpu.device)
+        self.x_cpu.mul_(cm[:, None])
+        self._x_cpu_resid.mul_(cm)
+
     def _synced_window(self, t: int) -> np.ndarray:
         """(B,) synchronized system power for window ``t`` (``apply_shift``
         semantics: per-node linear interpolation of ``t + skew``, edges
@@ -421,7 +493,19 @@ class StreamingFleetSession(FleetSession):
         for t in range(self.init_n):
             self._w_sync.append(self._synced_window(t))
         w_init = torch.as_tensor(np.stack(self._w_sync, axis=1), device=self.device)
-        target = torch.clamp(w_init - self._idle[:, None], min=0.0)  # (B, init_n)
+        if self.combined:
+            # Rest-side idle from the chip floor over the init block — the
+            # batch paths' estimator, on the host rows, so the streaming
+            # targets are causal and equal to theirs.
+            chip_init = torch.from_numpy(np.stack(self._raw_chip[: self.init_n], axis=1))
+            rest_idle = eng.fleet_rest_idle(chip_init, torch.from_numpy(self.idle_watts))
+            self._rest_idle_nodes = rest_idle.numpy()
+            self._rest_idle_dev = rest_idle.to(self.device)
+            target = eng.combined_rest_target(
+                w_init, chip_init.to(self.device), self._rest_idle_dev[:, None]
+            )
+        else:
+            target = torch.clamp(w_init - self._idle[:, None], min=0.0)  # (B, init_n)
         init_c = self._c_aug_block(0, self.init_n)                  # (B, init_n, M_aug)
         self.x0 = eng.fleet_initial_estimate(init_c, target, self._engine_cfg)
         self.init_busy_seconds = init_c.sum(dim=1)
@@ -451,23 +535,30 @@ class StreamingFleetSession(FleetSession):
         """Dispatch stage: build tick ``t``'s feed and launch the engine step.
 
         Never waits on the device: the trace-side rows are device tensors
-        since ``__init__``, the tick's host rows (synchronized power, the
-        principal's contribution) cross in one non-blocking copy, and the
-        Kalman-step boundary is known from the tick index alone.  Emission
-        goes through ``_emit_tick`` — inline, or queued to the drain thread.
+        since ``__init__``, the tick's host rows (synchronized power, the raw
+        chip power in combined mode, the principal's contribution) cross in
+        one non-blocking copy, and the Kalman-step boundary is known from
+        the tick index alone.  Emission goes through ``_emit_tick`` —
+        inline, or queued to the drain thread.
         """
         cfg = self.cfg
         w_sync = self._synced_window(t)
         self._w_sync.append(w_sync)
         j = t - self.init_n
+        host_rows = [w_sync]
+        if self.combined:
+            host_rows.append(self._raw_chip[t])
         if self.has_cp:
-            rows = self._to_device(np.stack([w_sync, self._cp_col[t]]))
-            w_dev = rows[0]
-            c_t = torch.cat([self._c_fns[:, t], rows[1][:, None]], dim=1)
+            host_rows.append(self._cp_col[t])
+        rows = self._to_device(np.stack(host_rows))
+        w_dev = rows[0]
+        c_t = self._c_fns[:, t]
+        if self.has_cp:
+            c_t = torch.cat([c_t, rows[-1][:, None]], dim=1)
+        if self.combined:
+            target = self.eng.combined_rest_target(w_dev, rows[1], self._rest_idle_dev)
         else:
-            w_dev = self._to_device(w_sync[None])[0]
-            c_t = self._c_fns[:, t]
-        target = torch.clamp(w_dev - self._idle, min=0.0)
+            target = torch.clamp(w_dev - self._idle, min=0.0)
         a_t = self._a_win[:, j]
         live = None
         valid = None
@@ -492,12 +583,15 @@ class StreamingFleetSession(FleetSession):
             self._emit_tick(t, att, c_t, a_t, target, w_sync, live, completed)
 
     def _emit_tick(self, t, att, c_t, a_t, target, w_sync, live, completed) -> None:
-        """Emit stage: materialize one dispatched tick for ``on_tick``.
+        """Emit stage: the live retrain check at step boundaries (on the
+        host), then one dispatched tick materialized for ``on_tick``.
 
         Runs inline on the dispatching thread by default, or on the drain
         thread under ``ingest(drain=True)`` — in either case ticks emit in
         dispatch order.
         """
+        if completed and self._win_feats is not None:
+            self._check_retrain(t)
         if self.on_tick is not None:
             self.on_tick(
                 StreamTick(

@@ -372,28 +372,33 @@ def test_profile_trace_and_marginal_energy_match_reference():
 
 
 def test_not_ported_branches_raise():
+    """Slot pools and node-axis meshes (ROADMAP Queue 1 item 8) still raise
+    ``NotImplementedError``.  Combined mode and ``control=`` are ported
+    (tests/test_torch_combined.py, tests/test_torch_control_loop.py); what
+    they refuse, they refuse with the reference's ``ValueError``: a chipless
+    fleet in combined mode, a control loop without a tick stream, and a
+    combined session without its counter inputs."""
     cp = EnergyFirstControlPlane(paper_functions(), device="cpu")
     traces = [generate_trace(paper_functions(), WorkloadConfig(duration_s=180.0, seed=1))]
-    for kwargs, item in (
-        (dict(mesh=object()), "item 8"),
-        (dict(slots=4), "item 8"),
-        (dict(mode="combined"), "item 6"),
-        (dict(control=object()), "item 7"),
-    ):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+    for kwargs in (dict(mesh=object()), dict(slots=4)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             cp.profile_fleet(traces, **kwargs)
     with pytest.raises(ValueError, match="mesh must be"):
         cp.profile_fleet(traces, mesh="everywhere")
+    edge = EnergyFirstControlPlane(paper_functions(), SimulatorConfig(platform="edge"), device="cpu")
+    with pytest.raises(ValueError, match="chip power source"):
+        edge.profile_fleet(traces, mode="combined")
+    short = [generate_trace(paper_functions(), WorkloadConfig(duration_s=90.0, seed=1))]
+    with pytest.raises(ValueError, match="needs the streaming path"):
+        cp.profile_fleet(short, control=object())
     _, tels, _, arrays = _fleet()
     profiler = FaasMeterProfiler(ProfilerConfig(**SMALL))
-    for kwargs, item in (
-        (dict(mesh=object()), "item 8"),
-        (dict(slots=4), "item 8"),
-        (dict(window_features=np.zeros((2, 150, 3))), "item 6"),
-        (dict(fn_counters=np.zeros((2, 7, 3)), counter_model=object()), "item 6"),
-    ):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+    for kwargs in (dict(mesh=object()), dict(slots=4)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             _session(profiler, arrays, tels, **kwargs)
+    _, server_tels, _, server_arrays = _fleet("server")
+    with pytest.raises(ValueError, match="fn_counters"):
+        _session(FaasMeterProfiler(ProfilerConfig(mode="combined", **SMALL)), server_arrays, server_tels)
     with pytest.raises(ValueError, match="host arrays"):
         _session(profiler, [tuple(torch.as_tensor(x).to("meta") for x in a) for a in arrays], tels)
     with pytest.raises(ValueError, match="too short"):

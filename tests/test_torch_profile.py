@@ -126,8 +126,15 @@ def test_fleet_profile_batched_matches_reference(durations):
 
 
 def test_combined_mode_and_mesh_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaasMeterProfiler(ProfilerConfig(mode="combined"))
+    """Combined mode is ported now (tests/test_torch_combined.py): it
+    constructs, and without its counter inputs raises ``ValueError`` as the
+    reference does; an unknown mode is refused.  A node-axis mesh is still
+    not ported and raises ``NotImplementedError`` citing the ROADMAP."""
+    combined = FaasMeterProfiler(ProfilerConfig(mode="combined"))
+    with pytest.raises(ValueError, match="fn_counters"):
+        fleet_profile_batched(combined, [], [], num_fns=7, duration=300.0, device="cpu")
+    with pytest.raises(ValueError, match="unknown profiler mode"):
+        FaasMeterProfiler(ProfilerConfig(mode="hybrid"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fleet_profile_batched(
             FaasMeterProfiler(), [], [], num_fns=7, duration=300.0, mesh=object(), device="cpu"

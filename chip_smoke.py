@@ -67,32 +67,53 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    replays equal bitwise; the hook's cost per tick, queue waits, and the
    admission decisions that differ from the CPU's; retraining after a x1.4
    chip drift recovering under 0.05; ``run_capped`` on one node.
-7. Serving path: internlm2-1.8b at its full published width (random
+7. Elastic serving, at the reference benchmarks' full sizes: the fleet
+   phase's fleet made ragged (post-init lengths drawn in [N/4, N]) in
+   ``DEFAULT_BUCKETS`` (8, 16 and 32 steps) and benchmarks/ragged_fleet.py's
+   r50 fleet (B 64 x S 8 x n_w 60 x M 128) in buckets of 1-8 steps:
+   ``run_fleet_bucketed`` with ``run_fleet`` and ``run_fleet_gram``
+   against the same engine on the monolithic pack (1e-5 of scale) and the
+   padding each pack wastes; the node-axis mesh on one card (a one-device
+   mesh bitwise equal to mesh=None through ``run_fleet_gram``,
+   ``run_fleet_stream`` and a tick-at-a-time ``fleet_step`` stream; a
+   two-entry mesh over the same card at 1e-5 of scale; the totals against
+   plain sums; a mid-stream ``reshard``); benchmarks/slot_serving.py's
+   64-slot churn trace behind a ``SlotAdmissionQueue`` (ticks/s, tick
+   latency, churn counts) with every release, admission and step under
+   ``torch.cuda.set_sync_debug_mode("error")``, the pool's buffers unmoved
+   and no kernel built after ``warmup()``, and the same trace on the CPU
+   (1e-5 of scale); ``profile_fleet(slots=64)`` on a 64-node fleet of
+   900-1,800 s, pure and combined, against ``profile_fleet`` without
+   slots; the baseline profilers on the card against the CPU.  Then the
+   gram kernel against its plain version at every shape that phase
+   launched, on the inputs it launched them with.
+8. Serving path: internlm2-1.8b at its full published width (random
    weights from a seeded generator, bf16 compute) serves 24 requests of two
    function classes (chat: batch 8, prompt 512, 64 tokens; summarize: batch
    2, prompt 4096, 16 tokens; 2:1) through ``MeteredServer`` and the flash
    and decode attention kernels; the measured trace is metered by the
    simulated telemetry and ``FaasMeterProfiler`` and priced.
-8. RMSNorm path: ``ops.rmsnorm`` (the kernel) on the served model's final
+9. RMSNorm path: ``ops.rmsnorm`` (the kernel) on the served model's final
    hidden states, against the model's plain ``rms_norm``.
-9. Model consistency at full width: fp32 prefill vs full forward (2e-3)
+10. Model consistency at full width: fp32 prefill vs full forward (2e-3)
    and one decode step vs the full forward over the extended sequence
    (5e-3), through the kernels; then 16 greedy steps with the kernels
    against the plain versions patched into ``ops`` here: equal tokens in
    fp32, and in bf16 the logits' distance from fp32 compute for both (the
    kernels' at most 1.5x the plain versions').
-10. Trace: one warm chat and one warm summarize request under
+11. Trace: one warm chat and one warm summarize request under
    torch.profiler: device busy, idle share, top kernels; every
    ``decode_attention`` call must be one kernel on the device.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after (every bf16 flash launch of the serving path must be a tensor-core
-one); while the fleet, streaming, combined, control and serving paths run,
-the plain versions are watched, and a CUDA tensor reaching one fails the
-run.
+one); while the fleet, streaming, combined, control, elastic and serving
+paths run, the plain versions are watched, and a CUDA tensor reaching one
+fails the run.
 
 Output: one line per measurement, a ``combined_control {...}`` JSON line of
-phases 5-6, then a ``{"kernels": [...]}`` JSON line,
+phases 5-6 and an ``elastic {...}`` one of phase 7, then a
+``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; no network.
 
@@ -136,6 +157,17 @@ COMBINED_SHAPE = (64, 4, 60, 128)
 COMBINED_GRAM_SHAPES = [(64 * 4, 60, 128), (64, 4 * 60, 128)]
 PARITY_SHAPES = MAIN_SHAPES + COMBINED_GRAM_SHAPES + [(64, 1800, 64), (8, 1000, 256), (4, 1, 5), (6, 197, 5),
                                                       (16, 130, 17), (4, 300, 65), (5, 257, 33)]
+# Elastic serving, at the reference benchmarks' full sizes: the fleet
+# phase's fleet made ragged (post-init lengths drawn in [N/4, N] windows,
+# seed 0, node 0 at N) in DEFAULT_BUCKETS; benchmarks/ragged_fleet.py's
+# r50 fleet (B 64 x S 8 x n_w 60 x M 128, buckets 1-8); and
+# benchmarks/slot_serving.py's pool (capacity, M, n_w, horizon ticks,
+# population).  profile_fleet(slots=) runs a 64-node fleet of durations
+# drawn in [900, 1800] s (seed 0).
+RAGGED_SHAPE = (64, 8, 60, 128)
+RAGGED_BUCKETS = (1, 2, 4, 8)
+SLOT_POOL = (64, 64, 60, 1200, 256)
+SLOT_DURATIONS_S = (900, 1800)
 # The bench's gram shapes: the main ones, M >= 64, M either side of the
 # variants' threshold (16 and 17), and a long N at G = 1.
 BENCH_GRAM = MAIN_SHAPES + [(64, 1800, 64), (8, 1000, 256), (16, 130, 16), (16, 130, 17), (1, 5000, 8)]
@@ -342,6 +374,42 @@ def phase_build() -> float:
     return dt
 
 
+def gram_parity(ds, ref, c, w, warm: bool, label: str = "parity") -> dict:
+    """One shape's gram row: the kernel twice (the same bits) and against
+    its plain version on (c, w), its cold-L2 time against the plain
+    version's and ``torch.bmm``'s (with ``warm``, the warm back-to-back
+    rates too), and the bytes-or-operations bound."""
+    g, n, m = c.shape
+    gram, rhs = ds.disagg_gram(c, w)
+    gram2, rhs2 = ds.disagg_gram(c, w)
+    torch.cuda.synchronize()
+    assert torch.equal(gram, gram2) and torch.equal(rhs, rhs2), f"disagg_gram not deterministic at {(g, n, m)}"
+    pg, pr = ref.disagg_gram(c, w)
+    # An N-term fp32 sum taken in another order: rtol 1e-5 plus an atol
+    # of 1e-6 * N * max|C| * max(|C|, |w|).
+    cmax = float(c.abs().max())
+    atol = 1e-6 * n * cmax * max(cmax, float(w.abs().max()))
+    err = max(float((gram - pg).abs().max()), float((rhs - pr).abs().max()))
+    torch.testing.assert_close(gram, pg, rtol=1e-5, atol=atol)
+    torch.testing.assert_close(rhs, pr, rtol=1e-5, atol=atol)
+    timed = time_gram(ds, c, w, warm=warm)
+    nbytes, flops = gram_work(g, n, m)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
+    plan = ds.gram_plan(g, n, m, torch.cuda.get_device_properties(0).multi_processor_count)
+    row = dict(
+        err=err, plain_ms=device_ms(lambda: ref.disagg_gram(c, w)), bound_ms=bound,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S else "operations",
+        variant=plan["variant"], **timed,
+    )
+    warm_s = "".join(f" {k}={row[k]:.5f}" for k in ("warm_ms", "library_warm_ms") if k in row)
+    log(
+        f"{label} G={g} N={n} M={m} ({plan['variant']}): max_abs_err={err:.3e} (atol {atol:.3e}) "
+        f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f}{warm_s} "
+        f"bound_us={bound * 1e3:.3f} ({row['bound_by']}) bound_share={bound / row['ms']:.3f}"
+    )
+    return row
+
+
 def phase_kernel_parity(ds, ref) -> dict:
     """Kernel vs plain on the card at every listed shape; returns the main
     shapes' timings."""
@@ -350,33 +418,7 @@ def phase_kernel_parity(ds, ref) -> dict:
     for g, n, m in PARITY_SHAPES:
         c = torch.from_numpy(np.abs(rng.standard_normal((g, n, m))).astype(np.float32)).cuda()
         w = torch.from_numpy(np.abs(rng.standard_normal((g, n))).astype(np.float32)).cuda()
-        gram, rhs = ds.disagg_gram(c, w)
-        gram2, rhs2 = ds.disagg_gram(c, w)
-        torch.cuda.synchronize()
-        assert torch.equal(gram, gram2) and torch.equal(rhs, rhs2), f"disagg_gram not deterministic at {(g, n, m)}"
-        pg, pr = ref.disagg_gram(c, w)
-        # An N-term fp32 sum taken in another order: rtol 1e-5 plus an atol
-        # of 1e-6 * N * max|C| * max(|C|, |w|).
-        cmax = float(c.abs().max())
-        atol = 1e-6 * n * cmax * max(cmax, float(w.abs().max()))
-        err = max(float((gram - pg).abs().max()), float((rhs - pr).abs().max()))
-        torch.testing.assert_close(gram, pg, rtol=1e-5, atol=atol)
-        torch.testing.assert_close(rhs, pr, rtol=1e-5, atol=atol)
-        timed = time_gram(ds, c, w, warm=(g, n, m) in MAIN_SHAPES or m >= 64)
-        nbytes, flops = gram_work(g, n, m)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
-        plan = ds.gram_plan(g, n, m, torch.cuda.get_device_properties(0).multi_processor_count)
-        rows[(g, n, m)] = row = dict(
-            err=err, plain_ms=device_ms(lambda: ref.disagg_gram(c, w)), bound_ms=bound,
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S else "operations",
-            variant=plan["variant"], **timed,
-        )
-        warm = "".join(f" {k}={row[k]:.5f}" for k in ("warm_ms", "library_warm_ms") if k in row)
-        log(
-            f"parity G={g} N={n} M={m} ({plan['variant']}): max_abs_err={err:.3e} (atol {atol:.3e}) "
-            f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f}{warm} "
-            f"bound_us={bound * 1e3:.3f} ({row['bound_by']})"
-        )
+        rows[(g, n, m)] = gram_parity(ds, ref, c, w, warm=(g, n, m) in MAIN_SHAPES or m >= 64)
     return rows
 
 
@@ -1403,6 +1445,428 @@ def phase_control(device="cuda", main=None, retrain=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Elastic serving: length buckets, the node-axis mesh, the slot pool
+# ---------------------------------------------------------------------------
+
+
+def _record_gram():
+    """Wrap the gram backend the engine resolves (``core.engine.plan.
+    _gram_fn``) so every (G, N, M) it assembles is kept with its first
+    inputs, for the parity phase; the kernel's own wrapper still counts
+    the launch.  Returns (seen, restore)."""
+    from repro_torch.core.engine import plan
+
+    seen: dict = {}
+    resolve = plan._gram_fn
+
+    def recording_resolve(backend, device):
+        gram_fn = resolve(backend, device)
+        if gram_fn is None:
+            return None
+
+        def recording(c, w):
+            n, m = c.shape[-2:]
+            g = c.numel() // (n * m)
+            seen.setdefault((g, n, m), (c.detach().reshape(g, n, m).clone(), w.detach().reshape(g, n).clone()))
+            return gram_fn(c, w)
+
+        return recording
+
+    plan._gram_fn = recording_resolve
+
+    def restore():
+        plan._gram_fn = resolve
+
+    return seen, restore
+
+
+def _window_arrays(inputs):
+    """Per-window arrays of a packed (B, S, n_w, M) batch: each step's
+    invocation and latency sums on its first window (packing sums them
+    back), so a ragged pack of these gives the packed data."""
+    b, s, n_w, m = inputs.c.shape
+
+    def first(x):
+        out = x.new_zeros((b, s, n_w, m))
+        out[:, :, 0] = x
+        return out.reshape(b, s * n_w, m)
+
+    return (inputs.c.reshape(b, -1, m), inputs.w.reshape(b, -1),
+            first(inputs.a), first(inputs.lat_sum), first(inputs.lat_sumsq))
+
+
+def _bucketed_run(label, wins, lengths, n_w, buckets, launches, device) -> dict:
+    """A ragged fleet packed once whole and once in length buckets:
+    ``run_fleet_bucketed`` with ``run_fleet`` and with ``run_fleet_gram``
+    (the gram kernel once for X_0 and once for the step hoist, per bucket)
+    against the same engine on the monolithic pack, 1e-5 of scale; the two
+    engines' own gap on the monolithic pack (the main path's bound, 5e-5
+    of scale); the padding each pack computes over; the gram's launches."""
+    from repro_torch.core.engine import (
+        EngineConfig, bucketed_pad_waste, pack_fleet_buckets, pack_fleet_inputs, pad_waste_frac,
+        run_fleet, run_fleet_bucketed, run_fleet_gram,
+    )
+
+    cfg = EngineConfig()
+    mono_in = pack_fleet_inputs(*wins, step_windows=n_w, lengths=lengths, device=device)
+    bks = pack_fleet_buckets(*wins, step_windows=n_w, lengths=lengths, buckets=buckets, device=device)
+    out = {"buckets": {bk.steps: len(bk.nodes) for bk in bks}, "pad_waste_frac": pad_waste_frac(lengths, n_w),
+           "bucketed_pad_waste": bucketed_pad_waste(bks, n_w)}
+    mono = {}
+    for engine in (run_fleet, run_fleet_gram):
+        name = engine.__name__
+        t0 = time.perf_counter()
+        mono[name] = engine(mono_in, cfg, with_ticks=False, device=device)
+        _sync(device)
+        out[f"{name}_monolithic_s"] = time.perf_counter() - t0
+        before = launches()
+        t0 = time.perf_counter()
+        x, x0, _ = run_fleet_bucketed(bks, cfg, engine=engine)
+        _sync(device)
+        out[f"{name}_bucketed_s"] = time.perf_counter() - t0
+        out[f"{name}_bucketed_disagg_gram_launches"] = launches() - before
+        out[f"{name}_vs_monolithic_rel"] = max(_rel(x, mono[name].x_final), _rel(x0, mono[name].x0))
+    out["gram_vs_raw_monolithic_rel"] = _rel(mono["run_fleet_gram"].x_final, mono["run_fleet"].x_final)
+    _log_all(f"elastic buckets {label}", out)
+    for name in ("run_fleet", "run_fleet_gram"):
+        assert out[f"{name}_vs_monolithic_rel"] <= 1e-5, (label, out)
+    assert out["gram_vs_raw_monolithic_rel"] <= 5e-5, (label, out)
+    assert out["run_fleet_gram_bucketed_disagg_gram_launches"] == (2 * len(bks) if device == "cuda" else 0), out
+    assert out["run_fleet_bucketed_disagg_gram_launches"] == 0, out
+    return out
+
+
+def phase_elastic_buckets(fleet, launches, device="cuda") -> dict:
+    """Length buckets at full size: the fleet phase's 64 x 1,800 s fleet
+    (M = 8) made ragged, in ``DEFAULT_BUCKETS`` (8, 16 and 32 steps of 60
+    windows; the 32-step bucket's X_0 gram has N = 1,920, past the warp
+    variant's N); and benchmarks/ragged_fleet.py's r50 fleet at M = 128 in
+    buckets of 1-8 steps (the tiled variant)."""
+    from repro_torch.core.engine import DEFAULT_BUCKETS, synthetic_ragged_windows
+
+    wins = _window_arrays(fleet["inputs"])
+    n = wins[1].shape[1]
+    lengths = np.random.default_rng(0).integers(n // 4, n + 1, size=wins[1].shape[0])
+    lengths[0] = n
+    out = {"paper_fleet": _bucketed_run("paper_fleet", wins, lengths.tolist(), N_K, DEFAULT_BUCKETS, launches,
+                                        device)}
+    b, s, n_w, m = RAGGED_SHAPE
+    n = s * n_w
+    # benchmarks/ragged_fleet.py's _pack: one generator (seed 0) draws the
+    # r75 fleet's lengths first, then r50's.
+    rng = np.random.default_rng(0)
+    for ratio in (0.75, 0.50):
+        lengths = rng.integers(max(int(ratio * n), n_w), n + 1, size=b).tolist()
+        lengths[0] = n
+    wins = synthetic_ragged_windows(b, n, m, lengths=lengths, seed=1, device=device)
+    out["ragged_r50_m128"] = _bucketed_run("ragged_r50_m128", wins, lengths, n_w, RAGGED_BUCKETS, launches, device)
+    return out
+
+
+def phase_elastic_mesh(fleet, launches, device="cuda") -> dict:
+    """The node-axis mesh on one card.  A one-device mesh
+    (``fleet_mesh(devices=["cuda:0"])``) through ``run_fleet_gram``,
+    ``run_fleet_stream`` and a tick-at-a-time ``fleet_step`` stream gives
+    the mesh=None result bit for bit; a two-entry mesh over the same card
+    (its split, per-shard dispatch and join; it measures no scaling) gives
+    it within 1e-5 of scale, with the gram kernel launched per shard;
+    ``fleet_attribution_totals(mesh=)`` equals the plain sums (rtol 1e-5)
+    with and without a mask and chip power; a slot pool resharded
+    None -> two entries -> None mid-stream equals an uninterrupted one
+    (1e-5 of scale); and ``fleet_mesh_auto(64)`` is None on one card."""
+    from repro_torch.core.engine import (
+        EngineConfig, FleetStep, fleet_initial_estimate, fleet_step, fleet_stream_init, fleet_ticks,
+        run_fleet_gram, run_fleet_stream,
+    )
+    from repro_torch.core.sessions import SlotFleetSession
+    from repro_torch.distributed import Shards, fleet_attribution_totals, fleet_mesh, fleet_mesh_auto
+
+    cfg = EngineConfig()
+    inputs, kw = fleet["inputs"], dict(init_c=fleet["init_c"], init_w=fleet["init_w"])
+    b, s, n_w, m = inputs.c.shape
+    dev0 = "cuda:0" if device == "cuda" else device
+    one, two = fleet_mesh(devices=[dev0]), fleet_mesh(devices=[dev0] * 2)
+    fields = ("x_final", "x_trajectory", "x0", "tick_power", "unattributed")
+    out, plain = {}, {}
+    for fn in (run_fleet_gram, run_fleet_stream):
+        name = fn.__name__
+        plain[name] = want = fn(inputs, cfg, device=device, **kw)
+        before = launches()
+        got = fn(inputs, cfg, mesh=one, **kw)
+        out[f"{name}_one_device_gram_launches"] = launches() - before
+        out[f"{name}_one_device_bitwise"] = all(torch.equal(getattr(got, f), getattr(want, f)) for f in fields) \
+            and all(torch.equal(x, y) for x, y in zip(got.state, want.state))
+        before = launches()
+        t0 = time.perf_counter()
+        got = fn(inputs, cfg, mesh=two, **kw)
+        _sync(device)
+        out[f"{name}_two_entry_s"] = time.perf_counter() - t0
+        out[f"{name}_two_entry_gram_launches"] = launches() - before
+        out[f"{name}_two_entry_rel"] = max(_rel(getattr(got, f), getattr(want, f)) for f in fields)
+    ticks = fleet_ticks(inputs)
+    x0 = fleet_initial_estimate(kw["init_c"], kw["init_w"], cfg)
+
+    def stream(mesh):
+        state = fleet_stream_init(x0, n_w, mesh=mesh, device=device)
+        xs = []
+        for t in range(s * n_w):
+            state, att = fleet_step(state, ticks.at(t), cfg, mesh=mesh)
+            if att.step_completed:
+                xs.append(att.x)
+        return torch.stack(xs, dim=1), state
+
+    traj, state = stream(None)
+    traj1, state1 = stream(one)
+    traj2, state2 = stream(two)
+    out["fleet_step_one_device_bitwise"] = bool(torch.equal(traj1, traj) and torch.equal(state1[0].kalman.x, state.kalman.x))
+    out["fleet_step_two_entry_rel"] = max(_rel(traj2, traj), _rel(two.join([st.kalman.x for st in state2]), state.kalman.x))
+    res = plain["run_fleet_gram"]
+    rng = np.random.default_rng(0)
+    mask = torch.from_numpy((rng.random((b, s * n_w)) > 0.2).astype(np.float32)).to(device)
+    chip = torch.from_numpy((rng.random((b, m)) * 30.0).astype(np.float32)).to(device)
+    worst = 0.0
+    for extra in ({}, {"mask": mask}, {"chip_power": chip}, {"mask": mask, "chip_power": chip}):
+        args = (res.tick_power, res.unattributed, res.x_final[:, -1])
+        got, want = fleet_attribution_totals(*args, mesh=two, **extra), fleet_attribution_totals(*args, **extra)
+        for g, w in zip(got, want):
+            worst = max(worst, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    out["totals_two_entry_vs_plain_rel"] = worst
+
+    def pool_run(reshards):
+        pool = SlotFleetSession(b, m, step_windows=n_w, config=cfg, device=device)
+        pool.warmup()
+        for i in range(b):
+            pool.admit(i, x0=x0[i])
+        for t in range(horizon):
+            if t in reshards:
+                pool.reshard(reshards[t])
+                assert isinstance(pool.state, Shards) == (reshards[t] is not None)
+            tk = ticks.at(t)
+            pool.advance(FleetStep(*tk[:5], valid=torch.ones(b, device=device)))
+        return pool.engine_x()
+
+    horizon = min(10 * n_w, s * n_w)
+    out["reshard_mid_stream_rel"] = _rel(pool_run({horizon // 3: two, 2 * horizon // 3: None}), pool_run({}))
+    out["fleet_mesh_auto_64"] = repr(fleet_mesh_auto(B_NODES))
+    _log_all("elastic mesh", out)
+    for name in ("run_fleet_gram", "run_fleet_stream"):
+        assert out[f"{name}_one_device_bitwise"], (name, "one-device mesh differs from mesh=None")
+        assert out[f"{name}_two_entry_rel"] <= 1e-5, out
+    per_call = 2 if device == "cuda" else 0
+    assert out["run_fleet_gram_one_device_gram_launches"] == per_call, out
+    assert out["run_fleet_gram_two_entry_gram_launches"] == 2 * per_call, out
+    assert out["run_fleet_stream_two_entry_gram_launches"] == 0, out
+    assert out["fleet_step_one_device_bitwise"] and out["fleet_step_two_entry_rel"] <= 1e-5, out
+    assert out["totals_two_entry_vs_plain_rel"] <= 1e-5 and out["reshard_mid_stream_rel"] <= 1e-5, out
+    if torch.cuda.device_count() <= 1:
+        assert fleet_mesh_auto(B_NODES) is None
+    return out
+
+
+def _slot_trace(device: str, gate: bool = False, w_ulp: bool = False) -> tuple[dict, dict, list]:
+    """benchmarks/slot_serving.py's churn trace at its full size through a
+    ``SlotFleetSession`` behind a ``SlotAdmissionQueue`` on ``device``: the
+    same schedule (``churn_schedule`` seed 0), init blocks and feeds
+    (seed 1, 5 % of windows dropped), each tick timed to the card's
+    completion.  With ``gate`` every release, admission and step runs under
+    ``torch.cuda.set_sync_debug_mode("error")``; with ``w_ulp`` every fed
+    power is raised by one unit in the last place.  The stand-in for the
+    reference's zero-retrace gate: the pool's buffers do not move from
+    ``warmup()`` to the end, and no kernel source is built after it.
+    Returns the metrics, the final estimates and the tenancy lengths."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.sessions import SlotFleetSession
+    from repro_torch.kernels import build
+    from repro_torch.serving.scheduler import SlotAdmissionQueue
+    from repro_torch.telemetry.simulator import churn_schedule
+
+    cap, m, n_w, horizon, population = SLOT_POOL
+    spans = churn_schedule(population, horizon, capacity=cap, seed=0,
+                           mean_lifetime=horizon / 6.0, mean_gap=horizon / (2.5 * population))
+    joins: dict = {}
+    leaves: dict = {}
+    for sp in spans:
+        joins.setdefault(sp.join, []).append(sp.node)
+        leaves.setdefault(sp.leave, []).append(sp.node)
+    pool = SlotFleetSession(cap, m, step_windows=n_w, config=EngineConfig(), device=device)
+    ptrs = pool.warmup()
+    built = len(build.built)
+    queue = SlotAdmissionQueue(pool)
+    rng = np.random.default_rng(1)
+    init_blocks = {
+        sp.node: (rng.random((int(rng.integers(4, 3 * n_w)), m)).astype(np.float32),
+                  (rng.random(int(rng.integers(4, 3 * n_w))) * 30.0).astype(np.float32))
+        for sp in spans
+    }
+    # (init_c, init_w) lengths must agree per node (the benchmark's rule).
+    init_blocks = {node: (c[: len(w)], w[: len(c)]) for node, (c, w) in init_blocks.items()}
+    lat = []
+    t_start = time.perf_counter()
+    for t in range(horizon):
+        t0 = time.perf_counter()
+        if gate:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for node in leaves.get(t, ()):
+                if node in pool.live_nodes:
+                    pool.release(node)
+            queue.drain()
+            for node in joins.get(t, ()):
+                queue.submit(node, *init_blocks[node])
+            feeds = {}
+            for node in pool.live_nodes:
+                if rng.random() < 0.05:
+                    continue  # dropped window
+                feeds[node] = (
+                    rng.random(m).astype(np.float32), np.float32(40.0 + 10.0 * rng.random()),
+                    rng.integers(0, 2, m).astype(np.float32), rng.random(m).astype(np.float32),
+                    rng.random(m).astype(np.float32),
+                )
+                if w_ulp:
+                    feeds[node] = (feeds[node][0], np.nextafter(feeds[node][1], np.float32(np.inf)),
+                                   *feeds[node][2:])
+            pool.step(feeds)
+        finally:
+            if gate:
+                torch.cuda.set_sync_debug_mode(0)
+        _sync(device)
+        lat.append(time.perf_counter() - t0)
+    total_s = time.perf_counter() - t_start
+    assert pool.buffer_pointers() == ptrs, "a pool buffer moved during the churn trace"
+    assert len(build.built) == built, f"kernel sources built after warmup: {build.built[built:]}"
+    lat_us = np.asarray(lat) * 1e6
+    out = {
+        "pool": f"cap{cap} M{m} n_w{n_w}", "horizon_ticks": horizon, "population": len(spans),
+        "admits": pool.admits, "releases": pool.releases, "queue_deferred": queue.deferred,
+        "ticks_per_sec": horizon / total_s, "tick_us_mean": float(lat_us.mean()),
+        "tick_p99_us": float(np.percentile(lat_us, 99)),
+        "buffers_unmoved": True, "builds_after_warmup": len(build.built) - built,
+    }
+    lengths = [max(sp.leave - sp.join, 1) for sp in spans]
+    return out, pool.estimates(), lengths
+
+
+def phase_slot_pool(device="cuda") -> dict:
+    """The slot pool at benchmarks/slot_serving.py's full size on the card
+    under the sync gate, then the same trace on the CPU: the live nodes'
+    final estimates agree within 1e-5 of scale, or, where the trace itself
+    is worse conditioned than that, within four times the CPU's own move
+    when every fed power changes by one unit in the last place (measured in
+    the same call: the feeds are random, the 60-tick grams at M = 64 are
+    rank-deficient, and each boundary's NNLS amplifies last-bit
+    differences).  Also the padding the trace's tenancy lengths waste in
+    one pack against length buckets."""
+    from repro_torch.core.engine import (
+        bucketed_pad_waste, pack_fleet_buckets, pad_waste_frac, synthetic_ragged_windows,
+    )
+
+    out, card, lengths = _slot_trace(device, gate=device == "cuda")
+    cpu_out, cpu, _ = _slot_trace("cpu")
+    _, cpu_ulp, _ = _slot_trace("cpu", w_ulp=True)
+    assert set(card) == set(cpu) == set(cpu_ulp) and cpu_out["admits"] == out["admits"], (out, cpu_out)
+    nodes = sorted(card)
+    est = lambda e: torch.from_numpy(np.stack([e[n] for n in nodes]))  # noqa: E731
+    out["card_vs_cpu_rel"] = _rel(est(card), est(cpu))
+    out["cpu_one_ulp_w_rel"] = _rel(est(cpu_ulp), est(cpu))
+    out["cpu_ticks_per_sec"] = cpu_out["ticks_per_sec"]
+    n_w = SLOT_POOL[2]
+    arrs = synthetic_ragged_windows(len(lengths), max(lengths), 4, lengths=lengths, seed=2, device=device)
+    bks = pack_fleet_buckets(*arrs, step_windows=n_w, lengths=lengths, buckets=(1, 2, 4, 8, 16, 32), device=device)
+    out["pad_waste_monolithic"] = pad_waste_frac(lengths, n_w)
+    out["pad_waste_bucketed"] = bucketed_pad_waste(bks, n_w)
+    _log_all("slot pool", out)
+    assert out["card_vs_cpu_rel"] <= max(1e-5, 4 * out["cpu_one_ulp_w_rel"]), out
+    assert out["admits"] == out["population"], out
+    return out
+
+
+def phase_slot_profile(device="cuda") -> dict:
+    """``profile_fleet(slots=64)`` on a 64-node fleet of ragged durations
+    (drawn in [900, 1800] s, seed 0; nodes release their slots as their
+    streams end), pure and combined: reports within 1e-5 of scale of
+    ``profile_fleet`` without slots, every live tick conserved (1e-3 W),
+    ticks/s of both."""
+    from repro_torch.serving import EnergyFirstControlPlane
+    from repro_torch.workload.azure import WorkloadConfig, generate_trace
+    from repro_torch.workload.functions import paper_functions
+
+    reg = paper_functions()
+    durations = np.random.default_rng(0).integers(SLOT_DURATIONS_S[0], SLOT_DURATIONS_S[1] + 1, size=B_NODES)
+    durations[0] = int(DURATION_S)
+    traces = [generate_trace(reg, WorkloadConfig(duration_s=float(d), load=1.0, seed=i))
+              for i, d in enumerate(durations)]
+    cp = EnergyFirstControlPlane(reg, device=device)
+    out = {"durations_min_max": [int(durations.min()), int(durations.max())]}
+    for mode in ("pure", "combined"):
+        runs = {}
+        for name, slots in (("plain", None), ("slots", B_NODES)):
+            stamps, worst = [], [0.0]
+
+            def on_tick(tk, trackers, stamps=stamps, worst=worst):
+                stamps.append(time.perf_counter())
+                live = np.ones(B_NODES, bool) if tk.valid is None else tk.valid
+                recon = tk.tick_power.sum(-1) + tk.unattributed
+                worst[0] = max(worst[0], float(np.abs(recon - tk.target)[live].max()))
+                assert not recon[~live].any()
+
+            runs[name] = cp.profile_fleet(traces, mode=mode, slots=slots, on_tick=on_tick)
+            _sync(device)
+            out[f"{mode}_{name}_ticks_per_s"] = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+            out[f"{mode}_{name}_conservation_max_w"] = worst[0]
+        out[f"{mode}_slots_vs_plain_rel"] = max(
+            _rel(getattr(a.report, f), getattr(p.report, f))
+            for a, p in zip(runs["slots"], runs["plain"]) for f in ("x_power", "x_trajectory")
+        )
+    _log_all("slot profile_fleet", out)
+    for mode in ("pure", "combined"):
+        assert out[f"{mode}_slots_vs_plain_rel"] <= 1e-5, out
+        assert max(out[f"{mode}_{n}_conservation_max_w"] for n in ("plain", "slots")) <= 1e-3, out
+    return out
+
+
+def phase_baselines(device="cuda") -> dict:
+    """The paper's baseline profilers (``core/baselines.py``) on the fleet
+    phase's 3-node x 300 s data, as benchmarks/fig6_marginal_validation.py
+    feeds them (fine-grid activity, the chip signal on that grid, the
+    server's 4 s staleness), on the card against the CPU: 1e-5 of scale."""
+    from repro_torch.core import baselines
+    from repro_torch.core.contribution import contribution_matrix
+    from repro_torch.telemetry.simulator import NodeSimulator, SimulatorConfig
+    from repro_torch.workload.azure import WorkloadConfig, fleet_traces
+    from repro_torch.workload.functions import paper_functions
+
+    reg = paper_functions()
+    traces = fleet_traces(reg, WorkloadConfig(duration_s=300.0, seed=20), 3)
+    sims = NodeSimulator(reg, SimulatorConfig(platform=PLATFORM)).simulate_fleet(traces)
+    worst = {}
+    for tr, sim in zip(traces, sims):
+        act = sim.activity.astype(np.float32)
+        chip = sim.chip_signal
+        idx = np.clip((np.arange(act.shape[0]) * sim.fine_dt * chip.rate_hz).astype(int), 0, len(chip.watts) - 1)
+        chip_fine = np.asarray(chip.watts[idx], np.float32)
+        inv = np.asarray([tr.invocations_of(j) for j in range(tr.num_fns)], np.float32)
+        lat = np.asarray(tr.mean_latency(), np.float32)
+        c = contribution_matrix(torch.as_tensor(tr.fn_id, dtype=torch.int64), torch.as_tensor(tr.start),
+                                torch.as_tensor(tr.end), num_fns=tr.num_fns, num_windows=300)
+        watts = (sim.true_fn_power_w * 1.2).astype(np.float32)  # a model biased by 20 %
+        calls = {
+            "direct_attribution": lambda d: baselines.direct_attribution(act, chip_fine, sim.fine_dt, lat, inv, device=d),
+            "scaphandre_like": lambda d: baselines.scaphandre_like(
+                act, chip_fine, sim.fine_dt, inv, sample_bins=int(0.5 / sim.fine_dt),
+                stale_bins=int(4.0 / sim.fine_dt), resident_bins=int(10.0 / sim.fine_dt), device=d),
+            "model_only_attribution": lambda d: baselines.model_only_attribution(c, 1.0, watts, lat, inv, device=d),
+        }
+        for name, call in calls.items():
+            got, want = call(device), call("cpu")
+            assert got.device.type == device and torch.isfinite(got).all(), name
+            worst[name] = max(worst.get(name, 0.0), _rel(got, want))
+    out = {f"{k}_card_vs_cpu_rel": v for k, v in worst.items()}
+    _log_all("baselines", out)
+    assert max(worst.values()) <= 1e-5, out
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Attention and RMSNorm kernels
 # ---------------------------------------------------------------------------
 
@@ -1933,7 +2397,7 @@ def main() -> int:
         comb_fleet_gram, comb_ctrl_gram)
     assert not any(comb_ctrl_other.values()), comb_ctrl_other
     assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
-    del fleet, comb_reports
+    del comb_reports
     metrics["combined_phase_s"] = time.perf_counter() - t0
     log(f"phase combined metering: {metrics['combined_phase_s']:.1f} s")
 
@@ -1951,6 +2415,44 @@ def main() -> int:
     metrics["control_phase_s"] = time.perf_counter() - t0
     log(f"phase control loop: {metrics['control_phase_s']:.1f} s; hand-kernel launches {control_launches}")
     log("combined_control " + json.dumps(metrics))
+
+    # Elastic serving.  Length buckets launch the gram once for X_0 and once
+    # for the step hoist per bucket, the sharded run_fleet_gram once each per
+    # shard; the slot pool, profile_fleet(slots=) (the streaming path) and
+    # the baselines launch no hand kernel.  Counts zeroed just before each
+    # part, read just after; the gram's inputs at every shape it launched
+    # are kept for the parity that follows.
+    t0 = time.perf_counter()
+    elastic: dict = {}
+    gram_kernel = ds.disagg_gram
+    plain_calls, restore = _watch_plain(ref, plain_names)
+    seen, unrecord = _record_gram()
+    try:
+        zero_counts()
+        elastic["buckets"] = phase_elastic_buckets(fleet, lambda: gram_kernel.launches)
+        elastic["mesh"] = phase_elastic_mesh(fleet, lambda: gram_kernel.launches)
+        elastic_gram = gram_kernel.launches
+        elastic_other = {fn.__name__: fn.launches for fn in counted if fn is not gram_kernel}
+        zero_counts()
+        elastic["slot_pool"] = phase_slot_pool()
+        elastic["slot_profile_fleet"] = phase_slot_profile()
+        elastic["baselines"] = phase_baselines()
+        elastic_quiet = {fn.__name__: fn.launches for fn in counted}
+    finally:
+        unrecord()
+        restore()
+    log(f"elastic hand-kernel launches: buckets + mesh disagg_gram {elastic_gram}, others {elastic_other}; "
+        f"slot pool + slot profile_fleet + baselines {elastic_quiet}")
+    assert elastic_gram > 0 and not any(elastic_other.values()), (elastic_gram, elastic_other)
+    assert not any(elastic_quiet.values()), elastic_quiet
+    assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
+    log(f"elastic gram shapes launched: {sorted(seen)}")
+    elastic_rows = {shape: gram_parity(ds, ref, c, w, warm=True, label="elastic parity")
+                    for shape, (c, w) in sorted(seen.items())}
+    del seen, fleet
+    elastic["phase_s"] = time.perf_counter() - t0
+    log(f"phase elastic serving: {elastic['phase_s']:.1f} s")
+    log("elastic " + json.dumps(elastic, default=str))
 
     # Serving path: same discipline.
     t0 = time.perf_counter()
@@ -2005,10 +2507,13 @@ def main() -> int:
 
     kernels = [
         _summary("disagg_gram", "src/repro/kernels/disagg_solve.py:84",
-                 gram_launches + comb_fleet_gram + comb_ctrl_gram,
+                 gram_launches + comb_fleet_gram + comb_ctrl_gram + elastic_gram,
                  [rows[k] for k in MAIN_SHAPES + COMBINED_GRAM_SHAPES], MAIN_SHAPES + COMBINED_GRAM_SHAPES,
                  launches_by_path={"fleet": gram_launches, "combined_fleet": comb_fleet_gram,
-                                   "combined_controller": comb_ctrl_gram}),
+                                   "combined_controller": comb_ctrl_gram, "elastic": elastic_gram},
+                 elastic_shapes=[dict(shape=list(k), **{f: r[f] for f in (
+                     "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "variant",
+                     "warm_ms", "library_warm_ms")}) for k, r in elastic_rows.items()]),
         _summary("flash_attention", "src/repro/kernels/flash_attention.py:134", flash_launches,
                  [arows[("flash_attention", k, "bfloat16")] for k in FLASH_MAIN], FLASH_MAIN,
                  source="src/repro_torch/kernels/csrc/flash_attention_tc.cu"),

@@ -9,11 +9,10 @@ Module map (paper section -> module):
 - §5   skew sync + power capping        -> ``sync``, ``capping``
 - §5.1 validation metrics               -> ``metrics``
 - §6   pricing                          -> ``pricing``
+- baselines (Scaphandre / PowerAPI-like)-> ``baselines``
 - fleet engine (segment + streaming)    -> ``engine``
 - live sessions                         -> ``sessions``
 - orchestrator                          -> ``profiler``
-
-Not yet ported (ROADMAP.md Queue 1): the baselines (item 13).
 """
 
 from repro_torch.core.contribution import (

@@ -7,18 +7,33 @@ Module DAG, imports only downward:
     estimate     whole-trace X_0 solves (§4.2) + gram backends
     attribution  conserved per-tick splits + §4.4 spectra
     plan         FleetPlan: resolve_plan / finish_result / segment_plan
+    sharding     dispatch of any stage over a FleetMesh, shard by shard
     segment      run_fleet / run_fleet_gram / run_fleet_sequential
-    streaming    fleet_step / run_fleet_stream: one update per tick
+    streaming    fleet_step / fleet_stream_reset_slots / run_fleet_stream
     packing      per-window arrays → (B, S, n_w, ...) batches
+    buckets      length buckets: bucketed init solves and segment packs
     targets      pure vs §4.3 combined ('rest') disaggregation targets
-
-Not yet ported (see ROADMAP.md): length buckets and mesh sharding (Queue 1
-item 8).
 """
 
 from repro_torch.core.engine.attribution import fleet_spectrum, tick_attribution
+from repro_torch.core.engine.buckets import (
+    DEFAULT_BUCKETS,
+    FleetBucket,
+    bucket_for,
+    bucketed_initial_estimate,
+    bucketed_pad_waste,
+    pack_fleet_buckets,
+    pad_waste_frac,
+    run_fleet_bucketed,
+    warm_bucket_solvers,
+)
 from repro_torch.core.engine.estimate import fleet_initial_estimate
-from repro_torch.core.engine.packing import pack_fleet_inputs, synthetic_fleet
+from repro_torch.core.engine.masking import fold_step_valid
+from repro_torch.core.engine.packing import (
+    pack_fleet_inputs,
+    synthetic_fleet,
+    synthetic_ragged_windows,
+)
 from repro_torch.core.engine.plan import FleetPlan, finish_result, resolve_plan, segment_plan
 from repro_torch.core.engine.segment import run_fleet, run_fleet_gram, run_fleet_sequential
 from repro_torch.core.engine.streaming import (
@@ -39,13 +54,18 @@ from repro_torch.core.engine.types import (
 )
 
 __all__ = [
+    "DEFAULT_BUCKETS",
     "EngineConfig",
+    "FleetBucket",
     "FleetInputs",
     "FleetPlan",
     "FleetResult",
     "FleetStep",
     "FleetStreamState",
     "TickAttribution",
+    "bucket_for",
+    "bucketed_initial_estimate",
+    "bucketed_pad_waste",
     "combined_rest_target",
     "finish_result",
     "fleet_initial_estimate",
@@ -55,13 +75,19 @@ __all__ = [
     "fleet_stream_init",
     "fleet_stream_reset_slots",
     "fleet_ticks",
+    "fold_step_valid",
+    "pack_fleet_buckets",
     "pack_fleet_inputs",
+    "pad_waste_frac",
     "resolve_plan",
     "run_fleet",
+    "run_fleet_bucketed",
     "run_fleet_gram",
     "run_fleet_sequential",
     "run_fleet_stream",
     "segment_plan",
     "synthetic_fleet",
+    "synthetic_ragged_windows",
     "tick_attribution",
+    "warm_bucket_solvers",
 ]

@@ -1,9 +1,10 @@
 """Packing stage: per-window arrays → (B, S, n_w, ...) engine batches.
 
 ``pack_fleet_inputs`` is the one place the ragged-fleet pad-and-mask
-contract is defined on the way *in*; ``synthetic_fleet`` is the shared
-seeded input factory of the equivalence tests (numpy draws, so the same
-seed gives the reference's arrays).
+contract is defined on the way *in*; ``synthetic_fleet`` (step blocks)
+and ``synthetic_ragged_windows`` (per-window arrays) are the shared seeded
+input factories of the equivalence tests (numpy draws, so the same seed
+gives the reference's arrays).
 """
 
 from __future__ import annotations
@@ -123,4 +124,38 @@ def pack_fleet_inputs(
         lat_sumsq=(grp(lat_sumsq_w) * mv).sum(dim=2),
         mask=None if bool(tick_valid.all()) else mask,
         fn_mask=fn_mask,
+    )
+
+
+def synthetic_ragged_windows(
+    b: int, n: int, m: int, *, lengths: Sequence[int], seed: int = 0,
+    density: float = 0.2, device: str | torch.device = DEFAULT_DEVICE,
+):
+    """Per-*window* synthetic fleet tensors for ragged packing (the
+    reference's generator, draw for draw).
+
+    Returns ``(c, w, a, lat_sum, lat_sumsq)`` of shape (B, N, ...) on
+    ``device``, ready for ``pack_fleet_inputs`` with the given ``lengths``.
+    Windows past each node's length hold *non-zero junk* on purpose, so the
+    pad-and-mask contract (junk never leaks into a result) is exercised,
+    not vacuously true.
+    """
+    rng = np.random.default_rng(seed)
+    c = np.abs(rng.standard_normal((b, n, m))) * (rng.random((b, n, m)) > 1 - density)
+    x_true = np.abs(rng.standard_normal((b, m))) * 20.0 + 2.0
+    w = np.maximum(
+        np.einsum("bnm,bm->bn", c, x_true) + 0.1 * rng.standard_normal((b, n)), 0.0
+    )
+    a = ((rng.random((b, n, m)) > 0.8) * rng.integers(0, 3, (b, n, m))).astype(np.float32)
+    lat = np.abs(rng.standard_normal((b, n, m)))
+    ls, lq = lat * a, lat**2 * a
+    for i, li in enumerate(lengths):
+        c[i, li:] = 7.7
+        w[i, li:] = 123.0
+        a[i, li:] = 3.0
+        ls[i, li:] = 9.9
+        lq[i, li:] = 9.9
+    dev = resolve_device(device)
+    return tuple(
+        torch.as_tensor(np.asarray(x, np.float32), device=dev) for x in (c, w, a, ls, lq)
     )

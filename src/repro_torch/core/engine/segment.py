@@ -15,7 +15,10 @@ paths:
                              calling ``kalman_step``.
 
 The reference's batch-1 branches exist only to keep XLA bitwise and have no
-twin here.  Each entry point takes ``device=`` and moves its inputs there.
+twin here.  Each entry point takes ``device=`` and moves its inputs there;
+``mesh`` (a ``distributed.sharding.FleetMesh``) dispatches through
+``core.engine.sharding`` instead, each shard re-entering the unsharded
+engine on its own device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from repro_torch.core.disaggregation import solve_nnls_gram
 from repro_torch.core.engine.estimate import _init_states, _node_init_gram
 from repro_torch.core.engine.plan import finish_result, resolve_plan
+from repro_torch.core.engine.sharding import _run_sharded
 from repro_torch.core.engine.types import EngineConfig, FleetInputs, FleetResult, Tensor
 from repro_torch.core.kalman import (
     KalmanState,
@@ -35,12 +39,6 @@ from repro_torch.core.kalman import (
     run_kalman_fleet_gram,
 )
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-
-_NO_MESH = (
-    "mesh= is not ported yet: node-axis sharding over CUDA devices is "
-    "ROADMAP Queue 1 item 8 (elastic serving / FleetMesh)"
-)
-
 
 def _on_device(inputs, init_c, init_w, device):
     dev = resolve_device(device)
@@ -64,9 +62,15 @@ def run_fleet(
 
     Ragged fleets: with ``inputs.mask`` set, masked ticks are folded to
     zero telemetry before any stage runs; fully-masked steps leave a node's
-    Kalman state untouched."""
+    Kalman state untouched.
+
+    With ``mesh`` the node axis is split over the mesh devices and these
+    same stages run on each node block on its device (``device`` is then
+    ignored); the result lies on the mesh's first device, pinned to the
+    unsharded one at 1e-5 of scale and equal to it bit for bit on a
+    one-device mesh."""
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        return _run_sharded(run_fleet, inputs, config, init_c, init_w, with_ticks, mesh)
     inputs, init_c, init_w = _on_device(inputs, init_c, init_w, device)
     plan = resolve_plan(inputs, config, init_c=init_c, init_w=init_w)
     inputs = plan.inputs
@@ -92,9 +96,11 @@ def run_fleet_gram(
     assembled by ``config.backend`` (the CUDA kernel on the card under
     ``"auto"``), then an O(M^2)-per-step fleet loop that never touches the
     window dimension.  Same update rule as ``run_fleet``; equal up to float
-    reassociation of the hoisted contractions."""
+    reassociation of the hoisted contractions.  ``mesh`` shards the node
+    axis as in ``run_fleet``: each shard's call assembles its own grams, on
+    its own node block."""
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        return _run_sharded(run_fleet_gram, inputs, config, init_c, init_w, with_ticks, mesh)
     inputs, init_c, init_w = _on_device(inputs, init_c, init_w, device)
     plan = resolve_plan(inputs, config, init_c=init_c, init_w=init_w, use_backend=True)
     inputs = plan.inputs

@@ -16,7 +16,9 @@ tensors are written in place (the ring-buffer row at the host-known
 ``tick_in_step``, the accumulators, the Kalman state), so they keep their
 storage for the whole stream, and the reference's ``lax.cond`` on the
 boundary is a host ``if`` on the tick counter: the dispatching thread never
-reads the device.
+reads the device.  With a ``FleetMesh`` the state is a ``Shards`` tuple,
+one state per mesh device, and every entry point dispatches through
+``core.engine.sharding``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from repro_torch.core.engine.attribution import _conserved_split
 from repro_torch.core.engine.estimate import _init_states
 from repro_torch.core.engine.masking import _apply_mask, fold_step_valid
 from repro_torch.core.engine.plan import finish_result, resolve_plan
-from repro_torch.core.engine.segment import _NO_MESH, _on_device
+from repro_torch.core.engine.segment import _on_device
+from repro_torch.core.engine.sharding import _run_sharded, _sharded_reset, _sharded_step
 from repro_torch.core.engine.types import (
     EngineConfig,
     FleetInputs,
@@ -39,6 +42,7 @@ from repro_torch.core.engine.types import (
 )
 from repro_torch.core.kalman import KalmanState, kalman_step_gram, precompute_step_inputs
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.sharding import Shards
 
 
 def fleet_stream_init(
@@ -55,9 +59,18 @@ def fleet_stream_init(
     handoff at a step boundary).  It is copied, and every carried tensor is
     a separate allocation, because ``fleet_step`` writes them in place.
     ``n_w`` (ticks per Kalman step) sizes the ring buffer.
+
+    With ``mesh`` (a ``distributed.sharding.FleetMesh``) the result is a
+    ``Shards`` tuple: one state per mesh device over its block of X_0's
+    rows (``device`` is then ignored).  Pass the same mesh to every later
+    ``fleet_step`` and ``fleet_stream_reset_slots``.
     """
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        mesh.validate(x0.shape[0])
+        return Shards(
+            fleet_stream_init(x, n_w, device=dev)
+            for dev, x in zip(mesh.devices, mesh.split(x0))
+        )
     dev = resolve_device(device)
     x0 = x0.to(device=dev, dtype=torch.float32, copy=True)
     b, m = x0.shape
@@ -101,9 +114,14 @@ def fleet_step(
     advanced counters; callers rebind, as with the reference's donated
     state.  The attribution's tensors are fresh: a consumer on another
     thread may read them after later ticks have updated the state.
+
+    With ``mesh`` the state is the ``Shards`` of ``fleet_stream_init(...,
+    mesh=mesh)``: the tick's rows are split over the shards, each shard
+    advances on its device, and the attribution is joined on the mesh's
+    first device.
     """
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        return _sharded_step(fleet_step, state, step, config, mesh)
     step = fold_step_valid(step)
     kcfg = config.kalman
     n_w = state.c_buf.shape[1]
@@ -145,9 +163,10 @@ def fleet_stream_reset_slots(
     ``kalman_init`` of its row of ``x0`` ((B, M); ignored where ``reset`` is
     0), and its ring-buffer rows and partial-step accumulators are zeroed.
     The fleet's ``tick_in_step``/``step_idx`` are untouched: the new tenant
-    joins the step clock mid-step.  Returns ``state`` (callers rebind)."""
+    joins the step clock mid-step.  Returns ``state`` (callers rebind).
+    With ``mesh`` the flags and X_0 rows are split over the shards."""
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        return _sharded_reset(fleet_stream_reset_slots, state, reset, x0, mesh)
     r = reset.to(torch.float32)
     rb = r[:, None] > 0
     fresh = _init_states(x0.to(torch.float32))
@@ -209,10 +228,11 @@ def run_fleet_stream(
     runs.  The trajectory collects the boundary ticks' estimates;
     ``tick_power`` is the segment engines' smoothed-within-step attribution,
     for comparability.  ``config.backend`` is ignored: the streaming
-    reduction is the plain contraction, as in the reference.
+    reduction is the plain contraction, as in the reference.  ``mesh``
+    shards the node axis as in ``run_fleet``.
     """
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        return _run_sharded(run_fleet_stream, inputs, config, init_c, init_w, with_ticks, mesh)
     inputs, init_c, init_w = _on_device(inputs, init_c, init_w, device)
     plan = resolve_plan(inputs, config, init_c=init_c, init_w=init_w)
     inputs = plan.inputs

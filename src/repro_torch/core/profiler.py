@@ -13,7 +13,8 @@ Pipeline per accounting segment:
   6. assemble the Shapley footprint spectrum (§4.4, Eq. 4).
 
 ``start_fleet_stream`` opens the live ``StreamingFleetSession``
-(``core.sessions``).  Entry points take ``device=`` (default ``"cuda"``);
+(``core.sessions``), optionally over a slot pool (``slots=``,
+``SlotFleetSession``) and a node-axis mesh (``mesh=``).  Entry points take ``device=`` (default ``"cuda"``);
 the simulator's float32 CPU telemetry is moved there on the way in.  The
 trace's statistics (contribution matrix, per-step invocation counts and
 latency moments) are summed on the host in a fixed order and copied to the
@@ -34,7 +35,6 @@ from repro_torch.core import cpu_model as cpumod
 from repro_torch.core import sync as syncmod
 from repro_torch.core.disaggregation import DisaggregationConfig, disaggregate
 from repro_torch.core.engine.plan import segment_plan
-from repro_torch.core.engine.segment import _NO_MESH
 from repro_torch.core.engine.targets import combined_rest_target, fleet_rest_idle
 from repro_torch.core.kalman import KalmanConfig, kalman_init, run_kalman
 from repro_torch.core.sessions.combined import (
@@ -51,6 +51,7 @@ from repro_torch.core.sessions.report import (
     _per_fn_latency_stats,
     _trace_tensors,
 )
+from repro_torch.core.sessions.slots import SlotFleetSession
 from repro_torch.core.sessions.streaming import StreamingFleetSession
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
@@ -58,6 +59,7 @@ __all__ = [
     "FaasMeterProfiler",
     "FootprintReport",
     "ProfilerConfig",
+    "SlotFleetSession",
     "StreamTick",
     "StreamingFleetSession",
     "Telemetry",
@@ -242,11 +244,15 @@ class FaasMeterProfiler:
         per-node ``fn_counters`` and ``counter_model`` (see
         ``prepare_combined_fleet``); pass ``window_features`` as well for
         retrain checks at every Kalman-step boundary, against
-        ``retrain_config``'s threshold.  Raises ``ValueError`` for
-        configurations the streaming engine does not cover (non-default
-        disaggregation, segments too short for a Kalman step, ragged nodes
-        too short to bootstrap) and ``NotImplementedError`` for the
-        unported mesh and slot-pool arguments (ROADMAP Queue 1 item 8).
+        ``retrain_config``'s threshold.  ``slots`` routes the engine through
+        a ``SlotFleetSession`` of that capacity (>= the fleet): nodes claim
+        slots at bootstrap and release them as their streams end.  ``mesh``
+        (a ``distributed.sharding.FleetMesh``) splits the engine state over
+        its devices; the session then lives on the mesh's first device.
+        Raises ``ValueError`` for configurations the streaming engine does
+        not cover (non-default disaggregation, segments too short for a
+        Kalman step, ragged nodes too short to bootstrap, a pool smaller
+        than the fleet, a fleet or pool that does not tile the mesh).
         """
         return StreamingFleetSession(
             self, traces, num_fns=num_fns, duration=duration,
@@ -418,12 +424,14 @@ def fleet_profile_batched(
     cover the common N_init window; past it, nodes contribute their own
     ``S_i`` full Kalman steps, the batch pads to ``max(S_i)`` with a
     validity mask, and nodes with zero post-init steps report X_0.
+
+    ``mesh`` (a ``distributed.sharding.FleetMesh``) splits the engine call
+    over its devices, node block by node block; the reports then lie on the
+    mesh's first device, which replaces ``device``.
     """
     from repro_torch.core import engine as eng
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     cfg = profiler.config
     if not cfg.disagg.nonneg or cfg.disagg.mode != "no_idle":
         raise ValueError(
@@ -534,6 +542,7 @@ def fleet_profile_batched(
         # Per-tick attribution is a (B, T, M) dense product nothing in the
         # report consumes; callers that want it use the engine directly.
         with_ticks=False,
+        mesh=mesh,
         device=dev,
     )
 

@@ -14,11 +14,12 @@ never imported.
 - ``drain``     — ``StreamTick`` + the background emit worker of a drained
                   ingest.
 - ``retrain``   — continuous retraining / resync mixin (§4.3 live loop).
+- ``slots``     — ``SlotFleetSession``: a fixed pool of engine slots that
+                  nodes claim and release while the stream ticks.
 - ``streaming`` — ``StreamingFleetSession``: window-by-window profiling in
-                  pure or combined mode, with prefetched ingest and an
-                  optional drain thread.
-
-Not yet ported (see ROADMAP.md): the slot-pool session (Queue 1 item 8).
+                  pure or combined mode, with prefetched ingest, an
+                  optional drain thread, a slot pool (``slots=``) and a
+                  node-axis mesh (``mesh=``).
 """
 
 from repro_torch.core.sessions.base import FleetSession
@@ -31,6 +32,7 @@ from repro_torch.core.sessions.report import (
     _per_fn_latency_stats,
     finalize_streaming_session,
 )
+from repro_torch.core.sessions.slots import SlotFleetSession
 from repro_torch.core.sessions.streaming import StreamingFleetSession
 
 __all__ = [
@@ -38,6 +40,7 @@ __all__ = [
     "FootprintReport",
     "combined_chip_power",
     "prepare_combined_fleet",
+    "SlotFleetSession",
     "StreamTick",
     "StreamingFleetSession",
 ]

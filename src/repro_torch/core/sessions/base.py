@@ -1,35 +1,42 @@
 """FleetSession: the common base of the live session layer.
 
-Holds what every session over the streaming engine needs — the engine
-package handle, the resolved ``EngineConfig`` — and the diagnostics of the
-port's stream contract, which stand in for the reference's retrace counts
-(``compile_counts``, which has no meaning without a jit cache): the number
-of ticks dispatched, and the storage of every carried engine buffer, which
-``fleet_step`` updates in place and which must not move during a stream.
+Both concrete sessions — the telemetry-level ``StreamingFleetSession``
+(whole profiling segments, window by window) and the engine-level
+``SlotFleetSession`` (a slot pool with continuous admission and retirement)
+— drive the same streaming engine and share its operational contract: an
+engine config, an optional ``FleetMesh``, and the diagnostics that stand in
+for the reference's retrace counts (``compile_counts``, which has no
+meaning without a jit cache): the number of ticks dispatched, and the
+storage of every carried engine buffer, which ``fleet_step`` updates in
+place and which must not move during a stream.
 """
 
 from __future__ import annotations
 
-from repro_torch.core import engine as eng
-from repro_torch.core.engine.segment import _NO_MESH
+import torch
 
-_NO_SLOTS = (
-    "slots= (the slot-pool serving mode) is not ported yet: ROADMAP Queue 1 "
-    "item 8 (elastic serving)"
-)
+from repro_torch.core import engine as eng
+from repro_torch.distributed.sharding import Shards
+
+
+def _pointers(st) -> dict[str, int]:
+    ptrs = {f"kalman.{k}": v.data_ptr() for k, v in st.kalman._asdict().items()}
+    for k in ("c_buf", "w_buf", "a", "lat_sum", "lat_sumsq"):
+        ptrs[k] = getattr(st, k).data_ptr()
+    return ptrs
 
 
 class FleetSession:
     """Base class for live fleet sessions over the streaming engine.
 
-    Subclasses own their engine state and expose it via ``state``; they
-    count each ``fleet_step`` they dispatch in ``ticks_dispatched``.  With
-    ``mesh`` (node-axis sharding) unported, a non-None mesh raises.
+    Holds the engine package handle, the resolved ``EngineConfig`` and the
+    optional ``FleetMesh``.  Subclasses own their engine state and expose it
+    via ``state`` (a ``Shards`` tuple, one state per mesh device, when
+    sharded); they count each ``fleet_step`` they dispatch in
+    ``ticks_dispatched``.
     """
 
     def __init__(self, *, config: "eng.EngineConfig | None", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         self.eng = eng
         self.config = config
         self.mesh = mesh
@@ -42,10 +49,19 @@ class FleetSession:
 
     def buffer_pointers(self) -> dict[str, int]:
         """``data_ptr()`` of every carried tensor of the live engine state
-        (Kalman leaves as ``kalman.<field>``).  Snapshot before and after a
-        stream: the in-place contract says they never change."""
+        (Kalman leaves as ``kalman.<field>``; on a mesh, every shard's,
+        prefixed ``<shard>/``).  Snapshot before and after a stream: the
+        in-place contract says they never change."""
         st = self.state
-        ptrs = {f"kalman.{k}": v.data_ptr() for k, v in st.kalman._asdict().items()}
-        for k in ("c_buf", "w_buf", "a", "lat_sum", "lat_sumsq"):
-            ptrs[k] = getattr(st, k).data_ptr()
-        return ptrs
+        if isinstance(st, Shards):
+            return {f"{i}/{k}": v for i, s in enumerate(st) for k, v in _pointers(s).items()}
+        return _pointers(st)
+
+    def engine_x(self) -> torch.Tensor:
+        """(B, M) current Kalman estimate of the engine state, in state row
+        order, as a fresh tensor (joined on the mesh's first device when
+        sharded)."""
+        st = self.state
+        if isinstance(st, Shards):
+            return self.mesh.join([s.kalman.x for s in st]).clone()
+        return st.kalman.x.clone()

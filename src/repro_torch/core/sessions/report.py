@@ -151,8 +151,8 @@ def finalize_streaming_session(sess) -> list[FootprintReport]:
     zero post-init steps reports its X_0 trajectory, as the per-node path
     would.  In combined mode each node's footprints add its ``x_cpu`` and
     its reconstruction offset is its raw chip series plus its rest-side
-    idle, as on the batch paths.  (The reference's slot-pool branch waits
-    for ROADMAP Queue 1 item 8.)
+    idle, as on the batch paths.  With ``slots`` the final estimates are
+    gathered from each node's pool slot (``session.final_x``).
     """
     if sess._n_raw < sess.n_windows:
         raise ValueError(
@@ -164,7 +164,7 @@ def finalize_streaming_session(sess) -> list[FootprintReport]:
     cfg = sess.cfg
     dev = sess.device
     traj = torch.stack(sess._traj, dim=1)                       # (B, S, M_aug)
-    x_final = sess.state.kalman.x.clone()
+    x_final = sess.final_x()
     w_sys = torch.as_tensor(np.stack(sess._w_sync, axis=1), device=dev)  # (B, n_used)
     c_aug = sess._c_aug_block(0, sess.n_windows)
     cp_col = (

@@ -42,7 +42,7 @@ from repro_torch.core import contribution as contrib
 from repro_torch.core import cpu_model as cpumod
 from repro_torch.core import sync as syncmod
 from repro_torch.core.engine.plan import segment_plan
-from repro_torch.core.sessions.base import _NO_SLOTS, FleetSession
+from repro_torch.core.sessions.base import FleetSession
 from repro_torch.core.sessions.combined import (
     _as_fleet_counters,
     _as_fleet_model,
@@ -57,7 +57,8 @@ from repro_torch.core.sessions.report import (
     finalize_streaming_session,
 )
 from repro_torch.core.sessions.retrain import RetrainMixin
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.sessions.slots import SlotFleetSession
+from repro_torch.device import DEFAULT_DEVICE, resolve_device, stage
 
 Tensor = torch.Tensor
 
@@ -156,9 +157,15 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
           window_features: optional (B, N, F) per-window counter features
             (host data) — enables the retrain checks at step boundaries.
           retrain_config: thresholds for those checks.
+          mesh: optional ``distributed.sharding.FleetMesh``: the engine
+            state is split over its devices (B, or the slot capacity with
+            ``slots``, must tile it) and the session's tensors live on its
+            first device, which replaces ``device``.
+          slots: optional slot-pool capacity >= B: the engine runs on a
+            ``SlotFleetSession`` of this many slots.  Nodes claim slots at
+            bootstrap (a warm handoff of their X_0 rows) and release them
+            when their streams end; spare slots stay free and invalid.
           device: where the engine runs (default the card).
-        mesh and slots raise ``NotImplementedError`` (ROADMAP Queue 1
-        item 8).
         """
         cfg = profiler.config
         if cfg.mode not in ("pure", "combined"):
@@ -168,15 +175,21 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
                 "StreamingFleetSession supports the default NNLS/no_idle "
                 "disaggregation config only"
             )
-        if slots is not None:
-            raise NotImplementedError(_NO_SLOTS)
         super().__init__(config=None, mesh=mesh)
-        dev = resolve_device(device)
+        dev = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.device = dev
         self.cfg = cfg
         self.num_fns = num_fns
         self.b = len(traces)
         self.durations, self._ragged = _node_durations(duration, self.b)
+        self._slots_cap = None if slots is None else int(slots)
+        if self._slots_cap is not None and self._slots_cap < self.b:
+            raise ValueError(f"slots={slots} is smaller than the fleet (B={self.b})")
+        if mesh is not None:
+            mesh.validate(self.b if self._slots_cap is None else self._slots_cap)
+        self._slot_pool: SlotFleetSession | None = None
+        self._slot_rows: Tensor | None = None  # node i -> its pool slot (device)
+        self._slot_valid: Tensor | None = None  # (B,) ones: a dense fleet's liveness
         if np.ndim(has_chip) == 0:
             self._chip_mask = np.full(self.b, bool(has_chip))
         else:
@@ -340,8 +353,16 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
 
     @property
     def state(self):
-        """Live engine state (``FleetStreamState``)."""
-        return self._state
+        """Live engine state (``FleetStreamState``; the pool's, slot-major,
+        with ``slots``; a ``Shards`` tuple on a mesh)."""
+        return self._slot_pool.state if self._slot_pool is not None else self._state
+
+    def final_x(self) -> Tensor:
+        """(B, M_aug) current estimate in node order, a fresh tensor on the
+        session's device (gathered from the pool's slots with ``slots``)."""
+        if self._slot_pool is not None:
+            return self._slot_pool.engine_x().index_select(0, self._slot_rows)
+        return self.engine_x()
 
     # -- ingestion ---------------------------------------------------------
 
@@ -509,7 +530,23 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
         init_c = self._c_aug_block(0, self.init_n)                  # (B, init_n, M_aug)
         self.x0 = eng.fleet_initial_estimate(init_c, target, self._engine_cfg)
         self.init_busy_seconds = init_c.sum(dim=1)
-        self._state = eng.fleet_stream_init(self.x0, self.cfg.step_windows, device=self.device)
+        if self._slots_cap is not None:
+            # Serving mode: the engine state is a slot pool of the requested
+            # capacity.  Nodes claim slots in order (a warm handoff of the
+            # batched X_0 rows, no re-solve); spare slots stay free.
+            pool = SlotFleetSession(
+                self._slots_cap, self.m_aug, step_windows=self.cfg.step_windows,
+                config=self._engine_cfg, mesh=self.mesh, device=self.device,
+            )
+            pool.warmup()
+            rows = [pool.admit(i, x0=self.x0[i]) for i in range(self.b)]
+            self._slot_rows = stage(torch.as_tensor(rows, dtype=torch.int64), self.device)
+            self._slot_valid = torch.ones(self.b, device=self.device)
+            self._slot_pool = pool
+        else:
+            self._state = eng.fleet_stream_init(
+                self.x0, self.cfg.step_windows, mesh=self.mesh, device=self.device
+            )
         self.booted = True
         if self.on_bootstrap is not None:
             self.on_bootstrap(self)
@@ -521,15 +558,6 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
             return block
         col = torch.as_tensor(np.stack(self._cp_col[lo:hi], axis=1), device=self.device)
         return torch.cat([block, col[:, :, None]], dim=2)
-
-    def _to_device(self, rows: np.ndarray) -> Tensor:
-        """Host rows onto the engine's device without blocking: staged in
-        pinned memory (the caching host allocator keeps the block until the
-        copy has run) and copied asynchronously on the current stream."""
-        host = torch.from_numpy(rows)
-        if self.device.type != "cuda":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _process_tick(self, t: int) -> None:
         """Dispatch stage: build tick ``t``'s feed and launch the engine step.
@@ -550,7 +578,7 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
             host_rows.append(self._raw_chip[t])
         if self.has_cp:
             host_rows.append(self._cp_col[t])
-        rows = self._to_device(np.stack(host_rows))
+        rows = stage(torch.from_numpy(np.stack(host_rows)), self.device)
         w_dev = rows[0]
         c_t = self._c_fns[:, t]
         if self.has_cp:
@@ -572,7 +600,12 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
             c=c_t, w=target, a=a_t, lat_sum=self._ls_win[:, j],
             lat_sumsq=self._lq_win[:, j], valid=valid,
         )
-        self._state, att = self.eng.fleet_step(self._state, step, self._engine_cfg)
+        if self._slot_pool is not None:
+            att = self._pool_tick(t, step)
+        else:
+            self._state, att = self.eng.fleet_step(
+                self._state, step, self._engine_cfg, mesh=self.mesh
+            )
         self.ticks_dispatched += 1
         completed = (j + 1) % cfg.step_windows == 0
         if completed:
@@ -581,6 +614,39 @@ class StreamingFleetSession(RetrainMixin, FleetSession):
             self._drain.put((t, att, c_t, a_t, target, w_sync, live, completed))
         else:
             self._emit_tick(t, att, c_t, a_t, target, w_sync, live, completed)
+
+    def _pool_tick(self, t: int, step):
+        """Drive one engine tick through the slot pool (``slots=`` mode).
+
+        Nodes whose engine span ends at ``t`` release their slots first
+        (continuous retirement: the slot returns to the pool, its Kalman row
+        freezes).  The nodes' rows are scattered into a slot-major tick on
+        the device (a node that has ended has ``valid`` 0, as does every
+        free slot), the pool advances, and the slot-major attribution is
+        gathered back to node order on the device."""
+        pool = self._slot_pool
+        if self._ragged:
+            for i in np.nonzero(self._n_used_nodes == t)[0]:
+                if int(i) in pool._node_slot:
+                    pool.release(int(i))
+        rows, cap = self._slot_rows, pool.capacity
+        valid = self._slot_valid if step.valid is None else step.valid
+
+        def scatter(x):
+            return x.new_zeros((cap,) + tuple(x.shape[1:])).index_copy_(0, rows, x)
+
+        att = pool.advance(
+            self.eng.FleetStep(
+                c=scatter(step.c), w=scatter(step.w), a=scatter(step.a),
+                lat_sum=scatter(step.lat_sum), lat_sumsq=scatter(step.lat_sumsq),
+                valid=scatter(valid),
+            )
+        )
+        return att._replace(
+            tick_power=att.tick_power.index_select(0, rows),
+            unattributed=att.unattributed.index_select(0, rows),
+            x=att.x.index_select(0, rows),
+        )
 
     def _emit_tick(self, t, att, c_t, a_t, target, w_sync, live, completed) -> None:
         """Emit stage: the live retrain check at step boundaries (on the

@@ -31,3 +31,13 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def stage(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without blocking the host: on CUDA it is
+    staged in pinned memory (the caching host allocator keeps the block
+    until the copy has run) and copied asynchronously on the current
+    stream, so it never synchronizes; on the CPU it is returned as is."""
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)

@@ -32,6 +32,10 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}  # one handle per library and process
+#: Names of the sources this process compiled, in order (an unchanged source
+#: already built is not compiled again): a serving loop can show that it
+#: built nothing after its warmup.
+built: list[str] = []
 _sms: dict[int, int] = {}  # device index -> SM count
 
 
@@ -68,6 +72,7 @@ def compile_library(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a partial file
+    built.append(name)
     return proc.stdout + proc.stderr
 
 

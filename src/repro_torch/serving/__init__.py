@@ -6,8 +6,8 @@ the closed control loop (``ControlLoop``).
 Top of the layer stack: these modules may import anything below them — the
 profiler orchestration, the session layer, the engine stages — but nothing
 below may import them back.  ``ServeEngine`` (model-zoo batching) is not
-re-exported here: it pulls the model zoo in at import time.  The slot-pool
-admission queue waits for ROADMAP Queue 1 item 8.
+re-exported here: it pulls the model zoo in at import time.
+``SlotAdmissionQueue`` feeds a ``SlotFleetSession`` pool in arrival order.
 """
 
 from repro_torch.serving.control_plane import (
@@ -25,6 +25,8 @@ from repro_torch.serving.scheduler import (
     KeepAliveCache,
     SchedulerConfig,
     SchedulerStats,
+    SlotAdmissionQueue,
+    SlotRequest,
     energy_aware_placement,
 )
 
@@ -40,6 +42,8 @@ __all__ = [
     "ProfiledWorkload",
     "SchedulerConfig",
     "SchedulerStats",
+    "SlotAdmissionQueue",
+    "SlotRequest",
     "StreamingFootprintTracker",
     "energy_aware_placement",
 ]

@@ -19,7 +19,8 @@ pricing:
 - ``MeteredServer`` (real-exec): actual model invocations on this host,
   timed and traced for metering.
 
-Not yet ported (ROADMAP Queue 1 item 8): slot pools and node-axis meshes.
+``profile_fleet`` also serves the fleet through a slot pool (``slots=``)
+and splits its engine state over a node-axis mesh (``mesh=``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.capping import CappingConfig, FleetPowerCapController, PowerCapController
-from repro_torch.core.engine.segment import _NO_MESH
 from repro_torch.core.pricing import LivePriceMeter, PricingConfig, price_report
 from repro_torch.core.profiler import (
     FaasMeterProfiler,
@@ -42,8 +42,8 @@ from repro_torch.core.profiler import (
     prepare_combined_fleet,
     segment_plan,
 )
-from repro_torch.core.sessions.base import _NO_SLOTS
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.sharding import FleetMesh, fleet_mesh_auto
 from repro_torch.serving.scheduler import EnergyAwareScheduler, Invocation, SchedulerConfig
 from repro_torch.telemetry.simulator import (
     FleetTelemetryTick,
@@ -645,11 +645,17 @@ class EnergyFirstControlPlane:
             (``"server"``/``"desktop"``/``"edge"``): a mixed fleet runs as
             one batch.
           on_tick: optional hook ``(StreamTick, trackers) -> None``.
-          mesh: ``"auto"`` resolves to the single-device path (node-axis
-            meshes are not ported); ``None`` is the same; an explicit mesh
-            raises ``NotImplementedError``.
-          slots: not ported yet, raises ``NotImplementedError`` (ROADMAP
-            Queue 1 item 8).
+          mesh: ``"auto"`` (default) builds a ``FleetMesh`` over the visible
+            CUDA devices when there is more than one and the fleet (the
+            slot capacity with ``slots``) divides onto more than one of them
+            (``distributed.sharding.fleet_mesh_auto``); on one card it is
+            None, the unsharded path.  An explicit ``FleetMesh`` is used as
+            given; ``None`` never shards.
+          slots: optional slot-pool capacity: the session runs on a
+            ``SlotFleetSession`` of this many slots (raises ``ValueError``
+            when smaller than the fleet).  Nodes claim slots at bootstrap
+            and release them as their streams end; spare slots stay free
+            and invalid.  A bound ``control`` loop works unchanged.
           mode: ``"pure"`` | ``"combined"`` (§4.3) — defaults to the
             profiler config's mode.  Combined needs chip telemetry on at
             least one node; per-node counter models are fit on the N_init
@@ -679,12 +685,12 @@ class EnergyFirstControlPlane:
           One ``ProfiledWorkload`` per node, with ``footprint_stream``
           holding the live-fed tracker (None on the fallback).
         """
-        if isinstance(mesh, str) and mesh != "auto":
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', None, or a FleetMesh; got {mesh!r}")
+            mesh = fleet_mesh_auto(len(traces) if slots is None else slots)
+        elif mesh is not None and not isinstance(mesh, FleetMesh):
             raise ValueError(f"mesh must be 'auto', None, or a FleetMesh; got {mesh!r}")
-        if mesh is not None and mesh != "auto":
-            raise NotImplementedError(_NO_MESH)
-        if slots is not None:
-            raise NotImplementedError(_NO_SLOTS)
         cfg = self.profiler.config
         mode = cfg.mode if mode is None else mode
         if mode not in ("pure", "combined"):
@@ -804,6 +810,7 @@ class EnergyFirstControlPlane:
                 idle_watts=[tel.idle_watts for tel in tels],
                 has_chip=has_chip, has_cp=has_cp_flags[0],
                 on_tick=_on_tick, on_bootstrap=_on_bootstrap,
+                mesh=mesh, slots=slots,
                 fn_counters=fn_counters, counter_model=counter_model,
                 window_features=window_feats, device=self.device,
             )

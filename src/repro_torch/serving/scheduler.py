@@ -14,9 +14,10 @@ The scheduler is the control-plane component FaasMeter §5 instruments:
   class's mean latency are cancelled and requeued (bounded retries), and the
   node is flagged — the serving-side analogue of the trainer watchdog.
 
-A copy of the reference's module (plain Python and NumPy).  Its slot-pool
-admission queue (``SlotRequest``, ``SlotAdmissionQueue``) waits for the
-slot-pool session (ROADMAP Queue 1 item 8).
+- **Slot admission**: ``SlotAdmissionQueue`` queues nodes joining a full
+  ``SlotFleetSession`` pool and admits them in arrival order as slots free.
+
+A copy of the reference's module (plain Python and NumPy).
 """
 
 from __future__ import annotations
@@ -251,4 +252,81 @@ class EnergyAwareScheduler:
             self.stats.completed += 1
             self.stats.queue_waits.append(inv.queue_wait)
             placed.append((inv, node))
+        return placed
+
+
+@dataclasses.dataclass
+class SlotRequest:
+    """One node waiting for a slot in a ``SlotFleetSession`` pool.
+
+    Carries everything ``SlotFleetSession.admit`` needs: the node id plus
+    either a warm-start estimate (``x0``) or the raw init-block windows
+    (``init_c``/``init_w``) from which the pool runs a bucketed init solve.
+    """
+
+    node: int
+    init_c: Any = None
+    init_w: Any = None
+    x0: Any = None
+
+
+class SlotAdmissionQueue:
+    """FIFO admission control feeding a ``SlotFleetSession`` slot pool.
+
+    The serving analogue of ``KeepAliveCache``: joins that arrive while the
+    pool is full wait here in arrival order instead of raising, and every
+    ``drain()`` (typically once per control interval, after retirements have
+    released slots) admits waiting nodes head-first while capacity and the
+    optional admission ``gate`` allow.  The gate is the capacity-aware
+    admission hook — e.g. ``lambda req: fleet.headroom_watts().max() > 0``
+    defers joins when no capped node has watts to spare.
+
+    Head-of-line blocking is deliberate and matches ``EnergyAwareScheduler``:
+    admission order is arrival order, so a gated head request parks the
+    whole queue until the gate clears.
+    """
+
+    def __init__(self, pool, *, gate: Callable[[SlotRequest], bool] | None = None):
+        self.pool = pool
+        self.gate = gate
+        self._queue: deque[SlotRequest] = deque()
+        self.admitted: list[int] = []
+        self.deferred = 0
+
+    @property
+    def pending(self) -> int:
+        """Number of joins still waiting for a slot."""
+        return len(self._queue)
+
+    def submit(self, node: int, init_c=None, init_w=None, *, x0=None) -> int | None:
+        """Enqueue a join; admit immediately when a slot is free.
+
+        Returns the slot index when the node was admitted on the spot, or
+        None when it was queued (pool full, earlier joins waiting, or the
+        gate deferred it).
+        """
+        self._queue.append(SlotRequest(node, init_c, init_w, x0))
+        admitted = self.drain()
+        for n, slot in admitted:
+            if n == node:
+                return slot
+        return None
+
+    def drain(self) -> list[tuple[int, int]]:
+        """Admit queued joins in FIFO order while slots and the gate allow.
+
+        Returns ``[(node, slot), ...]`` for every admission made this call.
+        """
+        placed: list[tuple[int, int]] = []
+        while self._queue and self.pool.free_slots > 0:
+            req = self._queue[0]
+            if self.gate is not None and not self.gate(req):
+                self.deferred += 1
+                break
+            slot = self.pool.admit(
+                req.node, req.init_c, req.init_w, x0=req.x0
+            )
+            self._queue.popleft()
+            self.admitted.append(req.node)
+            placed.append((req.node, slot))
         return placed

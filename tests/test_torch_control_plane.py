@@ -372,17 +372,24 @@ def test_profile_trace_and_marginal_energy_match_reference():
 
 
 def test_not_ported_branches_raise():
-    """Slot pools and node-axis meshes (ROADMAP Queue 1 item 8) still raise
-    ``NotImplementedError``.  Combined mode and ``control=`` are ported
-    (tests/test_torch_combined.py, tests/test_torch_control_loop.py); what
-    they refuse, they refuse with the reference's ``ValueError``: a chipless
-    fleet in combined mode, a control loop without a tick stream, and a
-    combined session without its counter inputs."""
+    """Every branch of the reference is ported now: slot pools and node-axis
+    meshes (tests/test_torch_elastic.py, tests/test_torch_sharded.py),
+    combined mode and ``control=`` (tests/test_torch_combined.py,
+    tests/test_torch_control_loop.py).  What they refuse, they refuse with
+    the reference's ``ValueError``: a pool smaller than the fleet, a mesh
+    that is not a ``FleetMesh``, a fleet that does not tile the mesh, a
+    chipless fleet in combined mode, a control loop without a tick stream,
+    and a combined session without its counter inputs."""
+    from repro_torch.distributed import fleet_mesh
+
     cp = EnergyFirstControlPlane(paper_functions(), device="cpu")
-    traces = [generate_trace(paper_functions(), WorkloadConfig(duration_s=180.0, seed=1))]
-    for kwargs in (dict(mesh=object()), dict(slots=4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            cp.profile_fleet(traces, **kwargs)
+    traces = [generate_trace(paper_functions(), WorkloadConfig(duration_s=180.0, seed=1))] * 2
+    with pytest.raises(ValueError, match="slots=1 is smaller"):
+        cp.profile_fleet(traces, slots=1)
+    with pytest.raises(ValueError, match="mesh must be"):
+        cp.profile_fleet(traces, mesh=object())
+    with pytest.raises(ValueError, match="not divisible"):
+        cp.profile_fleet(traces, mesh=fleet_mesh(devices=["cpu"] * 3))
     with pytest.raises(ValueError, match="mesh must be"):
         cp.profile_fleet(traces, mesh="everywhere")
     edge = EnergyFirstControlPlane(paper_functions(), SimulatorConfig(platform="edge"), device="cpu")
@@ -393,8 +400,8 @@ def test_not_ported_branches_raise():
         cp.profile_fleet(short, control=object())
     _, tels, _, arrays = _fleet()
     profiler = FaasMeterProfiler(ProfilerConfig(**SMALL))
-    for kwargs in (dict(mesh=object()), dict(slots=4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    for kwargs in (dict(slots=1), dict(mesh=fleet_mesh(devices=["cpu"] * 3))):
+        with pytest.raises(ValueError, match="smaller than the fleet|not divisible"):
             _session(profiler, arrays, tels, **kwargs)
     _, server_tels, _, server_arrays = _fleet("server")
     with pytest.raises(ValueError, match="fn_counters"):

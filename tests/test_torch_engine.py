@@ -183,10 +183,17 @@ def test_pack_rejects_bad_lengths():
 
 
 def test_mesh_is_not_ported():
+    """The node-axis mesh is ported (tests/test_torch_sharded.py): a
+    one-entry mesh gives the mesh=None result bit for bit, and a mesh the
+    fleet does not tile is refused."""
+    from repro_torch.distributed import fleet_mesh
+
     inputs = synthetic_fleet(2, 2, 4, 3, device="cpu")
     for engine in (run_fleet, run_fleet_gram):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine(inputs, EngineConfig(), mesh=object(), device="cpu")
+        one = engine(inputs, EngineConfig(), mesh=fleet_mesh(devices=["cpu"]))
+        assert torch.equal(one.x_final, engine(inputs, EngineConfig(), device="cpu").x_final)
+        with pytest.raises(ValueError, match="not divisible"):
+            engine(inputs, EngineConfig(), mesh=fleet_mesh(devices=["cpu"] * 3))
 
 
 def test_fleet_spectrum_matches_reference(rng):

@@ -136,6 +136,42 @@ def test_cuda_gram_vs_plain(g, n, m, cuda_device):
     torch.testing.assert_close(rhs, pr, rtol=1e-5, atol=1e-6 * n * scale)
 
 
+# The shapes the elastic path gives the kernel (chip_smoke.py's elastic
+# phase): per length bucket of the 64-node paper fleet (M = 8; buckets of 8,
+# 16 and 32 steps of 60 windows) and of benchmarks/ragged_fleet.py's r50
+# fleet (M = 128; buckets of 4 and 8 steps), the X_0 gram (G nodes, N =
+# steps x 60) and the step hoist (G = nodes x steps, N = 60); and one shard
+# of a two-entry mesh over the paper fleet (32 nodes, N_init 100); and the
+# monolithic packs they are held against.
+ELASTIC_GRAM_SHAPES = [
+    (11, 480, 8), (15, 960, 8), (38, 1920, 8), (88, 60, 8), (240, 60, 8), (1216, 60, 8),
+    (13, 240, 128), (51, 480, 128), (52, 60, 128), (408, 60, 128), (32, 100, 8), (896, 60, 8),
+    (64, 1680, 8), (64, 480, 128), (512, 60, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,m", ELASTIC_GRAM_SHAPES)
+def test_cuda_gram_at_elastic_shapes(g, n, m, cuda_device):
+    """The kernel against the plain version at the bucketed and sharded
+    runs' shapes (a long N at M = 8 takes the tiled variant), with the
+    tolerance of ``test_cuda_gram_vs_plain``, on engine-like inputs: sparse
+    contributions, zero padding rows at the block's end."""
+    rng = np.random.default_rng(g * 7 + n + m)
+    c = np.abs(rng.standard_normal((g, n, m))) * (rng.random((g, n, m)) > 0.8)
+    w = np.abs(rng.standard_normal((g, n))) * 40.0
+    c[:, n - n // 5 :] = 0.0
+    w[:, n - n // 5 :] = 0.0
+    c = torch.from_numpy(c.astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda_device)
+    gram, rhs = ds.disagg_gram(c, w)
+    torch.cuda.synchronize()
+    pg, pr = ref.disagg_gram(c, w)
+    scale = float(c.abs().max()) * max(float(c.abs().max()), float(w.abs().max()))
+    torch.testing.assert_close(gram, pg, rtol=1e-5, atol=1e-6 * n * scale)
+    torch.testing.assert_close(rhs, pr, rtol=1e-5, atol=1e-6 * n * scale)
+
+
 # ---------------------------------------------------------------------------
 # Attention and RMSNorm: the plain versions against the reference's Pallas
 # kernels in interpret mode and its jnp oracles, in fp32 and bf16.

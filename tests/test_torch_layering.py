@@ -4,9 +4,10 @@
 - no module imports JAX or the reference package ``repro``, not even a
   module of it that does not import JAX;
 - every module has a docstring;
-- the layer order of ``PERF.md`` §3 holds — kernels -> core/engine ->
-  core/sessions -> core/profiler -> serving — with no import from a lower
-  layer into a higher one.  Function-scope imports count too.
+- the layer order of ``PERF.md`` §3 holds — kernels -> core/engine (with
+  distributed, the node-axis mesh) -> core/sessions -> core/profiler ->
+  serving — with no import from a lower layer into a higher one.
+  Function-scope imports count too.
 
 ``scripts/check_layering.py`` and the ``scripts/ci.sh`` docstring gate walk
 only ``src/repro``; this file is their counterpart for the port.
@@ -34,6 +35,8 @@ LAYERS = {
     "repro_torch.core.shapley": 1,
     "repro_torch.core.capping": 1,
     "repro_torch.core.pricing": 1,
+    "repro_torch.core.baselines": 1,
+    "repro_torch.distributed": 1,
     "repro_torch.core.sessions": 2,
     "repro_torch.core.profiler": 3,
     "repro_torch.core": 3,  # the package facade re-exports the profiler
@@ -125,3 +128,20 @@ def test_layer_map_places_this_slices_modules():
         "repro_torch.telemetry.counters": None,
     }
     assert {mod: _layer(mod) for mod in expected if mod in MODULES} == expected
+
+
+def test_layer_map_places_the_elastic_slice():
+    """The elastic-serving slice's modules sit where their reference twins
+    do: the mesh and the baselines beside the engine stages, the slot pool
+    in the session layer, the admission queue in serving."""
+    expected = {
+        "repro_torch.core.baselines": 1,
+        "repro_torch.core.engine.buckets": 1,
+        "repro_torch.core.engine.sharding": 1,
+        "repro_torch.distributed": 1,
+        "repro_torch.distributed.sharding": 1,
+        "repro_torch.core.sessions.slots": 2,
+        "repro_torch.serving.scheduler": 4,
+    }
+    assert {mod: _layer(mod) for mod in expected} == expected
+    assert all(mod in MODULES for mod in expected)

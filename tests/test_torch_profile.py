@@ -128,16 +128,25 @@ def test_fleet_profile_batched_matches_reference(durations):
 def test_combined_mode_and_mesh_are_not_ported():
     """Combined mode is ported now (tests/test_torch_combined.py): it
     constructs, and without its counter inputs raises ``ValueError`` as the
-    reference does; an unknown mode is refused.  A node-axis mesh is still
-    not ported and raises ``NotImplementedError`` citing the ROADMAP."""
+    reference does; an unknown mode is refused.  A node-axis mesh is ported
+    (tests/test_torch_sharded.py): an empty fleet on a one-entry mesh gives
+    no reports, and a fleet that does not tile the mesh is refused."""
+    from repro_torch.distributed import fleet_mesh
+
     combined = FaasMeterProfiler(ProfilerConfig(mode="combined"))
     with pytest.raises(ValueError, match="fn_counters"):
         fleet_profile_batched(combined, [], [], num_fns=7, duration=300.0, device="cpu")
     with pytest.raises(ValueError, match="unknown profiler mode"):
         FaasMeterProfiler(ProfilerConfig(mode="hybrid"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert fleet_profile_batched(
+        FaasMeterProfiler(), [], [], num_fns=7, duration=300.0, mesh=fleet_mesh(devices=["cpu"])
+    ) == []
+    traces, sims = _fleet((300.0, 300.0))
+    with pytest.raises(ValueError, match="not divisible"):
         fleet_profile_batched(
-            FaasMeterProfiler(), [], [], num_fns=7, duration=300.0, mesh=object(), device="cpu"
+            FaasMeterProfiler(), [(t.fn_id, t.start, t.end) for t in traces],
+            [_telemetry(s.telemetry) for s in sims], num_fns=7, duration=300.0,
+            mesh=fleet_mesh(devices=["cpu"] * 3),
         )
 
 

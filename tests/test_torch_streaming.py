@@ -243,12 +243,18 @@ def test_stream_init_copies_x0_and_mesh_raises():
     x0 = torch.ones(2, 3)
     state = fleet_stream_init(x0, 4, device="cpu")
     assert state.kalman.x.data_ptr() != x0.data_ptr()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        fleet_stream_init(x0, 4, mesh=object(), device="cpu")
+    # The node-axis mesh is ported (tests/test_torch_sharded.py); what it
+    # refuses is a fleet that does not tile it and an unsharded state.
+    from repro_torch.distributed import fleet_mesh
+
+    three, two = fleet_mesh(devices=["cpu"] * 3), fleet_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="not divisible"):
+        fleet_stream_init(x0, 4, mesh=three)
+    assert fleet_stream_init(x0, 4, mesh=two)[1].kalman.x.data_ptr() != x0.data_ptr()
     ticks = fleet_ticks(_port_inputs(ref_synthetic_fleet(2, 1, 4, 3, seed=1)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        fleet_step(state, ticks.at(0), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        fleet_stream_reset_slots(state, torch.zeros(2), x0, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        run_fleet_stream(_port_inputs(ref_synthetic_fleet(2, 1, 4, 3, seed=1)), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="one state per device"):
+        fleet_step(state, ticks.at(0), mesh=two)
+    with pytest.raises(ValueError, match="one state per device"):
+        fleet_stream_reset_slots(state, torch.zeros(2), x0, mesh=two)
+    with pytest.raises(ValueError, match="not divisible"):
+        run_fleet_stream(_port_inputs(ref_synthetic_fleet(2, 1, 4, 3, seed=1)), mesh=three, device="cpu")

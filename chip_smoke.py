@@ -104,15 +104,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
 11. Trace: one warm chat and one warm summarize request under
    torch.profiler: device busy, idle share, top kernels; every
    ``decode_attention`` call must be one kernel on the device.
+12. Model families, at full width from seeded random weights: the int8
+   KV cache on the served internlm2 weights (the reference's pins: decode
+   logits against the bf16 cache's, cosine > 0.999 and argmax equal;
+   greedy tokens against it; cache bytes; 3 chat requests served, no
+   decode kernel launched: the reference runs int8 decode as plain code);
+   olmoe-1b-7b at full depth serving 12 requests of the two classes
+   (traced: device busy per request), its fp32 invariants, kernels
+   against plain versions and the share of routing choices bf16 and fp32
+   make alike; deepseek-moe-16b cut to 4 layers (dense layer 0 + 3 MoE
+   layers with shared experts), one prefill and 16 decode steps;
+   xlstm-350m, 6 chat requests; internvl2-2b, 3 requests of 256 patch
+   embeddings + 256 tokens; the fp32 prefill/decode invariants of each;
+   one decode step of olmoe, xlstm and the int8 cache under
+   ``torch.cuda.set_sync_debug_mode("error")``; then
+   ``repro_torch.launch.serve``'s defaults (the reference's mix, reduced).
+   Each path's flash and decode launches must be one per attention layer
+   per prefill and per decode step.
 
 Each path's kernel launch counts are zeroed just before it and read just
-after (every bf16 flash launch of the serving path must be a tensor-core
+after (every bf16 flash launch of the serving paths must be a tensor-core
 one); while the fleet, streaming, combined, control, elastic and serving
 paths run, the plain versions are watched, and a CUDA tensor reaching one
-fails the run.
+fails the run (the launches that compare a kernel with its plain version
+are outside those paths).
 
 Output: one line per measurement, a ``combined_control {...}`` JSON line of
-phases 5-6 and an ``elastic {...}`` one of phase 7, then a
+phases 5-6, an ``elastic {...}`` one of phase 7 and a ``families {...}``
+one of phase 12, then a
 ``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; no network.
@@ -123,6 +142,7 @@ kernel timings (``bench_main``), of this tree or another one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -199,6 +219,34 @@ DECODE_MAIN = [(8, 576, (575,) * 8), (2, 4112, (4111,) * 2)]
 DECODE_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129)), (3, 1000, (1, 999, 500)), (1, 4112, (4111,))]
 RMS_MAIN = [(8 * 512, D_MODEL)]
 RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL), (1001, 4096), (4096, 4096)]
+
+# Model families (the reference launcher's MoE and xLSTM models, the int8 KV
+# cache, the VLM prefix), full width, random weights from a seeded generator.
+# olmoe-1b-7b at full depth in internlm2's two classes (12 requests, 2:1);
+# deepseek-moe-16b cut from 28 layers to 4 (dense layer 0 + 3 MoE layers:
+# its 16.9 B parameters would take 34 GB in bf16 besides the fp32 masters);
+# xlstm-350m in the chat class only (its sLSTM is a loop over time, so a
+# 4,096-token summarize prompt is 49,152 sequential steps); internvl2-2b
+# with 256 patch embeddings + 256 tokens; the int8 cache on internlm2-1.8b.
+OLMOE = "olmoe-1b-7b"
+OLMOE_CLASSES = {f"{OLMOE}/chat": CLASSES[f"{ARCH}/chat"], f"{OLMOE}/summarize": CLASSES[f"{ARCH}/summarize"]}
+OLMOE_SCHEDULE = [f"{OLMOE}/chat", f"{OLMOE}/chat", f"{OLMOE}/summarize"] * 4  # 12 requests, 2:1
+DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-moe-16b", 4
+DEEPSEEK_CLASS = dict(batch=8, prompt=512, steps=17)  # one prefill + 16 decode steps
+XLSTM = "xlstm-350m"
+XLSTM_CLASSES = {f"{XLSTM}/chat": CLASSES[f"{ARCH}/chat"]}
+XLSTM_SCHEDULE = [f"{XLSTM}/chat"] * 6
+VLM = "internvl2-2b"
+VLM_CLASSES = {f"{VLM}/chat": dict(batch=4, prompt=512, steps=16)}  # prompt = 256 patches + 256 tokens
+VLM_SCHEDULE = [f"{VLM}/chat"] * 3
+INT8_CLASSES = {f"{ARCH}-int8/chat": CLASSES[f"{ARCH}/chat"]}
+INT8_SCHEDULE = [f"{ARCH}-int8/chat"] * 3
+# Attention shapes those paths add: olmoe and deepseek have H = Hkv = 16
+# (GQA group 1) at d 128; internvl2 is H 16 over Hkv 8 at batch 4.
+FLASH_MOE = [(8, 512, 512, 16, 16, HD, True), (2, 4096, 4096, 16, 16, HD, True)]
+FLASH_VLM = [(4, 512, 512, H, HKV, HD, True)]
+DECODE_MOE = [(8, 576, (575,) * 8), (2, 4112, (4111,) * 2)]  # at Hkv = 16
+MOE_H = MOE_HKV = 16
 
 
 def log(msg: str) -> None:
@@ -552,6 +600,17 @@ def phase_main_path(device: str, b: int = B_NODES, duration: float = DURATION_S)
     return out, replays, fleet
 
 
+def _device_events(prof) -> list:
+    """(name, µs) of every device operation a ``torch.profiler`` trace
+    recorded, read from its raw kineto events: ``prof.events()`` builds a
+    Python event tree first, which took over a minute for one serving
+    request of ~120,000 kernels."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() * 1e-3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def phase_trace(replays, kernel_calls=None) -> None:
     """Replay each main-path call warm, untraced and then under
     torch.profiler: device busy time is the sum of the traced run's CUDA
@@ -559,7 +618,6 @@ def phase_trace(replays, kernel_calls=None) -> None:
     1 - busy / the warm untraced wall time.  ``kernel_calls`` maps a kernel
     name to a wrapper whose ``launches`` count the traced run must match
     one device kernel per call."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for name, (fn, first_wall) in replays.items():
@@ -574,21 +632,21 @@ def phase_trace(replays, kernel_calls=None) -> None:
             fn()
             torch.cuda.synchronize()
             traced = time.perf_counter() - t0
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels = _device_events(prof)
         if not kernels:
             log(f"trace {name}: no device events recorded; device busy share not measured")
             continue
         for kname, f in (kernel_calls or {}).items():
             calls = f.launches - before[kname]
-            matched = [e for e in kernels if kname in e.name]
+            matched = [us for name, us in kernels if kname in name]
             on_device = len(matched)
-            ms = sum(e.time_range.elapsed_us() for e in matched) * 1e-3
+            ms = sum(matched) * 1e-3
             log(f"trace {name}: {kname} {on_device} device kernels for {calls} calls, {ms:.3f} ms")
             assert on_device == calls, f"{kname}: {on_device} device kernels for {calls} calls"
-        busy = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+        busy = sum(us for _, us in kernels) * 1e-6
         by_name: dict = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3
+        for kname, us in kernels:
+            by_name[kname] = by_name.get(kname, 0.0) + us * 1e-3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         log(
             f"trace {name}: first_call_s={first_wall:.4f} warm_wall_s={wall:.4f} traced_wall_s={traced:.4f} "
@@ -1992,7 +2050,7 @@ def phase_attention_parity(ref) -> dict:
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol, tag = _tol(dtype), str(dtype).split(".")[1]
-        for b, s, t, h, hkv, d, causal in FLASH_MAIN + FLASH_RAGGED:
+        for b, s, t, h, hkv, d, causal in FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_RAGGED:
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
             got = fa.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
@@ -2002,7 +2060,7 @@ def phase_attention_parity(ref) -> dict:
             more = dict(variant=fa.variant(dtype, d))
             if bf16:
                 more["err_rms"] = _row_err(got, want)
-            if bf16 and (b, s, t, h, hkv, d, causal) in FLASH_MAIN:
+            if bf16 and (b, s, t, h, hkv, d, causal) in FLASH_MAIN + FLASH_MOE + FLASH_VLM:
                 more["planted_err_rms"] = _planted_tile_fault(ref, q, k, v, want, tol)
             reps = 5 if s * t > 2**22 else 25
             t_kernel = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps)
@@ -2015,24 +2073,27 @@ def phase_attention_parity(ref) -> dict:
             _record(rows, ("flash_attention", (b, s, t, h, hkv, d, causal), tag), err, tol, t_kernel, t_plain,
                     t_lib, flash_work(b, s, t, h, hkv, d, causal, dtype), dtype,
                     f"flash {tag} B={b} S={s} T={t} H={h} Hkv={hkv} d={d} causal={causal}", **more)
-        for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED:
-            q = rnd(b, H, HD, dtype=dtype)
-            kc, vc = rnd(b, smax, HKV, HD, dtype=dtype), rnd(b, smax, HKV, HD, dtype=dtype)
+        decode_cases = [((b, smax, lengths), H, HKV) for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED]
+        decode_cases += [((b, smax, lengths, MOE_H, MOE_HKV), MOE_H, MOE_HKV) for b, smax, lengths in DECODE_MOE]
+        for key, h, hkv in decode_cases:
+            b, smax, lengths = key[:3]
+            q = rnd(b, h, HD, dtype=dtype)
+            kc, vc = rnd(b, smax, hkv, HD, dtype=dtype), rnd(b, smax, hkv, HD, dtype=dtype)
             lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             got = da.decode_attention(q, kc, vc, lens)
             again = da.decode_attention(q, kc, vc, lens)
             torch.cuda.synchronize()
-            assert torch.equal(got, again), f"decode_attention not deterministic at {(b, smax, lengths)}"
+            assert torch.equal(got, again), f"decode_attention not deterministic at {key}"
             want = ref.decode_attention(q, kc, vc, lens)
             err = _check(got, want, tol, "decode_attention", rows=dtype == torch.bfloat16)
             more = dict(err_rms=_row_err(got, want)) if dtype == torch.bfloat16 else {}
-            timed = time_decode(da, q, kc, vc, lens, warm=(b, smax, lengths) in DECODE_MAIN)
+            timed = time_decode(da, q, kc, vc, lens, warm=key[:3] in DECODE_MAIN + DECODE_MOE)
             t_kernel, t_lib = timed.pop("ms"), timed.pop("library_ms")
             more.update(timed)
             t_plain = device_ms(lambda: ref.decode_attention(q, kc, vc, lens))
-            _record(rows, ("decode_attention", (b, smax, lengths), tag), err, tol, t_kernel, t_plain, t_lib,
-                    decode_work(b, H, HKV, HD, lengths, dtype), dtype,
-                    f"decode {tag} B={b} S_max={smax} lengths={list(lengths)}", **more)
+            _record(rows, ("decode_attention", key, tag), err, tol, t_kernel, t_plain, t_lib,
+                    decode_work(b, h, hkv, HD, lengths, dtype), dtype,
+                    f"decode {tag} B={b} S_max={smax} H={h} Hkv={hkv} lengths={list(lengths)}", **more)
         for n, d in RMS_MAIN + RMS_RAGGED:
             x, g = rnd(n, d, dtype=dtype), rnd(d, dtype=torch.float32)
             got = rn.rmsnorm(x, g)
@@ -2059,15 +2120,21 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def build_model(device="cuda", reduced=False):
-    """internlm2-1.8b (full width unless ``reduced``): fp32 masters from a
-    seeded generator on ``device``, and the bf16 compute copy (norm gains
-    fp32)."""
+def build_model(device="cuda", reduced=False, arch=ARCH, layers=None):
+    """``arch`` (full width unless ``reduced``; ``layers`` cuts the depth):
+    fp32 masters from a seeded generator on ``device``, and the bf16
+    compute copy (the leaves the reference reads in fp32 stay fp32)."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
     from repro_torch.models import build
     from repro_torch.models.common import cast_params, materialize
 
-    api = build(get_config(ARCH, reduced=reduced))
+    cfg = get_config(arch, reduced=reduced)
+    if layers is not None:
+        log(f"model {cfg.name}: depth cut from {cfg.num_layers} to {layers} layers")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    api = build(cfg)
     t0 = time.perf_counter()
     masters = materialize(api.params_def, torch.Generator(device=device).manual_seed(0), torch.float32)
     params = cast_params(masters, torch.bfloat16)
@@ -2133,7 +2200,7 @@ def report_serving(out, classes=CLASSES) -> dict:
             f"p95_s={st['p95_s']:.4f} prefill_s={pre_s:.4f} prefill_tok_s={st['prefill_tok_s']:.1f} "
             f"decode_tok_s={st['decode_tok_s']:.1f} J_inv={st['j_inv']:.3f} usd_inv={st['usd_inv']:.3e}"
         )
-    log(f"serve: {trace.num_invocations} requests in {out['serve_s']:.2f} s (2 cold starts included); "
+    log(f"serve: {trace.num_invocations} requests in {out['serve_s']:.2f} s ({len(classes)} cold starts included); "
         f"footprint efficiency rel err {out['eff']:.3e}; total_error={report.total_error:.4f}; "
         f"max_memory_allocated {out['peak_gb']:.2f} GiB")
     return stats
@@ -2169,41 +2236,105 @@ def final_hidden(api, params, classes=CLASSES, device="cuda") -> list:
     return out
 
 
-def phase_consistency(api, masters, params, ref, device="cuda") -> None:
-    """The reference's serving invariant at full width in fp32 through the
-    kernels, then bf16 with the kernels against bf16 with the plain versions."""
+def _full_forward(api, params, batch):
+    """The full forward's logits over a prompt batch (patches included)."""
+    from repro_torch.models.transformer import decoder_train
+    from repro_torch.models.xlstm import xlstm_train
+
+    if api.cfg.family == "ssm":
+        return xlstm_train(params, batch["tokens"], api.cfg)[0]
+    return decoder_train(params, batch["tokens"], api.cfg, prefix_embeds=batch.get("patches"))[0]
+
+
+def _check_api(api, fp32=False):
+    """The consistency checks' model: MoE at capacity factor 8, as the
+    reference's ``tests/test_models.py`` has it, so that no token is dropped
+    in the batched forward or the one-token decode; ``fp32`` compute."""
     import dataclasses
 
-    from repro_torch.kernels import ops
-    from repro_torch.models import build, extend_cache
-    from repro_torch.models.transformer import decoder_train
+    from repro_torch.models import build
 
-    cfg32 = dataclasses.replace(api.cfg, compute_dtype="float32")
-    api32 = build(cfg32)
-    rng = np.random.default_rng(1)
+    cfg = api.cfg
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    if fp32:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    return build(cfg)
+
+
+def _prompt(api, rng, b, s, device):
+    """A prompt of ``s`` tokens (after the VLM's patch embeddings, drawn in
+    fp32) from ``rng``."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.serve import random_batch
+
+    return random_batch(api, ShapeConfig("check", s + api.cfg.frontend_tokens, b, "prefill"), rng, device)
+
+
+def check_fp32(api, masters, device="cuda") -> dict:
+    """The reference's serving invariant at full width in fp32 from the
+    masters, through the kernels: prefill's last logits against the full
+    forward (2e-3), one decode step against the full forward over the
+    extended prompt (5e-3)."""
+    from repro_torch.models import extend_cache
+    from repro_torch.models.model_zoo import prompt_length
+
+    api32 = _check_api(api, fp32=True)
     b, s = 2, 64
-    tokens = torch.as_tensor(rng.integers(0, cfg32.vocab_size, size=(b, s)), dtype=torch.int32, device=device)
-    tok = torch.as_tensor(rng.integers(0, cfg32.vocab_size, size=(b, 1)), dtype=torch.int32, device=device)
+    rng = np.random.default_rng(1)
+    batch = _prompt(api32, rng, b, s, device)
+    tok = torch.as_tensor(rng.integers(0, api32.cfg.vocab_size, size=(b, 1)), dtype=torch.int32, device=device)
     with torch.no_grad():
-        logits_pf, cache = api32.prefill(masters, {"tokens": tokens})
-        full = decoder_train(masters, tokens, cfg32)[0][:, -1]
+        logits_pf, cache = api32.prefill(masters, batch)
+        full = _full_forward(api32, masters, batch)[:, -1]
         cache = extend_cache(api32, cache, 4)
-        logits_dec, _ = api32.decode(masters, cache, tok, s)
-        full2 = decoder_train(masters, torch.cat([tokens, tok], dim=1), cfg32)[0][:, -1]
+        logits_dec, _ = api32.decode(masters, cache, tok, prompt_length(batch))
+        full2 = _full_forward(api32, masters, dict(batch, tokens=torch.cat([batch["tokens"], tok], dim=1)))[:, -1]
     torch.testing.assert_close(logits_pf[:, 0], full, atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(logits_dec[:, 0], full2, atol=5e-3, rtol=5e-3)
-    log(f"consistency fp32 full width: prefill vs forward max_abs {float((logits_pf[:, 0] - full).abs().max()):.3e} "
-        f"(2e-3), decode vs forward max_abs {float((logits_dec[:, 0] - full2).abs().max()):.3e} (5e-3), "
-        f"logit scale {float(full2.abs().max()):.3f}")
+    out = dict(prefill_err=float((logits_pf[:, 0] - full).abs().max()),
+               decode_err=float((logits_dec[:, 0] - full2).abs().max()), scale=float(full2.abs().max()))
+    log(f"consistency {api.cfg.name} fp32 full width: prefill vs forward max_abs {out['prefill_err']:.3e} (2e-3), "
+        f"decode vs forward max_abs {out['decode_err']:.3e} (5e-3), logit scale {out['scale']:.3f}")
+    return out
 
+
+def _routes(api, params, batch) -> list:
+    """Each MoE layer's top-k expert indices over a prefill of ``batch``."""
+    from repro_torch.models import moe
+
+    seen, router = [], moe._router
+
+    def recording(p, x, cfg):
+        out = router(p, x, cfg)
+        seen.append(out[0])
+        return out
+
+    moe._router = recording
+    try:
+        with torch.no_grad():
+            api.prefill(params, batch)
+    finally:
+        moe._router = router
+    return seen
+
+
+def kernels_vs_plain(api, masters, params, ref, device="cuda") -> dict:
+    """16 greedy steps with the kernels against the plain versions patched
+    into ``ops``: equal tokens in fp32, and in bf16 the logits' distance
+    from fp32 compute for both (the kernels' at most 1.5x the plain
+    versions').  For MoE, the share of (token, expert) routing choices that
+    bf16 and fp32 compute make alike."""
     from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServeEngine
 
-    shape = ShapeConfig("check", 128, 2, "prefill")
-    engine, engine32 = ServeEngine(api, shape, params), ServeEngine(api32, shape, masters)
-    batch = {"tokens": torch.as_tensor(rng.integers(0, api.cfg.vocab_size, size=(2, 128)),
-                                       dtype=torch.int32, device=device)}
+    api, api32 = _check_api(api), _check_api(api, fp32=True)
     steps = 16
+    rng = np.random.default_rng(3)
+    batch = _prompt(api32, rng, 2, 128, device)
+    shape = ShapeConfig("check", 128 + api.cfg.frontend_tokens, 2, "prefill")
+    engine, engine32 = ServeEngine(api, shape, params), ServeEngine(api32, shape, masters)
     with torch.no_grad():
         logits_k, _ = api.prefill(params, batch)
     toks_k, toks32_k = engine.generate(batch, steps), engine32.generate(batch, steps)
@@ -2217,24 +2348,317 @@ def phase_consistency(api, masters, params, ref, device="cuda") -> None:
         toks_p, toks32_p = engine.generate(batch, steps), engine32.generate(batch, steps)
     finally:
         ops.flash_attention, ops.decode_attention = flash, decode
+    name = api.cfg.name
     # fp32 compute: the kernels and the plain versions differ only in the
     # order of fp32 sums, so the greedy tokens must agree.
     assert torch.equal(toks32_k, toks32_p), (toks32_k, toks32_p)
-    log(f"consistency fp32 greedy tokens, kernels vs plain: {toks32_k.numel()}/{toks32_k.numel()} equal")
+    log(f"consistency {name} fp32 greedy tokens, kernels vs plain: {toks32_k.numel()}/{toks32_k.numel()} equal")
     with torch.no_grad():
         logits_32, _ = api32.prefill(masters, batch)  # the same prompt in fp32 compute
     agree = int((toks_k == toks_p).sum())
     same = (toks_k == toks_p).all(dim=0)
     first = int((~same).nonzero()[0]) if not bool(same.all()) else steps
     gap = lambda x: float((x.float() - logits_32).abs().max())
-    log(f"consistency bf16 kernels vs plain: prefill logits max_abs {float((logits_k - logits_p).float().abs().max()):.3e} "
-        f"(scale {float(logits_p.float().abs().max()):.3f}; bf16 vs fp32 compute: kernels {gap(logits_k):.3e}, "
-        f"plain {gap(logits_p):.3e}); greedy tokens equal {agree}/{toks_k.numel()}, "
+    out = dict(gap_kernels=gap(logits_k), gap_plain=gap(logits_p), tokens_equal=agree, first_diff=first)
+    log(f"consistency {name} bf16 kernels vs plain: prefill logits max_abs "
+        f"{float((logits_k - logits_p).float().abs().max()):.3e} "
+        f"(scale {float(logits_p.float().abs().max()):.3f}; bf16 vs fp32 compute: kernels {out['gap_kernels']:.3e}, "
+        f"plain {out['gap_plain']:.3e}); greedy tokens equal {agree}/{toks_k.numel()}, "
         f"identical for the first {first} of {steps} steps")
+    if api.cfg.family == "moe":
+        bf16, fp32 = _routes(api, params, batch), _routes(api32, masters, batch)
+        shared = [float((a[:, :, None] == b[:, None, :]).any(-1).float().mean()) for a, b in zip(bf16, fp32)]
+        out["routing_shared"] = float(np.mean(shared))
+        log(f"consistency {name} routing: bf16 and fp32 compute share {out['routing_shared']:.4f} of the "
+            f"(token, expert) choices over {len(shared)} layers (per layer {min(shared):.4f}-{max(shared):.4f})")
     # The tensor-core flash kernel rounds P to bf16 before P V; that may add
     # error beyond the plain version's fp32 P, but not half as much again.
-    assert gap(logits_k) <= 1.5 * gap(logits_p), (gap(logits_k), gap(logits_p))
+    assert out["gap_kernels"] <= 1.5 * out["gap_plain"], (out["gap_kernels"], out["gap_plain"])
+    return out
 
+
+def phase_consistency(api, masters, params, ref, device="cuda") -> dict:
+    """The reference's serving invariant at full width in fp32 through the
+    kernels, then bf16 with the kernels against bf16 with the plain versions."""
+    out = check_fp32(api, masters, device)
+    out.update(kernels_vs_plain(api, masters, params, ref, device))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Model families: MoE, xLSTM, VLM, the int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+def serve_path(api, params, classes, schedule, counter, ref, device="cuda"):
+    """Serve ``schedule`` (counts zeroed just before, read just after, the
+    plain versions watched), then report it.  Returns (serving output,
+    stats, launch counts)."""
+    with main_path(ref):
+        counter.zero()
+        out = phase_serving(api, params, classes, schedule, device)
+        launches = counter.read()
+    return out, report_serving(out, classes), launches
+
+
+def expected_launches(api, classes, schedule) -> tuple[int, int]:
+    """(flash, decode) launches of serving ``schedule``: one each per
+    attention layer per prefill (every request and each class's cold start)
+    and per decode step."""
+    layers = api.cfg.num_layers if api.cfg.family != "ssm" else 0
+    prefills = len(schedule) + len(classes)
+    return layers * prefills, layers * sum(classes[n]["steps"] - 1 for n in schedule)
+
+
+def gated_decode(api, params, batch, label, ref, device="cuda") -> None:
+    """One decode step (after a warm one) with every implicit host
+    synchronisation an error (``set_sync_debug_mode("error")``), the plain
+    versions watched."""
+    from repro_torch.models import extend_cache
+    from repro_torch.models.model_zoo import prompt_length
+
+    cuda = torch.device(device).type == "cuda"
+    with torch.no_grad(), main_path(ref):
+        logits, cache = api.prefill(params, batch)
+        cache = extend_cache(api, cache, 2)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        pos = prompt_length(batch)
+        api.decode(params, cache, tok, pos)
+        _sync(device)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = api.decode(params, cache, tok, pos + 1)
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        _sync(device)
+    assert bool(torch.isfinite(logits).all()) and nxt.shape == (batch["tokens"].shape[0],)
+    log(f"sync gate {label}: one decode step (B={nxt.shape[0]}, pos {pos + 1}) with no host synchronisation")
+
+
+def phase_int8(api, params, counter, ref, device="cuda") -> dict:
+    """The int8 KV cache on the served internlm2 weights, chat class: the
+    reference's pins (``tests/test_perf_features.py``: decode logits against
+    the unquantized cache's, cosine > 0.999 and argmax equal), greedy tokens
+    against the unquantized cache, cache bytes, then 3 requests served and
+    one decode step under the sync gate."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.serve import random_batch
+    from repro_torch.models import build, extend_cache
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kv_cache import cache_bytes
+
+    api_q = build(dataclasses.replace(api.cfg, kv_cache_dtype="int8"))
+    c = CLASSES[f"{ARCH}/chat"]
+    shape = ShapeConfig("int8", c["prompt"], c["batch"], "prefill")
+    batch = random_batch(api, shape, np.random.default_rng(2), device)
+    with torch.no_grad():
+        lg, cache = api.prefill(params, batch)
+        _, cache_q = api_q.prefill(params, batch)
+        cache, cache_q = extend_cache(api, cache, 2), extend_cache(api_q, cache_q, 2)
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        d1, _ = api.decode(params, cache, tok, c["prompt"])
+        d2, _ = api_q.decode(params, cache_q, tok, c["prompt"])
+    d1, d2 = d1.float(), d2.float()
+    out = dict(cos=float((d1 * d2).sum() / (d1.norm() * d2.norm())),
+               argmax_equal=bool(torch.equal(d1[:, -1].argmax(-1), d2[:, -1].argmax(-1))))
+    t_bf16 = ServeEngine(api, shape, params).generate(batch, c["steps"])
+    t_int8 = ServeEngine(api_q, shape, params).generate(batch, c["steps"])
+    same = (t_bf16 == t_int8).all(dim=0)
+    out["steps_identical"] = int((~same).nonzero()[0]) if not bool(same.all()) else c["steps"]
+    out["tokens_equal"] = int((t_bf16 == t_int8).sum())
+    full = ShapeConfig("int8", c["prompt"] + c["steps"], c["batch"], "prefill")
+    out["cache_bytes"], out["cache_bytes_bf16"] = cache_bytes(api_q, full), cache_bytes(api, full)
+    log(f"int8 cache {api.cfg.name}: decode logits vs the bf16 cache cosine {out['cos']:.6f} (> 0.999), "
+        f"argmax equal {out['argmax_equal']}; greedy tokens equal {out['tokens_equal']}/{t_bf16.numel()}, "
+        f"identical for the first {out['steps_identical']} of {c['steps']} steps; cache bytes "
+        f"{out['cache_bytes']:,} against bf16 {out['cache_bytes_bf16']:,} "
+        f"({out['cache_bytes'] / out['cache_bytes_bf16']:.4f})")
+    assert out["cos"] > 0.999 and out["argmax_equal"], out
+    serve_out, out["stats"], out["launches"] = serve_path(api_q, params, INT8_CLASSES, INT8_SCHEDULE, counter, ref,
+                                                          device)
+    out["eff"] = serve_out["eff"]
+    gated_decode(api_q, params, batch, f"{ARCH} int8 cache", ref, device)
+    return out
+
+
+def phase_family(arch, classes, schedule, counter, ref, device="cuda", reduced=False,
+                 gate=False, vs_plain=False, trace=False) -> dict:
+    """Build ``arch`` at full width (fp32 masters and the bf16 copy), serve
+    ``schedule`` through ``MeteredServer``, meter and price it; with
+    ``trace``, trace one warm request per class (device busy per request);
+    check the fp32 invariants (and, with ``vs_plain``, kernels against
+    plain versions); with ``gate``, one decode step under the sync gate;
+    then free the weights."""
+    from repro_torch.launch.serve import random_batch
+    from repro_torch.configs.shapes import ShapeConfig
+
+    t0 = time.perf_counter()
+    api, masters, params = build_model(device, reduced, arch)
+    cuda = torch.device(device).type == "cuda"
+    serve_out, stats, launches = serve_path(api, params, classes, schedule, counter, ref, device)
+    log(f"family {arch}: built and served in {time.perf_counter() - t0:.1f} s")
+    out = dict(arch=api.cfg.name, layers=api.cfg.num_layers, stats=stats, launches=launches, eff=serve_out["eff"],
+               peak_gb=serve_out["peak_gb"], expected=expected_launches(api, classes, schedule),
+               params=sum(p.numel() for p in params.parameters()))
+    if cuda and trace:
+        server = serve_out["server"]
+        replays = {}
+        for name in classes:
+            engine, batch, steps = server.functions[name]
+            replays[f"serve {name}"] = (lambda e=engine, b=batch, n=steps: e.generate(b, n), stats[name]["first_s"])
+        phase_trace(replays)
+        log(f"family {arch}: traced at {time.perf_counter() - t0:.1f} s")
+    out["fp32"] = check_fp32(api, masters, device)
+    if vs_plain:
+        out.update(kernels_vs_plain(api, masters, params, ref, device))
+        log(f"family {arch}: kernels against plain versions done at {time.perf_counter() - t0:.1f} s")
+    if gate:
+        c = next(iter(classes.values()))
+        rng = np.random.default_rng(4)
+        batch = random_batch(api, ShapeConfig("gate", c["prompt"], c["batch"], "prefill"), rng, device)
+        gated_decode(api, params, batch, api.cfg.name, ref, device)
+    del serve_out, masters, params
+    if cuda:
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase family {arch}: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_deepseek(counter, ref, device="cuda", reduced=False) -> dict:
+    """deepseek-moe-16b at full width, depth cut to ``DEEPSEEK_LAYERS``
+    (dense layer 0 and its k0/v0 cache, shared experts): one prefill and 16
+    decode steps, then the fp32 invariants."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.serve import random_batch
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    api, masters, params = build_model(device, reduced, DEEPSEEK, None if reduced else DEEPSEEK_LAYERS)
+    assert "dense0" in params and "shared" in params["layers"][0]["mixer"]
+    c = DEEPSEEK_CLASS
+    shape = ShapeConfig("deepseek", c["prompt"], c["batch"], "prefill")
+    engine = ServeEngine(api, shape, params)
+    batch = random_batch(api, shape, np.random.default_rng(5), device)
+    engine.warmup(batch)
+    with main_path(ref):
+        counter.zero()
+        toks = engine.generate(batch, c["steps"])
+        launches = counter.read()
+    wall = engine.records[-1].latency
+    out = dict(arch=api.cfg.name, layers=api.cfg.num_layers, launches=launches, wall_s=wall,
+               expected=(api.cfg.num_layers, api.cfg.num_layers * (c["steps"] - 1)),
+               params=sum(p.numel() for p in params.parameters()))
+    assert toks.shape == (c["batch"], c["steps"])
+    log(f"serve {api.cfg.name} (depth {api.cfg.num_layers}: dense0 + {api.cfg.num_layers - 1} MoE layers, "
+        f"{out['params']:,} parameters): one prefill (B={c['batch']}, prompt {c['prompt']}) and "
+        f"{c['steps'] - 1} decode steps in {wall:.4f} s; launches {launches}")
+    out["fp32"] = check_fp32(api, masters, device)
+    del masters, params, engine
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase family {DEEPSEEK}: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_launcher(ref, device="cuda") -> str:
+    """``python -m repro_torch.launch.serve`` with its defaults (the
+    reference's mix, reduced configs) on ``device``: every architecture
+    served, none skipped."""
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), main_path(ref):
+        serve.main(["--requests", "6", "--device", device])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"launcher | {line}")
+    assert "skipped" not in text
+    for name in ("internlm2-1.8b", "xlstm-350m", "olmoe-1b-7b"):
+        assert f"{name}/generate registered" in text, name
+    return text
+
+
+class LaunchCounter:
+    """Zero and read the hand kernels' launch counts (a path's counts are
+    zeroed just before it and read just after)."""
+
+    def __init__(self, fa, da, rn, ds):
+        self.fns = dict(flash=fa.flash_attention, decode=da.decode_attention, rmsnorm=rn.rmsnorm,
+                        gram=ds.disagg_gram)
+
+    def zero(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+        self.fns["flash"].launches_tc = 0
+
+    def read(self) -> dict:
+        out = {k: fn.launches for k, fn in self.fns.items()}
+        out["flash_tc"] = self.fns["flash"].launches_tc
+        return out
+
+
+def phase_families(ref, counter, device="cuda", reduced=False) -> dict:
+    """olmoe-1b-7b, deepseek-moe-16b (depth cut), xlstm-350m, internvl2-2b,
+    then the launcher's defaults; each path watched and counted on its own."""
+    t0 = time.perf_counter()
+    fam: dict = {}
+    fam["olmoe"] = phase_family(OLMOE, OLMOE_CLASSES, OLMOE_SCHEDULE, counter, ref, device, reduced,
+                                gate=True, vs_plain=True, trace=True)
+    fam["deepseek"] = phase_deepseek(counter, ref, device, reduced)
+    fam["xlstm"] = phase_family(XLSTM, XLSTM_CLASSES, XLSTM_SCHEDULE, counter, ref, device, reduced, gate=True)
+    fam["vlm"] = phase_family(VLM, VLM_CLASSES, VLM_SCHEDULE, counter, ref, device, reduced)
+    t1 = time.perf_counter()
+    counter.zero()
+    phase_launcher(ref, device)
+    fam["launcher"] = dict(launches=counter.read(), phase_s=time.perf_counter() - t1)
+    fam["phase_s"] = time.perf_counter() - t0
+    log(f"phase launcher defaults: {fam['launcher']['phase_s']:.1f} s; phase model families: {fam['phase_s']:.1f} s")
+    return fam
+
+
+def check_families(fam, int8_layers) -> None:
+    """Every family path launched what its layers and requests make, bf16
+    flash on the tensor-core kernel; the int8 path no decode kernel."""
+    int8 = fam["int8"]["launches"]
+    assert int8["flash"] == int8_layers * (len(INT8_SCHEDULE) + 1) == int8["flash_tc"], int8
+    assert int8["decode"] == 0, f"the int8 cache's decode runs the reference's plain path: {int8}"
+    assert fam["int8"]["eff"] <= 1e-5, fam["int8"]["eff"]
+    for key in ("olmoe", "xlstm", "vlm", "deepseek"):
+        got, (flash_want, decode_want) = fam[key]["launches"], fam[key]["expected"]
+        assert (got["flash"], got["decode"]) == (flash_want, decode_want), (key, got, flash_want, decode_want)
+        assert got["flash_tc"] == got["flash"], (key, got)
+        assert fam[key].get("eff", 0.0) <= 1e-5, (key, fam[key]["eff"])
+        log(f"serve launches {fam[key]['arch']}: flash_attention {got['flash']} (tensor-core {got['flash_tc']}), "
+            f"decode_attention {got['decode']}")
+    assert fam["launcher"]["launches"]["flash"] > 0 and fam["launcher"]["launches"]["decode"] > 0, fam["launcher"]
+    log("families " + json.dumps(fam, default=str))
+
+
+PLAIN_NAMES = ("disagg_gram", "flash_attention", "decode_attention", "rmsnorm")
+
+
+@contextlib.contextmanager
+def main_path(ref):
+    """Watch the plain versions while a main path runs: a CUDA tensor that
+    reaches one fails the run.  The int8 cache's ``ref.quantize_kv`` and
+    ``ref.decode_attention_quant`` are not watched: they are the
+    reference's own int8 path, which has no Pallas kernel and calls them
+    directly on every device, not plain stand-ins for a kernel."""
+    calls, restore = _watch_plain(ref, PLAIN_NAMES)
+    try:
+        yield
+    finally:
+        restore()
+    assert not [c for c in calls if c[1] == "cuda"], calls
 
 
 def _watch_plain(ref, names):
@@ -2302,12 +2726,10 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port from {SRC}: {exc}", file=sys.stderr)
         return 2
     counted = (ds.disagg_gram, fa.flash_attention, da.decode_attention, rn.rmsnorm)
-    plain_names = ("disagg_gram", "flash_attention", "decode_attention", "rmsnorm")
+    plain_names = PLAIN_NAMES
 
-    def zero_counts():
-        for fn in counted:
-            fn.launches = 0
-        fa.flash_attention.launches_tc = 0
+    counter = LaunchCounter(fa, da, rn, ds)
+    zero_counts = counter.zero
 
     t_all = time.perf_counter()
     smi = nvidia_smi_line()
@@ -2505,6 +2927,26 @@ def main() -> int:
         replays[f"serve {name}"] = (lambda e=engine, b=batch, n=steps: e.generate(b, n), stats[name]["first_s"])
     phase_trace(replays, {"decode_kernel": da.decode_attention})
 
+    # Model families: the int8 cache on internlm2's weights first, then
+    # those weights are freed for the larger models.
+    t0 = time.perf_counter()
+    int8 = phase_int8(api, params, counter, ref)
+    log(f"phase int8 cache: {time.perf_counter() - t0:.1f} s")
+    del api, masters, params, serve_out, server, replays, engine, batch
+    torch.cuda.empty_cache()
+    fam = phase_families(ref, counter)
+    fam["int8"] = int8
+    check_families(fam, layers)
+
+    def new_rows(kernel, keys):
+        return [dict(shape=json.loads(json.dumps(k)), **{f: arows[(kernel, k, "bfloat16")][f] for f in (
+            "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}) for k in keys]
+
+    paths = {"dense": (flash_launches, decode_launches)}
+    paths.update({key: (fam[key]["launches"]["flash"], fam[key]["launches"]["decode"])
+                  for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "launcher")})
+    by_path = {k: dict(zip(("flash", "decode"), v)) for k, v in paths.items()}
+    moe_decode = [k + (MOE_H, MOE_HKV) for k in DECODE_MOE]
     kernels = [
         _summary("disagg_gram", "src/repro/kernels/disagg_solve.py:84",
                  gram_launches + comb_fleet_gram + comb_ctrl_gram + elastic_gram,
@@ -2514,11 +2956,17 @@ def main() -> int:
                  elastic_shapes=[dict(shape=list(k), **{f: r[f] for f in (
                      "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "variant",
                      "warm_ms", "library_warm_ms")}) for k, r in elastic_rows.items()]),
-        _summary("flash_attention", "src/repro/kernels/flash_attention.py:134", flash_launches,
+        _summary("flash_attention", "src/repro/kernels/flash_attention.py:134",
+                 sum(v["flash"] for v in by_path.values()),
                  [arows[("flash_attention", k, "bfloat16")] for k in FLASH_MAIN], FLASH_MAIN,
-                 source="src/repro_torch/kernels/csrc/flash_attention_tc.cu"),
-        _summary("decode_attention", "src/repro/kernels/decode_attention.py:119", decode_launches,
-                 [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN),
+                 source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                 launches_by_path={k: v["flash"] for k, v in by_path.items()},
+                 moe_shapes=new_rows("flash_attention", FLASH_MOE), vlm_shapes=new_rows("flash_attention", FLASH_VLM)),
+        _summary("decode_attention", "src/repro/kernels/decode_attention.py:119",
+                 sum(v["decode"] for v in by_path.values()),
+                 [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN,
+                 launches_by_path={k: v["decode"] for k, v in by_path.items()},
+                 moe_shapes=new_rows("decode_attention", moe_decode)),
         _summary("rmsnorm", "src/repro/kernels/rmsnorm.py:52", rms_launches,
                  [arows[("rmsnorm", k, "bfloat16")] for k in RMS_MAIN], RMS_MAIN),
     ]

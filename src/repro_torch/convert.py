@@ -133,11 +133,13 @@ def params_from_numpy(
 
     ``tree`` is the reference's ``materialize(api.params_def, key)`` as
     nested dicts of numpy arrays (``np.asarray`` of each leaf), per-layer
-    leaves stacked along a leading (L, ...) axis.  Every leaf is checked
-    against the port's own declaration of ``cfg``'s parameters, moved to
-    ``device`` and cast to ``dtype`` (default: ``cfg.compute_dtype``; norm
-    gains stay fp32), and the stacked layers become the per-layer
-    ``ParamTree`` the port's forward pass loops over.
+    leaves stacked along a leading (L, ...) axis ("layers", or the xLSTM
+    stack's "pairs"; deepseek's "dense0" and the VLM's "proj" unstacked).
+    Every leaf is checked against the port's own declaration of ``cfg``'s
+    parameters, moved to ``device`` and cast to ``dtype`` (default:
+    ``cfg.compute_dtype``; the leaves the reference reads in fp32 stay
+    fp32), and the stacked subtrees become the per-layer ``ParamTree``
+    lists the port's forward pass loops over.
     """
     from repro_torch.models.common import load_params
     from repro_torch.models.model_zoo import build

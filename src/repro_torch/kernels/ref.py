@@ -1,8 +1,13 @@
-"""Plain PyTorch versions of the hand-written kernels.
+"""Plain PyTorch versions of the hand-written kernels, and the int8 KV
+cache's two functions.
 
-The CPU path and the tests run these; ``chip_smoke.py`` holds each CUDA
-kernel against its plain version on the card.  Nothing on the main path
-calls them for a CUDA tensor.  Each follows its twin in the reference's
+The CPU path and the tests run the plain versions; ``chip_smoke.py`` holds
+each CUDA kernel against its plain version on the card.  Nothing on the
+main path calls them for a CUDA tensor.  ``quantize_kv`` and
+``decode_attention_quant`` are different: they have no Pallas kernel, and
+the reference's models call them directly on every device
+(``repro/models/attention.py``, ``transformer.py``), so the port's models
+do too, on the card as well.  Each follows its twin in the reference's
 ``repro/kernels/ref.py``; the flash backward (``_flash_bwd``) waits for the
 training slice.
 """
@@ -116,6 +121,48 @@ def decode_attention(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(torch.float32))
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_quant(
+    q: torch.Tensor,         # (B, H, d)
+    k_cache: torch.Tensor,   # (B, S, Hkv, d) int8
+    v_cache: torch.Tensor,   # (B, S, Hkv, d) int8
+    k_scale: torch.Tensor,   # (B, S, Hkv) per-row scales
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,   # (B,)
+) -> torch.Tensor:
+    """Decode attention over an int8-quantized KV cache, masked at and
+    beyond each sequence's ``lengths``: (B, H, d) in q's dtype.
+
+    Dequantization is folded around the contractions, as the reference has
+    it: scores = (q . k_q) * k_scale, out = (p * v_scale) . v_q.
+    """
+    b, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    scale = 1.0 / float(d) ** 0.5
+    qg = q.reshape(b, hkv, g, d).to(torch.float32)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.to(torch.float32))
+    scores = scores * k_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, :] * scale
+    mask = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    pv = p * v_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bkgt,btkd->bkgd", pv, v_cache.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(position, head) symmetric int8 quantization of K or V rows.
+
+    x (..., d) -> (int8 of the same shape, bf16 scales (...)).  The int8
+    values are rounded (half to even, as ``jnp.round``) with the fp32
+    scale; the scale is cast to bf16 after, in the reference's order.
+    """
+    x32 = x.to(torch.float32)
+    scale = torch.clamp(x32.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -9,9 +9,10 @@ meters every invocation, and reports FaasMeter energy footprints + prices
         --requests 40 --batch 2 --seq 64 [--device cpu]
 
 Same CLI and defaults as the reference, plus ``--device`` (default
-``cuda``).  Architectures whose family the port does not have yet are
-listed and skipped.  Weights come from a seeded ``torch.Generator`` on the
-device; prompts from a seeded numpy generator.
+``cuda``); the default ``--archs`` serve the dense, xLSTM and MoE families.
+An architecture whose family the port does not have yet raises, as in the
+reference.  Weights come from a seeded ``torch.Generator`` on the device;
+prompts (and a VLM's patch embeddings) from a seeded numpy generator.
 """
 
 from __future__ import annotations
@@ -36,12 +37,18 @@ from repro_torch.workload.functions import FunctionRegistry, FunctionSpec
 
 
 def random_batch(api, shape: ShapeConfig, rng: np.random.Generator, device) -> dict:
-    """Prompt inputs for ``api`` at ``shape``: token ids uniform over the
-    true vocabulary, drawn from ``rng``."""
-    return {
-        k: torch.as_tensor(rng.integers(0, api.cfg.vocab_size, size=sp.shape), dtype=sp.dtype, device=device)
-        for k, sp in api.prefill_inputs(shape).items()
-    }
+    """Prompt inputs for ``api`` at ``shape``, drawn from ``rng`` in the
+    specs' order, as the reference's launcher draws them: token ids uniform
+    over the true vocabulary, float inputs (patch embeddings) standard
+    normal times 0.1."""
+    batch = {}
+    for k, sp in api.prefill_inputs(shape).items():
+        if sp.dtype.is_floating_point:
+            x = rng.standard_normal(sp.shape) * 0.1
+        else:
+            x = rng.integers(0, api.cfg.vocab_size, size=sp.shape)
+        batch[k] = torch.as_tensor(x, dtype=sp.dtype, device=device)
+    return batch
 
 
 def meter_trace(server: MeteredServer, trace, *, device, init_windows: int = 20, step_windows: int = 10):
@@ -79,15 +86,8 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    apis = {}
-    for name in args.archs.split(","):
-        try:
-            apis[name] = build(get_config(name, reduced=True))
-        except NotImplementedError as exc:
-            print(f"  {name}: skipped: {exc}")
-    if not apis:
-        raise SystemExit("no requested architecture has a ported family")
-    archs = list(apis)
+    archs = args.archs.split(",")
+    apis = {name: build(get_config(name, reduced=True)) for name in archs}
     shape = ShapeConfig("serve", args.seq, args.batch, "prefill")
     server = MeteredServer()
     rng = np.random.default_rng(args.seed)

@@ -14,13 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.common import Param, apply_rope
-
-INT8_CACHE = (
-    "the int8 KV cache (kv_scales) is not ported yet: ROADMAP Queue 1 item 9 "
-    "(model-zoo path: the int8 KV cache)"
-)
 
 
 def attention_params(cfg: ArchConfig, *, cross: bool = False) -> dict:
@@ -85,22 +80,35 @@ def attention_decode(
     *,
     kv_scales=None,
 ):
-    """Single-token decode step.  Returns (y (B,1,d), k_cache, v_cache).
+    """Single-token decode step.  Returns (y (B,1,d), k_cache, v_cache),
+    plus (k_scale, v_scale) when the cache is int8 (``kv_scales`` given:
+    (B, S_max, Hkv) row scales).
 
     The reference returns updated copies of the (donated) caches; here the
-    new K/V row is written into ``k_cache``/``v_cache`` in place at ``pos``
-    and the same tensors are returned.
+    new K/V row (and its scales) is written in place at ``pos`` and the
+    same tensors are returned.  The int8 branch quantizes the new row and
+    attends through ``ref.decode_attention_quant``, which the reference
+    calls directly on every device (it has no Pallas kernel).  The
+    cross-attention ``memory_kv`` branch waits for the encoder-decoder
+    family.
     """
-    if kv_scales is not None:
-        raise NotImplementedError(INT8_CACHE)
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    if kv_scales is not None:
+        k_scale, v_scale = kv_scales
+        for cache, scales, row in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
+            row_q, row_s = ref.quantize_kv(row[:, 0])
+            cache[:, pos] = row_q
+            scales[:, pos] = row_s.to(scales.dtype)
+        out = ref.decode_attention_quant(q[:, 0], k_cache, v_cache, k_scale, v_scale, lengths)
+        y = out.reshape(b, cfg.q_dim) @ p["wo"]
+        return y[:, None, :], k_cache, v_cache, (k_scale, v_scale)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)
     y = out.reshape(b, cfg.q_dim) @ p["wo"]
     return y[:, None, :], k_cache, v_cache

@@ -3,19 +3,20 @@ rotary embeddings -- the twin of the reference's ``repro/models/common.py``.
 
 Parameters are declared as ``Param`` leaves (shape + logical axes + init
 law) in the reference's tree layout, with per-layer leaves stacked along a
-leading "layers" axis (``stack_params``).  ``materialize`` draws every leaf
-with its init law from an explicit ``torch.Generator`` and returns a
-``ParamTree``: an ``nn.Module`` that holds the same leaves under the
-reference's names (``p["wq"]``, ``"bq" in p``), with the stacked "layers"
-subtree split into an ``nn.ModuleList`` of per-layer trees, so the forward
-pass is a Python loop over layers in place of ``lax.scan``.
+leading axis (``stack_params``: "layers" of a decoder, "pairs" of the
+xLSTM stack).  ``materialize`` draws every leaf with its init law from an
+explicit ``torch.Generator`` and returns a ``ParamTree``: an ``nn.Module``
+that holds the same leaves under the reference's names (``p["wq"]``,
+``"bq" in p``), with each stacked subtree split into an ``nn.ModuleList``
+of per-layer trees, so the forward pass is a Python loop over layers in
+place of ``lax.scan``.
 
 Weights are stored in the compute dtype.  The reference keeps fp32 masters
 and casts each weight with ``.astype(dt)`` at every use; casting once at
 load gives exactly the same values without re-reading the fp32 masters on
-every decode step.  Norm gains (leaves named ``ln*``) stay fp32, as
-``rms_norm`` reads them in fp32.  The loss functions wait for the training
-slice.
+every decode step.  The leaves the reference reads in fp32 stay fp32
+(``keeps_fp32``): norm gains, the MoE router and the xLSTM gate biases and
+sLSTM recurrence.  The loss functions wait for the training slice.
 """
 
 from __future__ import annotations
@@ -76,9 +77,19 @@ def stack_params(tree: dict, n: int) -> dict:
     return tree_map(_stack, tree)
 
 
-def is_norm_gain(name: str) -> bool:
-    """Norm gains (``ln``, ``ln1``, ``ln2``, ``ln_f``) stay fp32 at load."""
-    return name.startswith("ln")
+#: Leaves, besides the ``ln*`` norm gains, that the reference reads in fp32
+#: whatever the compute dtype: the xLSTM norm gains, the MoE router, the
+#: mLSTM gate bias and the sLSTM recurrence and bias.
+_FP32_LEAVES = frozenset({"gamma", "router", "b_if", "r", "b"})
+
+#: Subtrees stacked along a leading per-layer axis.
+_STACKED = ("layers", "pairs")
+
+
+def keeps_fp32(name: str) -> bool:
+    """Leaves that stay fp32 at load: the norm gains (``ln``, ``ln1``,
+    ``ln2``, ``ln_f``, ``gamma``) and ``_FP32_LEAVES``."""
+    return name.startswith("ln") or name in _FP32_LEAVES
 
 
 class ParamTree(nn.Module):
@@ -118,20 +129,19 @@ class ParamTree(nn.Module):
 
 
 def _unstack_layers(tree: dict) -> dict:
-    """Split the stacked "layers" subtree into a list of per-layer trees
-    (views of the stacked tensors, no copy)."""
-    if "layers" not in tree:
-        return tree
-    stacked = tree["layers"]
-    first = stacked
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    n = first.shape[0]
+    """Split each stacked subtree (``_STACKED``) into a list of per-layer
+    trees (views of the stacked tensors, no copy)."""
 
     def take(node, i):
         return {k: take(v, i) if isinstance(v, dict) else v[i] for k, v in node.items()}
 
-    return {**tree, "layers": [take(stacked, i) for i in range(n)]}
+    def unstack(stacked):
+        first = stacked
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        return [take(stacked, i) for i in range(first.shape[0])]
+
+    return {k: unstack(v) if k in _STACKED else v for k, v in tree.items()}
 
 
 def _truncated_normal(shape, generator: torch.Generator) -> Tensor:
@@ -159,32 +169,35 @@ def _leaf_init(p: Param, generator: torch.Generator) -> Tensor:
 
 
 def _cast(node, dtype: torch.dtype, name: str = ""):
-    """Cast every tensor of a nested dict/list tree to ``dtype``, norm gains
-    to fp32 (``.to`` returns the tensor itself when nothing changes)."""
+    """Cast every tensor of a nested dict/list tree to ``dtype``, the
+    ``keeps_fp32`` leaves to fp32 (``.to`` returns the tensor itself when
+    nothing changes)."""
     if isinstance(node, dict):
         return {k: _cast(v, dtype, k) for k, v in node.items()}
     if isinstance(node, list):
         return [_cast(v, dtype, name) for v in node]
-    return node.to(torch.float32 if is_norm_gain(name) else dtype)
+    return node.to(torch.float32 if keeps_fp32(name) else dtype)
 
 
 def load_params(tree: dict, dtype: torch.dtype) -> ParamTree:
     """A ``ParamTree`` from a nested dict of tensors with stacked (L, ...)
-    "layers" leaves: weights cast to ``dtype``, norm gains fp32."""
+    "layers" or "pairs" leaves: weights cast to ``dtype``, the
+    ``keeps_fp32`` leaves fp32."""
     return ParamTree(_unstack_layers(_cast(tree, dtype)))
 
 
 def materialize(tree: dict, generator: torch.Generator, dtype: torch.dtype = torch.float32) -> ParamTree:
     """Instantiate every Param leaf with its init law, drawn in fp32 on the
     generator's device in sorted-key order and cast leaf by leaf to ``dtype``
-    (norm gains stay fp32).  The draws differ from the reference's
+    (the ``keeps_fp32`` leaves stay fp32).  The draws differ from the reference's
     ``jax.random`` bits; the laws are the same."""
     return load_params(tree_map(lambda name, p: _cast(_leaf_init(p, generator), dtype, name), tree), dtype)
 
 
 def cast_params(params: ParamTree, dtype: torch.dtype) -> ParamTree:
-    """The same parameters with every weight cast to ``dtype`` (norm gains
-    stay fp32): the compute-dtype copy of fp32 masters."""
+    """The same parameters with every weight cast to ``dtype`` (the
+    ``keeps_fp32`` leaves stay fp32): the compute-dtype copy of fp32
+    masters."""
     return ParamTree(_cast(params.to_tree(), dtype))
 
 

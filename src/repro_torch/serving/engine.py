@@ -8,6 +8,11 @@ is the first prefill, which loads the kernels and the library handles.
 Every timed call ends in ``torch.cuda.synchronize`` on the card where the
 reference ends in ``block_until_ready``.  The reference donates the cache
 to its decode step; here the decode step writes the cache in place.
+
+A VLM request's first decode step writes after its patch embeddings and
+its tokens (``model_zoo.prompt_length``).  The reference's ``generate``
+starts at the token count alone, which overwrites a prompt row and hides
+the last ones from attention; the port does not copy that.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.shapes import ShapeConfig
-from repro_torch.models.model_zoo import ModelApi, extend_cache
+from repro_torch.models.model_zoo import ModelApi, extend_cache, prompt_length
 from repro_torch.serving.kv_cache import init_cache
 
 
@@ -79,7 +84,7 @@ class ServeEngine:
         logits, cache = self.api.prefill(self.params, batch)
         cache = extend_cache(self.api, cache, steps)
         b = logits.shape[0]
-        pos0 = batch["tokens"].shape[1]
+        pos0 = prompt_length(batch)
         toks = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)]
         for i in range(steps - 1):
             logits, cache = self.api.decode(self.params, cache, toks[-1][:, None], pos0 + i)

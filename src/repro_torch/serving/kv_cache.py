@@ -18,9 +18,13 @@ from repro_torch.models.model_zoo import ModelApi
 
 
 def init_cache(api: ModelApi, shape: ShapeConfig, *, device: str | torch.device = DEFAULT_DEVICE) -> dict:
-    """Zero-filled decode cache matching ``cache_spec(shape)`` on ``device``."""
+    """Zero-filled decode cache matching ``cache_spec(shape)`` on ``device``;
+    the sLSTM stabilizer state ``s_m`` starts at -1e30 (-inf-like)."""
     dev = resolve_device(device)
-    return tree_map(lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev), api.cache_spec(shape))
+    return tree_map(
+        lambda name, s: torch.full(s.shape, -1e30 if name == "s_m" else 0, dtype=s.dtype, device=dev),
+        api.cache_spec(shape),
+    )
 
 
 def cache_bytes(api: ModelApi, shape: ShapeConfig) -> int:

@@ -218,25 +218,37 @@ def test_params_from_numpy_checks_the_tree(setup):
     bad["ln_f"] = np.ones(3, np.float32)
     with pytest.raises(ValueError, match="shape"):
         params_from_numpy(bad, setup["tcfg"], device="cpu")
+    # an MoE tree (deepseek: stacked MoE mixers, shared experts, dense0)
+    from repro.configs.deepseek_moe_16b import REDUCED as REF_DS
+    from repro_torch.configs.deepseek_moe_16b import REDUCED as DS
+
+    tree = jax.tree.map(np.asarray, r_materialize(r_build(REF_DS).params_def, jax.random.PRNGKey(0)))
+    params = params_from_numpy(tree, DS, device="cpu")
+    assert len(params["layers"]) == DS.num_layers - 1 and "mixer" in params["dense0"]
+    assert params["layers"][1]["mixer"]["router"].dtype == torch.float32
+    assert params["layers"][1]["mixer"]["w_gate"].dtype == torch.bfloat16
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["layers"]["mixer"]["w_up"] = bad["layers"]["mixer"]["w_up"][:, :-1]
+    with pytest.raises(ValueError, match="layers/mixer/w_up: shape"):
+        params_from_numpy(bad, DS, device="cpu")
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["layers"]["mixer"]["experts"] = bad["layers"]["mixer"].pop("shared")
+    with pytest.raises(ValueError, match="layers/mixer: keys"):
+        params_from_numpy(bad, DS, device="cpu")
 
 
 def test_unported_branches_raise():
-    """The int8 KV cache and every family but dense are queued, not faked."""
+    """The hybrid and encoder-decoder families are queued, not faked; the
+    int8 KV cache and every other family build."""
     int8 = dataclasses.replace(REDUCED, kv_cache_dtype="int8")
     from repro_torch.configs.shapes import ShapeConfig
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        build(int8).cache_spec(ShapeConfig("s", 8, 1, "prefill"))
-    params = materialize(build(REDUCED).params_def, torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError, match="int8"):
-        t_tf.decoder_prefill(params, torch.zeros(1, 4, dtype=torch.int32), int8)
-    x = torch.zeros(1, 1, REDUCED.d_model)
-    kc = torch.zeros(1, 4, REDUCED.num_kv_heads, REDUCED.head_dim)
-    with pytest.raises(NotImplementedError, match="int8"):
-        t_attn.attention_decode(params["layers"][0]["attn"], x, 0, kc, kc, REDUCED, kv_scales=(kc, kc))
-    others = [n for n in ARCH_NAMES if get_config(n).family != "dense"]
-    assert others
-    for name in others:
+    assert build(int8).cache_spec(ShapeConfig("s", 8, 1, "prefill"))["k"].dtype == torch.int8
+    queued = [n for n in ARCH_NAMES if get_config(n).family in ("hybrid", "encdec")]
+    assert queued
+    for name in queued:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(get_config(name, reduced=True))
+    for name in set(ARCH_NAMES) - set(queued):
+        build(get_config(name, reduced=True))
     assert isinstance(build(REDUCED).params_def["embed"], Param)

@@ -15,12 +15,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    decode tile) must be what the built kernels compute.
 2. Kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at its main path's shapes and at ragged ones, in bf16 and fp32
-   for the attention and RMSNorm kernels; per shape the kernel's, the plain
+   for the attention and RMSNorm kernels (zamba2's d 112 at H = Hkv = 32,
+   seamless's non-causal encoder, cross-attention with S != T and decode
+   against a full static memory among them); per shape the kernel's, the plain
    version's and one PyTorch library call's device times (cold L2), the
    kernel's and the library call's warm back-to-back time per launch, and
    the memory/compute bound.  The decode and gram kernels must give the
-   same bits on a second call.  Flash in bf16 at d 64/128 is the tensor-core
-   kernel.  bf16 attention outputs are held per row against the reference
+   same bits on a second call.  Flash in bf16 at d 64/112/128 is the
+   tensor-core kernel, whose d = 112 instance's SASS must hold HGMMA and
+   UTMALDG too.  bf16 attention outputs are held per row against the reference
    row's scale, and at the main shapes a planted one-key-tile fault must
    fail that check.
 3. Fleet metering path: the paper's Table 2 functions (7 + the
@@ -104,23 +107,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
 11. Trace: one warm chat and one warm summarize request under
    torch.profiler: device busy, idle share, top kernels; every
    ``decode_attention`` call must be one kernel on the device.
-12. Model families, at full width from seeded random weights: the int8
+12. Model families, at full width from seeded random weights:
+   zamba2-7b (hybrid: 81 Mamba2 layers and one shared attention block at
+   14 of them, d 112) and seamless-m4t-large-v2 (24 + 24 layers, source
+   frames as many as the prompt's tokens) at full depth, 6 requests each of
+   the two classes, traced, with their fp32 invariants, kernels against
+   plain versions (zamba2's on a copy cut to 13 layers: its fp32 masters
+   do not fit beside the served bf16 weights) and one decode step under
+   the sync gate; the int8
    KV cache on the served internlm2 weights (the reference's pins: decode
    logits against the bf16 cache's, cosine > 0.999 and argmax equal;
    greedy tokens against it; cache bytes; 3 chat requests served, no
    decode kernel launched: the reference runs int8 decode as plain code);
-   olmoe-1b-7b at full depth serving 12 requests of the two classes
+   olmoe-1b-7b at full depth serving 6 requests of the two classes
    (traced: device busy per request), its fp32 invariants, kernels
    against plain versions and the share of routing choices bf16 and fp32
    make alike; deepseek-moe-16b cut to 4 layers (dense layer 0 + 3 MoE
    layers with shared experts), one prefill and 16 decode steps;
-   xlstm-350m, 6 chat requests; internvl2-2b, 3 requests of 256 patch
+   xlstm-350m, 3 chat requests; internvl2-2b, 3 requests of 256 patch
    embeddings + 256 tokens; the fp32 prefill/decode invariants of each;
    one decode step of olmoe, xlstm and the int8 cache under
    ``torch.cuda.set_sync_debug_mode("error")``; then
-   ``repro_torch.launch.serve``'s defaults (the reference's mix, reduced).
-   Each path's flash and decode launches must be one per attention layer
-   per prefill and per decode step.
+   ``repro_torch.launch.serve``'s defaults (the reference's mix, reduced)
+   and ``--archs zamba2-7b,seamless-m4t-large-v2``.  Each path's flash and
+   decode launches must be one per attention layer (zamba2: per
+   application point; seamless: encoder, decoder self- and
+   cross-attention) per prefill and per decode step.
+13. Examples: the four twins in ``examples_torch/`` on the card
+   (``quickstart``, ``stream_energy`` and ``capped_cluster`` in this
+   process, ``serve_energy`` as its own).
 
 Each path's kernel launch counts are zeroed just before it and read just
 after (every bf16 flash launch of the serving paths must be a tensor-core
@@ -145,6 +160,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -222,7 +239,7 @@ RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL), (1001
 
 # Model families (the reference launcher's MoE and xLSTM models, the int8 KV
 # cache, the VLM prefix), full width, random weights from a seeded generator.
-# olmoe-1b-7b at full depth in internlm2's two classes (12 requests, 2:1);
+# olmoe-1b-7b at full depth in internlm2's two classes (6 requests, 2:1);
 # deepseek-moe-16b cut from 28 layers to 4 (dense layer 0 + 3 MoE layers:
 # its 16.9 B parameters would take 34 GB in bf16 besides the fp32 masters);
 # xlstm-350m in the chat class only (its sLSTM is a loop over time, so a
@@ -230,12 +247,12 @@ RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL), (1001
 # with 256 patch embeddings + 256 tokens; the int8 cache on internlm2-1.8b.
 OLMOE = "olmoe-1b-7b"
 OLMOE_CLASSES = {f"{OLMOE}/chat": CLASSES[f"{ARCH}/chat"], f"{OLMOE}/summarize": CLASSES[f"{ARCH}/summarize"]}
-OLMOE_SCHEDULE = [f"{OLMOE}/chat", f"{OLMOE}/chat", f"{OLMOE}/summarize"] * 4  # 12 requests, 2:1
+OLMOE_SCHEDULE = [f"{OLMOE}/chat", f"{OLMOE}/chat", f"{OLMOE}/summarize"] * 2  # 6 requests, 2:1
 DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-moe-16b", 4
 DEEPSEEK_CLASS = dict(batch=8, prompt=512, steps=17)  # one prefill + 16 decode steps
 XLSTM = "xlstm-350m"
 XLSTM_CLASSES = {f"{XLSTM}/chat": CLASSES[f"{ARCH}/chat"]}
-XLSTM_SCHEDULE = [f"{XLSTM}/chat"] * 6
+XLSTM_SCHEDULE = [f"{XLSTM}/chat"] * 3
 VLM = "internvl2-2b"
 VLM_CLASSES = {f"{VLM}/chat": dict(batch=4, prompt=512, steps=16)}  # prompt = 256 patches + 256 tokens
 VLM_SCHEDULE = [f"{VLM}/chat"] * 3
@@ -247,6 +264,47 @@ FLASH_MOE = [(8, 512, 512, 16, 16, HD, True), (2, 4096, 4096, 16, 16, HD, True)]
 FLASH_VLM = [(4, 512, 512, H, HKV, HD, True)]
 DECODE_MOE = [(8, 576, (575,) * 8), (2, 4112, (4111,) * 2)]  # at Hkv = 16
 MOE_H = MOE_HKV = 16
+
+# The hybrid and encoder-decoder families, full width, random weights from a
+# seeded generator, in internlm2's two classes (6 requests each, 2:1).
+# zamba2-7b (81 Mamba2 layers, one shared attention block applied at 14 of
+# them, 32 heads of 112): 10.85 B parameters, 21.7 GB in bf16 beside 43.4 GB
+# of fp32 masters, at full depth.  seamless-m4t-large-v2 (24 + 24 layers, 16
+# heads of 64): the source is as many frame embeddings as the target prompt
+# has tokens (the reference's prefill_inputs).  zamba2 serves from its bf16
+# weights alone: beside the 43.4 GB of fp32 masters, its summarize warmup
+# ran out of the card's 79.18 GiB (75.24 GiB allocated, 60.8 of them
+# weights).  Its fp32 invariants and kernels-against-plain run on a copy cut
+# to 13 layers (application points 0, 6 and 12), full width.
+ZAMBA = "zamba2-7b"
+ZAMBA_CHECK_LAYERS = 13
+ZAMBA_CLASSES = {f"{ZAMBA}/chat": CLASSES[f"{ARCH}/chat"], f"{ZAMBA}/summarize": CLASSES[f"{ARCH}/summarize"]}
+ZAMBA_SCHEDULE = [f"{ZAMBA}/chat", f"{ZAMBA}/chat", f"{ZAMBA}/summarize"] * 2
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_CLASSES = {f"{SEAMLESS}/chat": CLASSES[f"{ARCH}/chat"],
+                    f"{SEAMLESS}/summarize": CLASSES[f"{ARCH}/summarize"]}
+SEAMLESS_SCHEDULE = [f"{SEAMLESS}/chat", f"{SEAMLESS}/chat", f"{SEAMLESS}/summarize"] * 2
+# Attention shapes those paths add.  zamba2's shared block: H = Hkv = 32 at
+# d 112 (the tensor-core kernel on two 64-column panels), at the classes'
+# shapes and ragged ones (S, T not tile multiples, S < T, not causal).
+# seamless at d 64, H = Hkv = 16: the encoder (non-causal) and decoder
+# self-attention at the classes' shapes, and cross-attention with S != T.
+ZAMBA_H = ZAMBA_HKV = 32
+ZAMBA_HD = 112
+FLASH_ZAMBA = [(8, 512, 512, 32, 32, 112, True), (2, 4096, 4096, 32, 32, 112, True)]
+FLASH_ZAMBA_RAGGED = [(1, 100, 333, 32, 32, 112, True), (2, 77, 77, 32, 32, 112, True),
+                      (1, 130, 200, 32, 32, 112, False), (1, 300, 200, 8, 8, 112, True)]
+FLASH_SEAMLESS = [(8, 512, 512, 16, 16, 64, False), (2, 4096, 4096, 16, 16, 64, False),
+                  (8, 512, 512, 16, 16, 64, True), (2, 4096, 4096, 16, 16, 64, True)]
+FLASH_CROSS = [(8, 64, 512, 16, 16, 64, False), (2, 512, 4096, 16, 16, 64, False)]
+# Decode (B, S_max, lengths, H, Hkv, d): zamba2 at each class's last step and
+# ragged lengths; seamless's self-attention cache, and its cross-attention
+# against the full static memory (every length = the source's frames).
+DECODE_ZAMBA = [(8, 576, (575,) * 8, 32, 32, 112), (2, 4112, (4111,) * 2, 32, 32, 112)]
+DECODE_ZAMBA_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129), 32, 32, 112),
+                       (3, 1000, (1, 999, 500), 32, 32, 112)]
+DECODE_SEAMLESS = [(8, 576, (575,) * 8, 16, 16, 64), (2, 4112, (4111,) * 2, 16, 16, 64)]
+DECODE_STATIC = [(8, 512, (512,) * 8, 16, 16, 64), (2, 4096, (4096,) * 2, 16, 16, 64)]
 
 
 def log(msg: str) -> None:
@@ -354,9 +412,15 @@ def time_gram(ds, c, w, warm: bool = False) -> dict:
     return row
 
 
-def _sass_count(lib: Path, ops) -> dict:
+def _sass_count(lib: Path, ops, function: str = "") -> dict:
+    """Counts of each SASS opcode in ``lib``, or only in its functions whose
+    (mangled) name holds ``function``."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, timeout=300,
                           check=True).stdout
+    if function:
+        parts = [f for f in sass.split("Function : ")[1:] if function in f.split("\n", 1)[0]]
+        assert parts, f"no function {function!r} in {lib.name}'s SASS"
+        sass = "".join(parts)
     return {op: sass.count(op) for op in ops}
 
 
@@ -401,17 +465,22 @@ def phase_build() -> float:
     counts = _sass_count(kbuild.library_path("flash_attention_tc"), ("HGMMA", "UTMALDG"))
     log(f"sass flash_attention_tc: {counts}")
     assert all(counts.values()), f"the tensor-core flash kernel's SASS lacks wgmma or TMA loads: {counts}"
+    counts = _sass_count(kbuild.library_path("flash_attention_tc"), ("HGMMA", "UTMALDG"), "flash_tc_kernelILi112E")
+    log(f"sass flash_attention_tc d=112 instance: {counts}")
+    assert all(counts.values()), f"the d = 112 tensor-core instance lacks wgmma or TMA loads: {counts}"
     counts = _sass_count(kbuild.library_path("decode_attention"), ("LDGSTS", "UTMALDG"))
     log(f"sass decode_attention: {counts}")
     assert any(counts.values()), f"the decode kernel's SASS has no asynchronous loads: {counts}"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, smax, _ in DECODE_MAIN:
+    plans = [(b, smax, H, HKV, HD) for b, smax, _ in DECODE_MAIN]
+    plans += [(b, smax, h, hkv, d) for b, smax, _, h, hkv, d in DECODE_ZAMBA]
+    for b, smax, h, hkv, d in plans:
         for dtype in (torch.bfloat16, torch.float32):
             elem = _elem(dtype)
-            dplan = decode_attention.decode_plan(b, H, HKV, smax, HD, elem, sms)
-            built = decode_attention.kernel_geometry(HD, elem, dplan["group"])
+            dplan = decode_attention.decode_plan(b, h, hkv, smax, d, elem, sms)
+            built = decode_attention.kernel_geometry(d, elem, dplan["group"])
             assert built == (dplan["tile"], dplan["smem_bytes"]), (b, smax, dtype, built, dplan)
-            log(f"decode plan {str(dtype)[6:]} B={b} S_max={smax}: grid {dplan['grid']} in clusters of "
+            log(f"decode plan {str(dtype)[6:]} B={b} S_max={smax} H={h} Hkv={hkv} d={d}: grid {dplan['grid']} in clusters of "
                 f"{dplan['cluster']}, slices of {dplan['chunk']} keys in {dplan['tile']}-key tiles x "
                 f"{dplan['stages']} stages, {dplan['smem_bytes']} B dynamic shared memory")
     for d in flash_attention.TC_HEAD_DIMS:
@@ -2050,7 +2119,9 @@ def phase_attention_parity(ref) -> dict:
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol, tag = _tol(dtype), str(dtype).split(".")[1]
-        for b, s, t, h, hkv, d, causal in FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_RAGGED:
+        flash_cases = FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_RAGGED
+        flash_cases += FLASH_ZAMBA + FLASH_ZAMBA_RAGGED + FLASH_SEAMLESS + FLASH_CROSS
+        for b, s, t, h, hkv, d, causal in flash_cases:
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
             got = fa.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
@@ -2060,7 +2131,7 @@ def phase_attention_parity(ref) -> dict:
             more = dict(variant=fa.variant(dtype, d))
             if bf16:
                 more["err_rms"] = _row_err(got, want)
-            if bf16 and (b, s, t, h, hkv, d, causal) in FLASH_MAIN + FLASH_MOE + FLASH_VLM:
+            if bf16 and (b, s, t, h, hkv, d, causal) in FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_ZAMBA:
                 more["planted_err_rms"] = _planted_tile_fault(ref, q, k, v, want, tol)
             reps = 5 if s * t > 2**22 else 25
             t_kernel = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps)
@@ -2073,12 +2144,15 @@ def phase_attention_parity(ref) -> dict:
             _record(rows, ("flash_attention", (b, s, t, h, hkv, d, causal), tag), err, tol, t_kernel, t_plain,
                     t_lib, flash_work(b, s, t, h, hkv, d, causal, dtype), dtype,
                     f"flash {tag} B={b} S={s} T={t} H={h} Hkv={hkv} d={d} causal={causal}", **more)
-        decode_cases = [((b, smax, lengths), H, HKV) for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED]
-        decode_cases += [((b, smax, lengths, MOE_H, MOE_HKV), MOE_H, MOE_HKV) for b, smax, lengths in DECODE_MOE]
-        for key, h, hkv in decode_cases:
+        decode_cases = [((b, smax, lengths), H, HKV, HD) for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED]
+        decode_cases += [((b, smax, lengths, MOE_H, MOE_HKV), MOE_H, MOE_HKV, HD) for b, smax, lengths in DECODE_MOE]
+        decode_cases += [(key, *key[3:]) for key in DECODE_ZAMBA + DECODE_ZAMBA_RAGGED + DECODE_SEAMLESS
+                         + DECODE_STATIC]
+        warm_keys = DECODE_ZAMBA + DECODE_SEAMLESS + DECODE_STATIC  # and the main and MoE ones
+        for key, h, hkv, d in decode_cases:
             b, smax, lengths = key[:3]
-            q = rnd(b, h, HD, dtype=dtype)
-            kc, vc = rnd(b, smax, hkv, HD, dtype=dtype), rnd(b, smax, hkv, HD, dtype=dtype)
+            q = rnd(b, h, d, dtype=dtype)
+            kc, vc = rnd(b, smax, hkv, d, dtype=dtype), rnd(b, smax, hkv, d, dtype=dtype)
             lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             got = da.decode_attention(q, kc, vc, lens)
             again = da.decode_attention(q, kc, vc, lens)
@@ -2087,13 +2161,13 @@ def phase_attention_parity(ref) -> dict:
             want = ref.decode_attention(q, kc, vc, lens)
             err = _check(got, want, tol, "decode_attention", rows=dtype == torch.bfloat16)
             more = dict(err_rms=_row_err(got, want)) if dtype == torch.bfloat16 else {}
-            timed = time_decode(da, q, kc, vc, lens, warm=key[:3] in DECODE_MAIN + DECODE_MOE)
+            timed = time_decode(da, q, kc, vc, lens, warm=key[:3] in DECODE_MAIN + DECODE_MOE or key in warm_keys)
             t_kernel, t_lib = timed.pop("ms"), timed.pop("library_ms")
             more.update(timed)
             t_plain = device_ms(lambda: ref.decode_attention(q, kc, vc, lens))
             _record(rows, ("decode_attention", key, tag), err, tol, t_kernel, t_plain, t_lib,
-                    decode_work(b, h, hkv, HD, lengths, dtype), dtype,
-                    f"decode {tag} B={b} S_max={smax} H={h} Hkv={hkv} lengths={list(lengths)}", **more)
+                    decode_work(b, h, hkv, d, lengths, dtype), dtype,
+                    f"decode {tag} B={b} S_max={smax} H={h} Hkv={hkv} d={d} lengths={list(lengths)}", **more)
         for n, d in RMS_MAIN + RMS_RAGGED:
             x, g = rnd(n, d, dtype=dtype), rnd(d, dtype=torch.float32)
             got = rn.rmsnorm(x, g)
@@ -2120,10 +2194,12 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def build_model(device="cuda", reduced=False, arch=ARCH, layers=None):
+def build_model(device="cuda", reduced=False, arch=ARCH, layers=None, masters=True):
     """``arch`` (full width unless ``reduced``; ``layers`` cuts the depth):
     fp32 masters from a seeded generator on ``device``, and the bf16
-    compute copy (the leaves the reference reads in fp32 stay fp32)."""
+    compute copy (the leaves the reference reads in fp32 stay fp32).  With
+    ``masters=False`` only the bf16 copy is kept (drawn leaf by leaf in
+    fp32, as the masters are) and the masters come back None."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -2136,8 +2212,12 @@ def build_model(device="cuda", reduced=False, arch=ARCH, layers=None):
         cfg = dataclasses.replace(cfg, num_layers=layers)
     api = build(cfg)
     t0 = time.perf_counter()
-    masters = materialize(api.params_def, torch.Generator(device=device).manual_seed(0), torch.float32)
-    params = cast_params(masters, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if masters:
+        masters = materialize(api.params_def, gen, torch.float32)
+        params = cast_params(masters, torch.bfloat16)
+    else:
+        masters, params = None, materialize(api.params_def, gen, torch.bfloat16)
     _sync(device)
     n = sum(p.numel() for p in params.parameters())
     log(f"model {api.cfg.name}: {n:,} parameters, {api.cfg.num_layers} layers, d_model {api.cfg.d_model}, "
@@ -2237,12 +2317,19 @@ def final_hidden(api, params, classes=CLASSES, device="cuda") -> list:
 
 
 def _full_forward(api, params, batch):
-    """The full forward's logits over a prompt batch (patches included)."""
-    from repro_torch.models.transformer import decoder_train
+    """The full forward's logits over a prompt batch (patches included; an
+    encoder-decoder's over its target tokens, from its source frames)."""
+    from repro_torch.models.encdec import encdec_train
+    from repro_torch.models.transformer import decoder_train, hybrid_train
     from repro_torch.models.xlstm import xlstm_train
 
-    if api.cfg.family == "ssm":
+    family = api.cfg.family
+    if family == "ssm":
         return xlstm_train(params, batch["tokens"], api.cfg)[0]
+    if family == "hybrid":
+        return hybrid_train(params, batch["tokens"], api.cfg)[0]
+    if family == "encdec":
+        return encdec_train(params, batch["src_embeds"], batch["tokens"], api.cfg)[0]
     return decoder_train(params, batch["tokens"], api.cfg, prefix_embeds=batch.get("patches"))[0]
 
 
@@ -2401,13 +2488,29 @@ def serve_path(api, params, classes, schedule, counter, ref, device="cuda"):
     return out, report_serving(out, classes), launches
 
 
+def attention_launches(cfg) -> tuple[int, int]:
+    """(flash, decode) launches of one prefill and of one decode step: one
+    per attention layer (xLSTM none); zamba2's shared block once per
+    application point; an encoder-decoder's encoder layers at prefill, and
+    each decoder layer's self- and cross-attention at both."""
+    from repro_torch.models.transformer import n_attn_points
+
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        return n_attn_points(cfg), n_attn_points(cfg)
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    return cfg.num_layers, cfg.num_layers
+
+
 def expected_launches(api, classes, schedule) -> tuple[int, int]:
-    """(flash, decode) launches of serving ``schedule``: one each per
-    attention layer per prefill (every request and each class's cold start)
-    and per decode step."""
-    layers = api.cfg.num_layers if api.cfg.family != "ssm" else 0
+    """(flash, decode) launches of serving ``schedule``: ``attention_launches``
+    per prefill (every request and each class's cold start) and per decode
+    step."""
+    per_prefill, per_step = attention_launches(api.cfg)
     prefills = len(schedule) + len(classes)
-    return layers * prefills, layers * sum(classes[n]["steps"] - 1 for n in schedule)
+    return per_prefill * prefills, per_step * sum(classes[n]["steps"] - 1 for n in schedule)
 
 
 def gated_decode(api, params, batch, label, ref, device="cuda") -> None:
@@ -2487,18 +2590,20 @@ def phase_int8(api, params, counter, ref, device="cuda") -> dict:
 
 
 def phase_family(arch, classes, schedule, counter, ref, device="cuda", reduced=False,
-                 gate=False, vs_plain=False, trace=False) -> dict:
+                 gate=False, vs_plain=False, trace=False, check_layers=None) -> dict:
     """Build ``arch`` at full width (fp32 masters and the bf16 copy), serve
     ``schedule`` through ``MeteredServer``, meter and price it; with
     ``trace``, trace one warm request per class (device busy per request);
     check the fp32 invariants (and, with ``vs_plain``, kernels against
     plain versions); with ``gate``, one decode step under the sync gate;
-    then free the weights."""
+    then free the weights.  With ``check_layers`` the served model is bf16
+    alone at full depth, and the fp32 checks run on a copy cut to that
+    depth (fp32 masters and its own bf16 copy), full width."""
     from repro_torch.launch.serve import random_batch
     from repro_torch.configs.shapes import ShapeConfig
 
     t0 = time.perf_counter()
-    api, masters, params = build_model(device, reduced, arch)
+    api, masters, params = build_model(device, reduced, arch, masters=check_layers is None)
     cuda = torch.device(device).type == "cuda"
     serve_out, stats, launches = serve_path(api, params, classes, schedule, counter, ref, device)
     log(f"family {arch}: built and served in {time.perf_counter() - t0:.1f} s")
@@ -2513,10 +2618,15 @@ def phase_family(arch, classes, schedule, counter, ref, device="cuda", reduced=F
             replays[f"serve {name}"] = (lambda e=engine, b=batch, n=steps: e.generate(b, n), stats[name]["first_s"])
         phase_trace(replays)
         log(f"family {arch}: traced at {time.perf_counter() - t0:.1f} s")
-    out["fp32"] = check_fp32(api, masters, device)
+    check = (api, masters, params)
+    if check_layers is not None:
+        check = build_model(device, reduced, arch, layers=check_layers)
+        out["check_layers"] = check_layers
+    out["fp32"] = check_fp32(*check[:2], device)
     if vs_plain:
-        out.update(kernels_vs_plain(api, masters, params, ref, device))
+        out.update(kernels_vs_plain(*check, ref, device))
         log(f"family {arch}: kernels against plain versions done at {time.perf_counter() - t0:.1f} s")
+    del check
     if gate:
         c = next(iter(classes.values()))
         rng = np.random.default_rng(4)
@@ -2569,22 +2679,69 @@ def phase_deepseek(counter, ref, device="cuda", reduced=False) -> dict:
 
 def phase_launcher(ref, device="cuda") -> str:
     """``python -m repro_torch.launch.serve`` with its defaults (the
-    reference's mix, reduced configs) on ``device``: every architecture
-    served, none skipped."""
+    reference's mix, reduced configs) on ``device``, then with ``--archs
+    zamba2-7b,seamless-m4t-large-v2``: every architecture served and
+    metered, none skipped."""
     import io
 
     from repro_torch.launch import serve
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf), main_path(ref):
-        serve.main(["--requests", "6", "--device", device])
-    text = buf.getvalue()
-    for line in text.splitlines():
-        log(f"launcher | {line}")
-    assert "skipped" not in text
-    for name in ("internlm2-1.8b", "xlstm-350m", "olmoe-1b-7b"):
-        assert f"{name}/generate registered" in text, name
-    return text
+    runs = ((["--requests", "6"], ("internlm2-1.8b", "xlstm-350m", "olmoe-1b-7b")),
+            (["--requests", "4", "--archs", f"{ZAMBA},{SEAMLESS}"], (ZAMBA, SEAMLESS)))
+    texts = []
+    for argv, names in runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), main_path(ref):
+            serve.main([*argv, "--device", device])
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"launcher | {line}")
+        assert "skipped" not in text
+        for name in names:
+            assert f"{name}/generate registered" in text, name
+            assert any(f"{name}/generate " in ln and "usd/inv=" in ln for ln in text.splitlines()), name
+        texts.append(text)
+    return "".join(texts)
+
+
+def phase_examples(ref, counter, device="cuda") -> dict:
+    """The four example twins (``examples_torch/``) on ``device``: the three
+    metering ones in this process (the plain versions watched, the hand
+    kernels' launches counted), ``serve_energy`` as its own process, as a
+    user runs it.  Each must finish and print its figures."""
+    import io
+    import runpy
+
+    root = Path(__file__).resolve().parent / "examples_torch"
+    marks = {"quickstart": "cosine vs marginal-energy ground truth", "stream_energy": "cap stats:",
+             "capped_cluster": "static 20 W buffer"}
+    out: dict = {}
+    for name, mark in marks.items():
+        t0 = time.perf_counter()
+        buf, argv = io.StringIO(), sys.argv
+        sys.argv = [str(root / f"{name}.py"), "--device", device]
+        counter.zero()
+        try:
+            with contextlib.redirect_stdout(buf), main_path(ref):
+                runpy.run_path(sys.argv[0], run_name="__main__")
+        finally:
+            sys.argv = argv
+        text = buf.getvalue()
+        assert mark in text and not re.search(r"\bnan\b", text.lower()), (name, text[-2000:])
+        out[name] = dict(seconds=time.perf_counter() - t0, launches=counter.read())
+        log(f"example {name} on {device}: {out[name]['seconds']:.1f} s, hand-kernel launches {out[name]['launches']}; "
+            f"last line: {text.strip().splitlines()[-1]}")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, str(root / "serve_energy.py"), "--device", device],
+                          capture_output=True, text=True, timeout=600, env=env)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "== serving 24 requests ==" in proc.stdout and proc.stdout.count("usd/inv=") == 3, proc.stdout[-2000:]
+    out["serve_energy"] = dict(seconds=time.perf_counter() - t0)
+    for line in proc.stdout.strip().splitlines()[-5:]:
+        log(f"example serve_energy | {line}")
+    log(f"example serve_energy on {device}: {out['serve_energy']['seconds']:.1f} s (its own process)")
+    return out
 
 
 class LaunchCounter:
@@ -2607,10 +2764,16 @@ class LaunchCounter:
 
 
 def phase_families(ref, counter, device="cuda", reduced=False) -> dict:
-    """olmoe-1b-7b, deepseek-moe-16b (depth cut), xlstm-350m, internvl2-2b,
-    then the launcher's defaults; each path watched and counted on its own."""
+    """zamba2-7b, seamless-m4t-large-v2, olmoe-1b-7b, deepseek-moe-16b
+    (depth cut), xlstm-350m, internvl2-2b, then the launcher; each path
+    watched and counted on its own."""
     t0 = time.perf_counter()
     fam: dict = {}
+    fam["zamba2"] = phase_family(ZAMBA, ZAMBA_CLASSES, ZAMBA_SCHEDULE, counter, ref, device, reduced,
+                                 gate=True, vs_plain=True, trace=True,
+                                 check_layers=None if reduced else ZAMBA_CHECK_LAYERS)
+    fam["seamless"] = phase_family(SEAMLESS, SEAMLESS_CLASSES, SEAMLESS_SCHEDULE, counter, ref, device, reduced,
+                                   gate=True, vs_plain=True, trace=True)
     fam["olmoe"] = phase_family(OLMOE, OLMOE_CLASSES, OLMOE_SCHEDULE, counter, ref, device, reduced,
                                 gate=True, vs_plain=True, trace=True)
     fam["deepseek"] = phase_deepseek(counter, ref, device, reduced)
@@ -2632,7 +2795,7 @@ def check_families(fam, int8_layers) -> None:
     assert int8["flash"] == int8_layers * (len(INT8_SCHEDULE) + 1) == int8["flash_tc"], int8
     assert int8["decode"] == 0, f"the int8 cache's decode runs the reference's plain path: {int8}"
     assert fam["int8"]["eff"] <= 1e-5, fam["int8"]["eff"]
-    for key in ("olmoe", "xlstm", "vlm", "deepseek"):
+    for key in ("zamba2", "seamless", "olmoe", "xlstm", "vlm", "deepseek"):
         got, (flash_want, decode_want) = fam[key]["launches"], fam[key]["expected"]
         assert (got["flash"], got["decode"]) == (flash_want, decode_want), (key, got, flash_want, decode_want)
         assert got["flash_tc"] == got["flash"], (key, got)
@@ -2937,6 +3100,9 @@ def main() -> int:
     fam = phase_families(ref, counter)
     fam["int8"] = int8
     check_families(fam, layers)
+    t0 = time.perf_counter()
+    examples = phase_examples(ref, counter)
+    log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))
 
     def new_rows(kernel, keys):
         return [dict(shape=json.loads(json.dumps(k)), **{f: arows[(kernel, k, "bfloat16")][f] for f in (
@@ -2944,7 +3110,7 @@ def main() -> int:
 
     paths = {"dense": (flash_launches, decode_launches)}
     paths.update({key: (fam[key]["launches"]["flash"], fam[key]["launches"]["decode"])
-                  for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "launcher")})
+                  for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "launcher")})
     by_path = {k: dict(zip(("flash", "decode"), v)) for k, v in paths.items()}
     moe_decode = [k + (MOE_H, MOE_HKV) for k in DECODE_MOE]
     kernels = [
@@ -2961,12 +3127,18 @@ def main() -> int:
                  [arows[("flash_attention", k, "bfloat16")] for k in FLASH_MAIN], FLASH_MAIN,
                  source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                  launches_by_path={k: v["flash"] for k, v in by_path.items()},
-                 moe_shapes=new_rows("flash_attention", FLASH_MOE), vlm_shapes=new_rows("flash_attention", FLASH_VLM)),
+                 moe_shapes=new_rows("flash_attention", FLASH_MOE), vlm_shapes=new_rows("flash_attention", FLASH_VLM),
+                 zamba2_shapes=new_rows("flash_attention", FLASH_ZAMBA),
+                 seamless_shapes=new_rows("flash_attention", FLASH_SEAMLESS),
+                 cross_shapes=new_rows("flash_attention", FLASH_CROSS)),
         _summary("decode_attention", "src/repro/kernels/decode_attention.py:119",
                  sum(v["decode"] for v in by_path.values()),
                  [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN,
                  launches_by_path={k: v["decode"] for k, v in by_path.items()},
-                 moe_shapes=new_rows("decode_attention", moe_decode)),
+                 moe_shapes=new_rows("decode_attention", moe_decode),
+                 zamba2_shapes=new_rows("decode_attention", DECODE_ZAMBA),
+                 seamless_shapes=new_rows("decode_attention", DECODE_SEAMLESS),
+                 static_memory_shapes=new_rows("decode_attention", DECODE_STATIC)),
         _summary("rmsnorm", "src/repro/kernels/rmsnorm.py:52", rms_launches,
                  [arows[("rmsnorm", k, "bfloat16")] for k in RMS_MAIN], RMS_MAIN),
     ]

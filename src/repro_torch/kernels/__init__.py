@@ -4,7 +4,7 @@
   gram assembly of the fleet engine (a warp per batch entry at M <= 16, a
   register-tiled SYRK otherwise), plus its NNLS/ridge solve wrappers.
 - ``flash_attention``  -- CUDA forward GQA attention for prefill: the
-  tensor-core kernel for bf16 at d in {64, 128}
+  tensor-core kernel for bf16 at d in {64, 112, 128}
   (``csrc/flash_attention_tc.cu``), the FMA kernel for the rest
   (``csrc/flash_attention.cu``).
 - ``decode_attention`` -- CUDA single-token attention against a KV cache

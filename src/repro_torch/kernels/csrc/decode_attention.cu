@@ -30,7 +30,10 @@
 //            never requested.
 //   compute  eight warps, straight from the staged tile: LPK = D / (16 B)
 //            lanes share a key, each holding a 16-byte piece of the row,
-//            widened in registers; the G dot products are reduced with
+//            widened in registers (at d = 112 a row is 14 or 28 pieces; a
+//            key then takes 16 or 32 lanes, the last 2 or 4 idle, so that
+//            the shuffles stay within powers of two; the cache is read
+//            unpadded); the G dot products are reduced with
 //            shuffles; each lane keeps its piece of the G x D accumulator and
 //            the heads' running max and sum (log2 domain, ex2.approx) in
 //            registers. CUDA-core FMAs only: at ~1 flop a byte there is
@@ -69,10 +72,20 @@ constexpr int MAX_TILE = 128;         // keys per stage, at most
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Keys per ring stage at head_dim d and element size elem (mirrored by
-// kernels/decode_attention.py::tile_keys).
+// The smallest power of two >= n.
+__host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
+// Lanes that share a key at head_dim d and element size elem: one 16-byte
+// piece of the row each, rounded up to a power of two.
+__host__ __device__ constexpr int key_lanes(int d, int elem) { return pow2_ceil(d * elem / 16); }
+
+// Keys per ring stage at head_dim d and element size elem: STAGE_TARGET
+// bytes of K and V, at most MAX_TILE, a multiple of the keys the eight
+// warps take at once (mirrored by kernels/decode_attention.py::tile_keys).
 __host__ __device__ constexpr int tile_keys(int d, int elem) {
-  return STAGE_TARGET / (2 * d * elem) < MAX_TILE ? STAGE_TARGET / (2 * d * elem) : MAX_TILE;
+  const int keys = STAGE_TARGET / (2 * d * elem) < MAX_TILE ? STAGE_TARGET / (2 * d * elem) : MAX_TILE;
+  const int step = WARPS * (32 / key_lanes(d, elem));
+  return keys / step * step;
 }
 
 // Dynamic shared memory: the ring, the warps' partial states and the
@@ -142,8 +155,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
               int nchunk, int gchunk, int chunk, float qscale) {
   constexpr int ELEM = static_cast<int>(sizeof(T));
   constexpr int VEC = Vec<T>::N;       // elements in a lane's 16-byte piece
-  constexpr int LPK = D / VEC;         // lanes per key
-  constexpr int KPW = 32 / LPK;        // keys a warp takes at once
+  constexpr int LPK = D / VEC;         // 16-byte pieces of a row: the lanes that hold one
+  constexpr int LPKP = key_lanes(D, ELEM);  // lanes per key (LPK rounded up to a power of two)
+  constexpr int KPW = 32 / LPKP;       // keys a warp takes at once
   constexpr int ROW = D * ELEM;        // bytes of a cache row
   constexpr int CH = ROW / 16;         // 16-byte pieces per row
   constexpr int TK = tile_keys(D, ELEM);
@@ -151,9 +165,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   constexpr int NK = KW / KPW;         // keys per lane group and tile
   constexpr int STAGE = 2 * TK * ROW;  // K tile, then V tile
   constexpr int RPP = THREADS / CH;    // rows of a tile one pass of the block copies
-  constexpr int PASSES = TK / RPP;     // copies per thread into each of the K and V tiles
+  constexpr int PASSES = (TK + RPP - 1) / RPP;  // copies per thread into each of the K and V tiles
   constexpr int PART = GC * (D + 2);   // m [GC], l [GC], acc [GC][D]
-  static_assert(NK >= 1 && KW % KPW == 0 && PASSES >= 1 && TK % RPP == 0, "tile shape");
+  static_assert(NK >= 1 && KW % KPW == 0 && TK % (WARPS * KPW) == 0 && PASSES >= 1, "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* wpart = reinterpret_cast<float*>(smem + ring_bytes(D, ELEM));
@@ -172,15 +186,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int piece = lane % LPK;  // which 16 bytes of a row this lane holds
-  const int sub = lane / LPK;    // which of the warp's KPW keys
+  const int piece = lane % LPKP;  // which 16 bytes of a row this lane holds
+  const int sub = lane / LPKP;    // which of the warp's KPW keys
+  const bool on = LPK == LPKP || piece < LPK;  // false on the idle lanes past the row (d = 112)
 
   // This lane's piece of each head's query, prescaled by scale * log2(e);
   // loaded while lengths[b] is in flight.
   float qr[GC][VEC];
 #pragma unroll
   for (int gi = 0; gi < GC; ++gi) {
-    if (gi < gcount) {
+    if (gi < gcount && on) {
       load16(q + (static_cast<int64_t>(b) * h + head0 + gi) * D + piece * VEC, qr[gi]);
     } else {
 #pragma unroll
@@ -204,7 +219,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
 
   // Thread tid copies piece tid % CH of rows tid / CH + i * RPP of each
   // tile's K and V: the offsets are fixed, only the tile's first row moves.
+  // When CH does not divide THREADS (d = 112) the last THREADS % CH
+  // threads copy nothing, and the last pass stops at the tile's end.
   const int crow = tid / CH;
+  const bool copier = THREADS % CH == 0 || tid < RPP * CH;
   const int64_t csrc = crow * row_stride + (tid % CH) * VEC;
   const uint32_t cdst = smem_u32(smem) + crow * ROW + (tid % CH) * 16;
   auto issue = [&](int t) {
@@ -213,7 +231,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     const uint32_t dst = cdst + (t % STAGES) * STAGE;
 #pragma unroll
     for (int i = 0; i < PASSES; ++i) {
-      if (base + crow + i * RPP < k_end) {
+      const int row = crow + i * RPP;
+      if (copier && (TK % RPP == 0 || row < TK) && base + row < k_end) {
         cp_async16(dst + i * RPP * ROW, kb + off + i * RPP * row_stride);
         cp_async16(dst + TK * ROW + i * RPP * ROW, vb + off + i * RPP * row_stride);
       }
@@ -245,7 +264,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
 #pragma unroll
     for (int j = 0; j < NK; ++j) {
       float kf[VEC];
-      lds16<T>(ks + (r0 + j * KPW) * ROW + piece * 16, kf);
+      if (on) {
+        lds16<T>(ks + (r0 + j * KPW) * ROW + piece * 16, kf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kf[e] = 0.0f;
+      }
 #pragma unroll
       for (int gi = 0; gi < GC; ++gi) {
         float dot = 0.0f;
@@ -255,7 +279,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       }
     }
 #pragma unroll
-    for (int off = 1; off < LPK; off <<= 1) {
+    for (int off = 1; off < LPKP; off <<= 1) {
 #pragma unroll
       for (int j = 0; j < NK; ++j) {
 #pragma unroll
@@ -283,7 +307,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     }
 #pragma unroll
     for (int j = 0; j < NK; ++j) {
-      if (r0 + j * KPW < live) {  // a stale row may hold anything, NaN included
+      if (on && r0 + j * KPW < live) {  // a stale row may hold anything, NaN included
         float vf[VEC];
         lds16<T>(vs + (r0 + j * KPW) * ROW + piece * 16, vf);
 #pragma unroll
@@ -299,10 +323,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     }
   }
 
-  // Merge the warp's KPW key groups: lanes lane and lane ^ (LPK * 2^i) hold
+  // Merge the warp's KPW key groups: lanes lane and lane ^ (LPKP * 2^i) hold
   // the same piece of the row.
 #pragma unroll
-  for (int off = LPK; off < 32; off <<= 1) {
+  for (int off = LPKP; off < 32; off <<= 1) {
 #pragma unroll
     for (int gi = 0; gi < GC; ++gi) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[gi], off);
@@ -319,7 +343,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       m[gi] = mx;
     }
   }
-  if (sub == 0) {
+  if (sub == 0 && on) {
     float* wp = wpart + warp * PART;
 #pragma unroll
     for (int gi = 0; gi < GC; ++gi) {
@@ -429,6 +453,7 @@ int dispatch(const Args& a, int d, cudaStream_t stream) {
     case 16: return by_group<T, 16>(a, stream);
     case 32: return by_group<T, 32>(a, stream);
     case 64: return by_group<T, 64>(a, stream);
+    case 112: return by_group<T, 112>(a, stream);
     case 128: return by_group<T, 128>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -438,7 +463,7 @@ int dispatch(const Args& a, int d, cudaStream_t stream) {
 
 // q (B, H, D), k_cache and v_cache (B, S_max, Hkv, D), out (B, H, D):
 // contiguous, 16-byte aligned, one element type; lengths (B,) int32 on the
-// same device; D in {16, 32, 64, 128}; H % Hkv == 0. The grid is
+// same device; D in {16, 32, 64, 112, 128}; H % Hkv == 0. The grid is
 // (splits, Hkv * nchunk, B) in clusters of `splits` blocks: slices of
 // `chunk` keys (splits * chunk >= S_max), the G = H / Hkv heads in `nchunk`
 // chunks of at most `gchunk` <= 8 (decode_attention.py::decode_plan).

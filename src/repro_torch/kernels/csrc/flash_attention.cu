@@ -2,7 +2,7 @@
 // semantics): out = softmax(Q K^T * scale, masked) V, for q (B, S, H, D) and
 // k, v (B, T, Hkv, D), fp32 or bf16 in, fp32 statistics, out in q's type.
 // It serves fp32 at every D and bf16 at D in {16, 32}; bf16 at D in
-// {64, 128} goes to the tensor-core kernel in flash_attention_tc.cu (the
+// {64, 112, 128} goes to the tensor-core kernel in flash_attention_tc.cu (the
 // wrapper, kernels/flash_attention.py, picks one before launch).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
@@ -236,9 +236,10 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b, int 
     case 16: return launch<T, 16>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
   }
-  if constexpr (sizeof(T) == 4) {  // bf16 at 64 and 128 is flash_attention_tc.cu's
+  if constexpr (sizeof(T) == 4) {  // bf16 at 64, 112 and 128 is flash_attention_tc.cu's
     switch (d) {
       case 64: return launch<T, 64>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
+      case 112: return launch<T, 112>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
       case 128: return launch<T, 128>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
     }
   }
@@ -248,7 +249,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b, int 
 }  // namespace
 
 // q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D): contiguous,
-// 16-byte aligned, one element type; D in {16, 32, 64, 128} for fp32 and
+// 16-byte aligned, one element type; D in {16, 32, 64, 112, 128} for fp32 and
 // {16, 32} for bf16; H % Hkv == 0.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int b,

@@ -1,9 +1,9 @@
 // Forward GQA attention in bf16 on Hopper's tensor cores (wgmma + TMA), for
-// head_dim 64 and 128: out = softmax(Q K^T / sqrt(d), masked) V for q
+// head_dim 64, 112 and 128: out = softmax(Q K^T / sqrt(d), masked) V for q
 // (B, S, H, D) and k, v (B, T, Hkv, D), fp32 statistics, out in bf16.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention (body _fa_kernel) for bf16 at d in {64, 128}; fp32, and
+// flash_attention (body _fa_kernel) for bf16 at d in {64, 112, 128}; fp32, and
 // bf16 at d in {16, 32}, stay on the FMA kernel in flash_attention.cu. The
 // wrapper (kernels/flash_attention.py) picks one of the two before launch.
 //
@@ -22,9 +22,16 @@
 //             the second product is what every tensor-core flash kernel does.
 //   copies    Q, K and V are 4-D TMA tensor maps over the (B, T, Hkv, d)
 //             layout, 128-byte swizzled (a 64-column box per panel, two
-//             panels at d = 128); no transpose, no padding copy: TMA fills
-//             rows past S or T with zeros, keys >= T are masked here, and no
-//             output row >= S is written.
+//             panels at d = 112 and 128); no transpose, no padding copy: TMA
+//             fills rows past S or T with zeros, keys >= T are masked here,
+//             and no output row >= S is written.
+//   d = 112   (zamba2's heads) is computed natively, the cache unpadded: the
+//             maps' innermost dim is 112 (rows of 224 bytes), so TMA fills
+//             columns 112-127 of the second panel with zeros. Q K^T runs
+//             7 k-steps of 16 columns and never reads them; P V runs at
+//             N = 128 (wgmma's MN-major 128-byte-swizzled B spans whole
+//             64-column panels), which gives 16 zero output columns that the
+//             epilogue does not store. The scale is 1 / sqrt(112).
 //   pipeline  K and V tiles live in a 3-stage ring in shared memory with
 //             full (TMA bytes landed) and empty (both consumer warpgroups
 //             done) mbarriers. One producer warp issues every copy; the two
@@ -72,11 +79,13 @@ constexpr int ROW_BYTES = 128;   // bytes of one row of a panel
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory: the Q tile, then STAGES K tiles, then STAGES V tiles, each
-// stored as D / 64 panels of (rows x 128 bytes), 1024-byte aligned (the
-// period of the 128-byte swizzle).
+// stored as ceil(D / 64) panels of (rows x 128 bytes), 1024-byte aligned (the
+// period of the 128-byte swizzle). DP is D rounded up to whole panels: the
+// width of the P V product and of the output registers.
 template <int D>
 struct Smem {
-  static constexpr int PANELS = D / PANEL;
+  static constexpr int PANELS = (D + PANEL - 1) / PANEL;
+  static constexpr int DP = PANELS * PANEL;
   static constexpr int Q_PANEL = BQ * ROW_BYTES;
   static constexpr int KV_PANEL = BK * ROW_BYTES;
   static constexpr int Q_BYTES = PANELS * Q_PANEL;
@@ -217,8 +226,9 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc_v);
+// P V at DP output columns (the panels' width).
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t desc_v);
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t desc_v) {
   wgmma_rs_n128(o, a, desc_v);
@@ -249,8 +259,9 @@ __device__ __forceinline__ int acc_col(int i) { return 8 * (i / 4) + (i % 2); }
 
 constexpr int NS = BK / 2;  // score registers per consumer thread (m64 x n128)
 
-// S = Q K^T over d in 16-column steps (4 per 128-byte panel), issued
-// asynchronously as one wgmma group.
+// S = Q K^T over d in 16-column steps (4 per 128-byte panel; 7 at d = 112,
+// so the zero-filled columns are never read), issued asynchronously as one
+// wgmma group.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[NS], uint32_t q_base, uint32_t k_base) {
   wgmma_fence();
@@ -266,11 +277,12 @@ __device__ __forceinline__ void issue_qk(float (&sc)[NS], uint32_t q_base, uint3
 // O += P V over a tile's keys in 16-row steps of V (MN-major: the transpose
 // bit is set, LBO steps between the 64-column panels), one wgmma group.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[BK / 16][4], uint32_t v_base) {
+__device__ __forceinline__ void issue_pv(float (&o)[Smem<D>::DP / 2], const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_base) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk], sw128_desc(v_base + kk * 16 * ROW_BYTES, Smem<D>::KV_PANEL, 1024));
+    wgmma_pv<Smem<D>::DP>(o, pa[kk], sw128_desc(v_base + kk * 16 * ROW_BYTES, Smem<D>::KV_PANEL, 1024));
   wgmma_commit();
 }
 
@@ -411,7 +423,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     //   wait for S(i); softmax(i) -> P(i), corr(i)
     //   wait for P(i-1) V(i-1); release stage i-1; O *= corr(i)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    constexpr int NO = D / 2;  // output registers per thread (m64 x nD)
+    constexpr int NO = L::DP / 2;  // output registers per thread (m64 x nDP)
     const int wg = threadIdx.x / 128;
     const int lane = threadIdx.x % 32;
     const int row0 = q0 + wg * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // and row0 + 8
@@ -487,7 +499,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 #pragma unroll
     for (int j = 0; j < NO; j += 2) {
       const int r = row0 + acc_row(j);
-      if (r < s) {
+      if (8 * (j / 4) < D && r < s) {  // columns D .. DP - 1 are padding
         const float f = inv[(j / 2) % 2];
         *reinterpret_cast<__nv_bfloat162*>(ob + r * row_stride + col0 + acc_col(j)) =
             __floats2bfloat162_rn(o[j] * f, o[j + 1] * f);
@@ -556,7 +568,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s,
 }  // namespace
 
 // q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D): contiguous bf16,
-// 16-byte aligned; D in {64, 128}; H % Hkv == 0. Launches on `stream` and
+// 16-byte aligned; D in {64, 112, 128}; H % Hkv == 0. Launches on `stream` and
 // returns cudaGetLastError() (0 on success), -1 when the driver has no
 // cuTensorMapEncodeTiled, -2 when it refuses a tensor map.
 extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void* v, void* out, int b, int s,
@@ -564,6 +576,7 @@ extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void*
                                        cudaStream_t stream) {
   switch (d) {
     case 64: return launch<64>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
+    case 112: return launch<112>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
     case 128: return launch<128>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -574,6 +587,7 @@ extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void*
 extern "C" int flash_attention_tc_smem_bytes(int d) {
   switch (d) {
     case 64: return Smem<64>::ALLOC;
+    case 112: return Smem<112>::ALLOC;
     case 128: return Smem<128>::ALLOC;
     default: return 0;
   }

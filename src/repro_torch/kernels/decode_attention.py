@@ -26,7 +26,9 @@ import torch
 
 from repro_torch.kernels.build import check_launch, kernel_input, load_library, sm_count, stream_of
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the kernel is built for: the configs' 16 (reduced), 64, 112
+#: (zamba2's heads, read unpadded) and 128, and 32.
+HEAD_DIMS = (16, 32, 64, 112, 128)
 # Geometry of csrc/decode_attention.cu (the C side computes the same).
 THREADS, WARPS, STAGES = 256, 8, 4
 STAGE_TARGET = 16384  # bytes of K + V in one ring stage
@@ -38,10 +40,18 @@ BLOCKS_PER_SM = 1     # blocks the split aims for, per streaming multiprocessor
 _fns: dict | None = None  # dtype, "smem_bytes", "tile_keys" -> loaded C entry point, set by ``build``
 
 
+def key_lanes(d: int, elem: int) -> int:
+    """Lanes that share a key: one 16-byte piece of the row each, rounded
+    up to a power of two (16 at d = 112 in bf16, two of them idle)."""
+    return 1 << (d * elem // 16 - 1).bit_length()
+
+
 def tile_keys(d: int, elem: int) -> int:
     """Keys per ring stage at head_dim ``d`` and element size ``elem``:
-    ``STAGE_TARGET`` bytes of K and V, at most ``MAX_TILE`` keys."""
-    return min(MAX_TILE, STAGE_TARGET // (2 * d * elem))
+    ``STAGE_TARGET`` bytes of K and V, at most ``MAX_TILE`` keys, a
+    multiple of the keys the warps take at once."""
+    step = WARPS * (32 // key_lanes(d, elem))
+    return min(MAX_TILE, STAGE_TARGET // (2 * d * elem)) // step * step
 
 
 def head_chunks(g: int) -> tuple[int, int, int]:
@@ -126,7 +136,7 @@ def decode_attention(
     -> (B, H, d), attending to cache rows ``[0, lengths[b])`` only.
 
     One element type for q and the caches (float32 or bfloat16), d in
-    {16, 32, 64, 128}, H a multiple of Hkv, all on one CUDA device.
+    ``HEAD_DIMS``, H a multiple of Hkv, all on one CUDA device.
     """
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"need q (B,H,d) and caches (B,S,Hkv,d); got {tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")

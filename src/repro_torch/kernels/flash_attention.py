@@ -4,7 +4,7 @@ The Hopper twin of the reference's Pallas kernel
 (``repro/kernels/flash_attention.py::flash_attention``), in two variants
 that the wrapper picks between by dtype and head_dim before any launch:
 
-- ``"tc"``  -- bf16 at d in {64, 128} (every full-width config): the
+- ``"tc"``  -- bf16 at d in {64, 112, 128} (every full-width config): the
   tensor-core kernel ``csrc/flash_attention_tc.cu`` (wgmma products, TMA
   copies into a 3-stage K/V ring, a producer warp and two consumer
   warpgroups per 128-row tile);
@@ -29,8 +29,10 @@ import torch
 
 from repro_torch.kernels.build import check_launch, kernel_input, load_library, stream_of
 
-HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (64, 128)
+#: Head dims the kernels are built for: the configs' 16 (reduced), 64, 112
+#: (zamba2's heads, computed natively on two 64-column panels) and 128, and 32.
+HEAD_DIMS = (16, 32, 64, 112, 128)
+TC_HEAD_DIMS = (64, 112, 128)
 # Tiling of the tensor-core kernel (csrc/flash_attention_tc.cu mirrors these).
 TC_BQ, TC_BK, TC_STAGES, TC_THREADS, TC_PANEL = 128, 128, 3, 384, 64
 _TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled", -2: "cuTensorMapEncodeTiled refused a tensor map"}
@@ -55,8 +57,9 @@ def tc_plan(b: int, s: int, t: int, h: int, hkv: int, d: int, causal: bool = Tru
         q_last = min((qt + 1) * TC_BQ, s) - 1 + t - s
         tiles.append(nk if not causal else (0 if q_last < 0 else min(q_last // TC_BK + 1, nk)))
     panel_bytes = 128  # one 64-column bf16 row of a swizzle panel
-    q_bytes = (d // TC_PANEL) * TC_BQ * panel_bytes
-    kv_bytes = (d // TC_PANEL) * TC_BK * panel_bytes
+    panels = -(-d // TC_PANEL)  # d = 112: two, TMA zero-fills columns 112-127
+    q_bytes = panels * TC_BQ * panel_bytes
+    kv_bytes = panels * TC_BK * panel_bytes
 
     def tensor_map(seq, heads, rows):
         return dict(dims=(d, heads, seq, b), strides=(2 * d, 2 * d * heads, 2 * d * heads * seq),
@@ -122,7 +125,7 @@ def flash_attention(
     """CUDA kernel: q (B, S, H, d), k/v (B, T, Hkv, d) -> (B, S, H, d).
 
     One element type for all three (float32 or bfloat16), d in
-    {16, 32, 64, 128}, H a multiple of Hkv, all on one CUDA device.  fp32
+    ``HEAD_DIMS``, H a multiple of Hkv, all on one CUDA device.  fp32
     statistics; the causal mask is offset by T - S; a query row with no live
     key gives 0.  ``variant`` picks the kernel.
     """

@@ -9,10 +9,12 @@ meters every invocation, and reports FaasMeter energy footprints + prices
         --requests 40 --batch 2 --seq 64 [--device cpu]
 
 Same CLI and defaults as the reference, plus ``--device`` (default
-``cuda``); the default ``--archs`` serve the dense, xLSTM and MoE families.
-An architecture whose family the port does not have yet raises, as in the
-reference.  Weights come from a seeded ``torch.Generator`` on the device;
-prompts (and a VLM's patch embeddings) from a seeded numpy generator.
+``cuda``); the default ``--archs`` serve the dense, xLSTM and MoE families,
+and every registered architecture serves (``--archs
+zamba2-7b,seamless-m4t-large-v2`` the hybrid and encoder-decoder ones).
+Weights come from a seeded ``torch.Generator`` on the device; prompts (and
+a VLM's patch embeddings or an encoder-decoder's source frames) from a
+seeded numpy generator.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ from repro_torch.workload.functions import FunctionRegistry, FunctionSpec
 def random_batch(api, shape: ShapeConfig, rng: np.random.Generator, device) -> dict:
     """Prompt inputs for ``api`` at ``shape``, drawn from ``rng`` in the
     specs' order, as the reference's launcher draws them: token ids uniform
-    over the true vocabulary, float inputs (patch embeddings) standard
-    normal times 0.1."""
+    over the true vocabulary, float inputs (patch embeddings, source frame
+    embeddings) standard normal times 0.1."""
     batch = {}
     for k, sp in api.prefill_inputs(shape).items():
         if sp.dtype.is_floating_point:

@@ -34,16 +34,17 @@ def attention_params(cfg: ArchConfig, *, cross: bool = False) -> dict:
     return p
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig):
-    """(B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd)."""
+def _project_qkv(p, x: torch.Tensor, kv_x: torch.Tensor, cfg: ArchConfig):
+    """(B, S, d), (B, T, d) -> q (B,S,H,hd), k/v (B,T,Hkv,hd)."""
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    t = kv_x.shape[1]
+    q, k, v = x @ p["wq"], kv_x @ p["wk"], kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (
         q.reshape(b, s, cfg.num_heads, cfg.head_dim),
-        k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
-        v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
+        k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim),
+        v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim),
     )
 
 
@@ -53,16 +54,22 @@ def attention_apply(
     positions: torch.Tensor,   # (B, S)
     cfg: ArchConfig,
     *,
+    causal: bool = True,
+    memory: torch.Tensor | None = None,   # (B, T, d) cross-attention source
+    use_rope: bool = True,
     return_kv: bool = False,
 ):
-    """Full-sequence causal self-attention with rotary positions (prefill,
-    and the full forward the consistency checks compare against).  The
-    reference's ``causal=False``, ``use_rope=False`` and cross-attention
-    ``memory`` options wait for the encoder-decoder family."""
-    q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True)
+    """Full-sequence attention: causal self-attention with rotary positions
+    (prefill, and the full forward the consistency checks compare against),
+    the encoder's non-causal self-attention (``causal=False``), and
+    cross-attention to an encoder ``memory`` (no rotary positions, S != T).
+    With ``return_kv``, also the (k, v) it attended to: for cross-attention
+    the static memory K/V a decoder's cache keeps."""
+    q, k, v = _project_qkv(p, x, x if memory is None else memory, cfg)
+    if use_rope and memory is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal)
     b, s = q.shape[:2]
     y = out.reshape(b, s, cfg.q_dim) @ p["wo"]
     if return_kv:
@@ -78,6 +85,7 @@ def attention_decode(
     v_cache: torch.Tensor,
     cfg: ArchConfig,
     *,
+    memory_kv: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attention (k_mem, v_mem)
     kv_scales=None,
 ):
     """Single-token decode step.  Returns (y (B,1,d), k_cache, v_cache),
@@ -88,13 +96,22 @@ def attention_decode(
     new K/V row (and its scales) is written in place at ``pos`` and the
     same tensors are returned.  The int8 branch quantizes the new row and
     attends through ``ref.decode_attention_quant``, which the reference
-    calls directly on every device (it has no Pallas kernel).  The
-    cross-attention ``memory_kv`` branch waits for the encoder-decoder
-    family.
+    calls directly on every device (it has no Pallas kernel).  With
+    ``memory_kv`` (B, T, Hkv, hd) the step is cross-attention to a static
+    encoder memory: no cache write, no rotary positions, the decode kernel
+    at ``lengths = T`` for every sequence; the caches come back untouched.
     """
     b = x.shape[0]
+    if memory_kv is not None:
+        k_mem, v_mem = memory_kv
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        lengths = torch.full((b,), k_mem.shape[1], dtype=torch.int32, device=x.device)
+        out = ops.decode_attention(q.reshape(b, cfg.num_heads, cfg.head_dim), k_mem, v_mem, lengths)
+        return (out.reshape(b, cfg.q_dim) @ p["wo"])[:, None, :], k_cache, v_cache
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg)
+    q, k, v = _project_qkv(p, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)

@@ -3,8 +3,9 @@ rotary embeddings -- the twin of the reference's ``repro/models/common.py``.
 
 Parameters are declared as ``Param`` leaves (shape + logical axes + init
 law) in the reference's tree layout, with per-layer leaves stacked along a
-leading axis (``stack_params``: "layers" of a decoder, "pairs" of the
-xLSTM stack).  ``materialize`` draws every leaf with its init law from an
+leading axis (``stack_params``: "layers" of a decoder or of the hybrid's
+Mamba2 backbone, "pairs" of the xLSTM stack, "enc_layers" and "dec_layers"
+of the encoder-decoder).  ``materialize`` draws every leaf with its init law from an
 explicit ``torch.Generator`` and returns a ``ParamTree``: an ``nn.Module``
 that holds the same leaves under the reference's names (``p["wq"]``,
 ``"bq" in p``), with each stacked subtree split into an ``nn.ModuleList``
@@ -15,8 +16,9 @@ Weights are stored in the compute dtype.  The reference keeps fp32 masters
 and casts each weight with ``.astype(dt)`` at every use; casting once at
 load gives exactly the same values without re-reading the fp32 masters on
 every decode step.  The leaves the reference reads in fp32 stay fp32
-(``keeps_fp32``): norm gains, the MoE router and the xLSTM gate biases and
-sLSTM recurrence.  The loss functions wait for the training slice.
+(``keeps_fp32``): norm gains, the MoE router, the xLSTM gate biases and
+sLSTM recurrence, and the Mamba2 decay, step bias, skip and gate norm.
+The loss functions wait for the training slice.
 """
 
 from __future__ import annotations
@@ -79,16 +81,19 @@ def stack_params(tree: dict, n: int) -> dict:
 
 #: Leaves, besides the ``ln*`` norm gains, that the reference reads in fp32
 #: whatever the compute dtype: the xLSTM norm gains, the MoE router, the
-#: mLSTM gate bias and the sLSTM recurrence and bias.
-_FP32_LEAVES = frozenset({"gamma", "router", "b_if", "r", "b"})
+#: mLSTM gate bias and the sLSTM recurrence and bias, the Mamba2 block's
+#: ``a_log``, ``dt_bias``, ``d_skip`` and gate norm ``gamma_gate``, and the
+#: encoder's final norm ``enc_ln_f``.
+_FP32_LEAVES = frozenset({"gamma", "router", "b_if", "r", "b", "a_log", "dt_bias", "d_skip", "gamma_gate",
+                          "enc_ln_f"})
 
 #: Subtrees stacked along a leading per-layer axis.
-_STACKED = ("layers", "pairs")
+_STACKED = ("layers", "pairs", "enc_layers", "dec_layers")
 
 
 def keeps_fp32(name: str) -> bool:
     """Leaves that stay fp32 at load: the norm gains (``ln``, ``ln1``,
-    ``ln2``, ``ln_f``, ``gamma``) and ``_FP32_LEAVES``."""
+    ``ln2``, ``ln_x``, ``ln_f``, ``gamma``, ``enc_ln_f``) and ``_FP32_LEAVES``."""
     return name.startswith("ln") or name in _FP32_LEAVES
 
 

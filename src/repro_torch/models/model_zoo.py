@@ -1,6 +1,7 @@
 """Unified model API -- the twin of the reference's ``repro/models/model_zoo.py``
-for the families the port has: dense, moe and vlm (one decoder stack, with
-the int8 KV cache as an option of each) and ssm (xLSTM).
+over all its families: dense, moe and vlm (one decoder stack, with the int8
+KV cache as an option of each), hybrid (zamba2), ssm (xLSTM) and encdec
+(seamless).
 
 ``build(cfg)`` returns a :class:`ModelApi`:
 
@@ -11,7 +12,7 @@ the int8 KV cache as an option of each) and ssm (xLSTM).
 - ``cache_spec(shape)``                 TensorSpec tree matching the cache
 
 ``loss`` and ``train_inputs`` wait for the training slice (ROADMAP Queue 1
-item 9.7); the hybrid and encoder-decoder families for items 9.4 and 9.6.
+item 9.7).
 """
 
 from __future__ import annotations
@@ -23,8 +24,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xlstm_mod
+
+#: Source length of an encoder-decoder's cross-attention memory in the
+#: cache spec of a decode cell (a ~30 s utterance), as the reference's.
+DECODE_SRC_LEN = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,30 +121,87 @@ def _build_xlstm(cfg: ArchConfig) -> ModelApi:
     return ModelApi(cfg, xlstm_mod.xlstm_params(cfg), prefill, decode, prefill_inputs, _decode_inputs, cache_spec)
 
 
-_BUILDERS = {"dense": _build_decoder, "moe": _build_decoder, "vlm": _build_decoder, "ssm": _build_xlstm}
+def _build_hybrid(cfg: ArchConfig) -> ModelApi:
+    napp = tf.n_attn_points(cfg)
+    cdt = tf.compute_dtype(cfg)
 
-#: Where each family the port lacks is queued.
-_QUEUED = {
-    "hybrid": "ROADMAP Queue 1 item 9.4 (hybrid: zamba2's Mamba2 block and stack)",
-    "encdec": "ROADMAP Queue 1 item 9.6 (encdec: seamless)",
+    def prefill(params, batch):
+        return tf.hybrid_prefill(params, batch["tokens"], cfg)
+
+    def decode(params, cache, token, pos):
+        return tf.hybrid_decode(params, cache, token, pos, cfg)
+
+    def prefill_inputs(shape: ShapeConfig):
+        return {"tokens": _tok(shape.global_batch, shape.seq_len)}
+
+    def cache_spec(shape: ShapeConfig):
+        b, s, layers = shape.global_batch, shape.seq_len, cfg.num_layers
+        kv = TensorSpec((napp, b, s, cfg.num_kv_heads, cfg.head_dim), cdt, (None, "batch", "kv_seq", "kv_heads", None))
+        return {
+            "attn_k": kv,
+            "attn_v": kv,
+            "ssm_h": TensorSpec((layers, b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32,
+                                ("layers", "batch", "heads", None, None)),
+            "conv": TensorSpec((layers, b, cfg.ssm_conv - 1, cfg.d_inner), cdt, ("layers", "batch", None, "mlp")),
+        }
+
+    return ModelApi(cfg, tf.hybrid_params(cfg), prefill, decode, prefill_inputs, _decode_inputs, cache_spec)
+
+
+def _build_encdec(cfg: ArchConfig) -> ModelApi:
+    """seamless: the source is ``seq_len`` frame embeddings, as many as the
+    target prompt's tokens (the reference's ``prefill_inputs``)."""
+    cdt = tf.compute_dtype(cfg)
+
+    def prefill(params, batch):
+        return encdec_mod.encdec_prefill(params, batch["src_embeds"], batch["tokens"], cfg)
+
+    def decode(params, cache, token, pos):
+        return encdec_mod.encdec_decode(params, cache, token, pos, cfg)
+
+    def prefill_inputs(shape: ShapeConfig):
+        b, s = shape.global_batch, shape.seq_len
+        return {
+            "src_embeds": TensorSpec((b, s, cfg.frontend_dim), cdt, ("batch", None, None)),
+            "tokens": _tok(b, s),
+        }
+
+    def cache_spec(shape: ShapeConfig):
+        b, s, layers = shape.global_batch, shape.seq_len, cfg.num_layers
+        axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        kv = TensorSpec((layers, b, s, cfg.num_kv_heads, cfg.head_dim), cdt, axes)
+        cross = TensorSpec((layers, b, min(s, DECODE_SRC_LEN), cfg.num_kv_heads, cfg.head_dim), cdt, axes)
+        return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
+
+    return ModelApi(cfg, encdec_mod.encdec_params(cfg), prefill, decode, prefill_inputs, _decode_inputs, cache_spec)
+
+
+_BUILDERS = {
+    "dense": _build_decoder,
+    "moe": _build_decoder,
+    "vlm": _build_decoder,
+    "hybrid": _build_hybrid,
+    "ssm": _build_xlstm,
+    "encdec": _build_encdec,
 }
 
 
 def build(cfg: ArchConfig) -> ModelApi:
     """Construct the ``ModelApi`` for a config's model family."""
-    if cfg.family in _BUILDERS:
-        return _BUILDERS[cfg.family](cfg)
-    if cfg.family in _QUEUED:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet: {_QUEUED[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}")
+    if cfg.family not in _BUILDERS:
+        raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}")
+    return _BUILDERS[cfg.family](cfg)
 
 
 #: cache entries that grow along their KV-sequence axis (axis index), per
-#: family, as the reference's.  Recurrent states never grow.
+#: family, as the reference's.  Cross-attention KV and recurrent states
+#: never grow.
 _GROWABLE = {
     "dense": {"k": 2, "v": 2, "k0": 1, "v0": 1, "k_scale": 2, "v_scale": 2},
     "moe": {"k": 2, "v": 2, "k0": 1, "v0": 1, "k_scale": 2, "v_scale": 2},
     "vlm": {"k": 2, "v": 2, "k_scale": 2, "v_scale": 2},
+    "hybrid": {"attn_k": 2, "attn_v": 2},
+    "encdec": {"k": 2, "v": 2},
     "ssm": {},
 }
 
@@ -166,7 +229,9 @@ def extend_cache(api: ModelApi, cache: dict, extra: int) -> dict:
 
 def prompt_length(batch: dict) -> int:
     """Positions a prefill of ``batch`` fills: its tokens plus, for a VLM,
-    its patch embeddings -- the first decode step's write index."""
+    its patch embeddings -- the first decode step's write index.  An
+    encoder-decoder's source frames are the encoder's, not decode
+    positions."""
     return batch["tokens"].shape[1] + (batch["patches"].shape[1] if "patches" in batch else 0)
 
 

@@ -1,11 +1,18 @@
-"""The chunked state-space dual form (SSD) -- the twin of ``ssd_chunked`` in
-the reference's ``repro/models/ssm.py``.
+"""The Mamba2 block (zamba2's backbone) via the chunked state-space dual
+form (SSD) -- the twin of the reference's ``repro/models/ssm.py``.
 
-Sequences are processed in chunks: the intra-chunk terms are dense batched
-products, and the inter-chunk state recurrence is a loop over the S/chunk
-chunk states (the reference's ``lax.scan``).  The mLSTM matrix memory
-(``models/xlstm.py``) runs through it; the Mamba2 block and the hybrid
-stack that also rest on it wait for ROADMAP Queue 1 item 9.4.
+Sequences are processed in chunks (``ssd_chunked``): the intra-chunk terms
+are dense batched products, and the inter-chunk state recurrence is a loop
+over the S/chunk chunk states (the reference's ``lax.scan``).  Both the
+Mamba2 mixer (``mamba_apply``, the hybrid stack's backbone in
+``models/transformer.py``) and the mLSTM matrix memory
+(``models/xlstm.py``) run through it.  B/C projections are per head
+((S, H, N), the multi-head SSD variant).
+
+State carried for decode: ``h`` (B, H, P, N) fp32 and the depthwise-conv
+tail (B, ssm_conv - 1, d_inner).  ``mamba_decode`` is the single-token
+recurrence in fp32; it updates both in place (the reference returns new
+copies).
 """
 
 from __future__ import annotations
@@ -13,7 +20,58 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import Param, rms_norm
+
 Tensor = torch.Tensor
+
+
+def mamba_params(cfg: ArchConfig) -> dict:
+    """Parameter spec tree for one Mamba-style SSM block."""
+    d, di, h, n = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+    return {
+        "w_zx": Param((d, 2 * di), ("embed", "mlp")),
+        "w_bc": Param((d, 2 * h * n), ("embed", "qkv")),
+        "w_dt": Param((d, h), ("embed", "heads"), scale=0.1),
+        "dt_bias": Param((h,), ("heads",), init="zeros"),
+        "a_log": Param((h,), ("heads",), init="zeros"),
+        "d_skip": Param((h,), ("heads",), init="ones"),
+        "conv_w": Param((cfg.ssm_conv, di), ("conv", "mlp"), scale=0.5),
+        "conv_b": Param((di,), ("mlp",), init="zeros"),
+        "gamma_gate": Param((di,), ("mlp",), init="ones"),
+        "w_out": Param((di, d), ("mlp", "embed")),
+    }
+
+
+def _project(p, x: Tensor, cfg: ArchConfig):
+    """x (B,S,d) -> z (B,S,di), xin (B,S,di), b/c (B,S,H,N), dt (B,S,H) fp32."""
+    b, s, _ = x.shape
+    h, n = cfg.ssm_heads, cfg.ssm_state
+    z, xin = torch.chunk(x @ p["w_zx"], 2, dim=-1)
+    bc = (x @ p["w_bc"]).reshape(b, s, 2, h, n)
+    dt = F.softplus((x @ p["w_dt"]).to(torch.float32) + p["dt_bias"].to(torch.float32))
+    return z, xin, bc[:, :, 0], bc[:, :, 1], dt
+
+
+def _conv1d(xin: Tensor, conv_w: Tensor, conv_b: Tensor, tail: Tensor | None):
+    """Causal depthwise conv over time, then SiLU.  ``tail`` (B, K-1, di) is
+    the history before ``xin`` (zeros when None).  Returns (y, new_tail):
+    the last K-1 inputs, history included."""
+    k = conv_w.shape[0]
+    if tail is None:
+        tail = xin.new_zeros((xin.shape[0], k - 1, xin.shape[-1]))
+    padded = torch.cat([tail, xin], dim=1)
+    s = xin.shape[1]
+    y = padded[:, 0:s] * conv_w[0].to(xin.dtype)   # sum_i w[i] x[t - (K-1) + i], in the reference's order
+    for i in range(1, k):
+        y = y + padded[:, i:i + s] * conv_w[i].to(xin.dtype)
+    y = F.silu(y + conv_b.to(xin.dtype))
+    return y, (padded[:, -(k - 1):] if k > 1 else tail)
+
+
+def _gate_out(p, y: Tensor, z: Tensor, cfg: ArchConfig) -> Tensor:
+    """Gated RMSNorm of the mixer's (B, S, di) output, then the down-projection."""
+    return rms_norm(y * F.silu(z), p["gamma_gate"], cfg.norm_eps) @ p["w_out"]
 
 
 def ssd_chunked(
@@ -71,3 +129,36 @@ def ssd_chunked(
     y_inter = torch.einsum("bcihn,bchpn->bcihp", c32 * torch.exp(cum)[..., None], torch.stack(h_prevs, dim=1))
     y = (y_intra + y_inter).reshape(b, s, h, p)
     return y[:, :s_orig], state
+
+
+def mamba_apply(p, x: Tensor, cfg: ArchConfig, *, state: tuple | None = None, return_state: bool = False):
+    """Full-sequence Mamba2 mixer over x (B, S, d).  ``state`` = (h, conv
+    tail) continues a sequence.  Returns y, or (y, (h_final, conv_tail))."""
+    b, s, _ = x.shape
+    z, xin, bmat, cmat, dt = _project(p, x, cfg)
+    h0, tail = state if state is not None else (None, None)
+    xc, new_tail = _conv1d(xin, p["conv_w"], p["conv_b"], tail)
+    xh = xc.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    a = -torch.exp(p["a_log"].to(torch.float32))
+    y, h_final = ssd_chunked(xh, dt, dt * a, bmat, cmat, cfg.ssm_chunk, h0)
+    y = y + p["d_skip"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
+    out = _gate_out(p, y.reshape(b, s, cfg.d_inner).to(x.dtype), z, cfg)
+    return (out, (h_final, new_tail)) if return_state else out
+
+
+def mamba_decode(p, x: Tensor, h: Tensor, conv_tail: Tensor, cfg: ArchConfig):
+    """Single-token recurrent step: x (B, 1, d); ``h`` (B, H, P, N) fp32 and
+    ``conv_tail`` (B, K-1, di) are updated in place.  Returns (y (B,1,d), h,
+    conv_tail)."""
+    b = x.shape[0]
+    z, xin, bmat, cmat, dt = _project(p, x, cfg)
+    xc, new_tail = _conv1d(xin, p["conv_w"], p["conv_b"], conv_tail)
+    conv_tail.copy_(new_tail)
+    xh = xc.reshape(b, cfg.ssm_heads, cfg.ssm_head_dim).to(torch.float32)
+    dt1 = dt[:, 0]                                               # (B, H)
+    decay = torch.exp(dt1 * -torch.exp(p["a_log"].to(torch.float32)))
+    b1, c1 = bmat[:, 0].to(torch.float32), cmat[:, 0].to(torch.float32)  # (B, H, N)
+    h.mul_(decay[:, :, None, None]).add_((dt1[:, :, None] * xh)[..., None] * b1[:, :, None, :])
+    y = torch.einsum("bhn,bhpn->bhp", c1, h)
+    y = y + p["d_skip"].to(torch.float32)[None, :, None] * xh
+    return _gate_out(p, y.reshape(b, 1, cfg.d_inner).to(x.dtype), z, cfg), h, conv_tail

@@ -1,5 +1,5 @@
-"""Decoder-only LM stacks: dense GQA, MoE and VLM -- the twin of the
-decoder part of the reference's ``repro/models/transformer.py``.
+"""Decoder-only LM stacks: dense GQA, MoE, VLM and the Zamba2 hybrid -- the
+twin of the reference's ``repro/models/transformer.py``.
 
 Per-layer parameters live in ``params["layers"]`` (an ``nn.ModuleList``)
 and the forward pass is a Python loop over them where the reference scans
@@ -17,7 +17,14 @@ reference).  Entry points:
 - ``decoder_decode``  : one token + cache -> (logits, cache), the cache
   updated in place.
 
-The hybrid stack waits for ROADMAP Queue 1 item 9.4.
+The hybrid stack (zamba2) is a Mamba2 backbone (``params["layers"]``, each
+``{"ln", "mamba"}``) with ONE weight-shared attention + SwiGLU block
+(``params["shared"]``) applied before layers 0, k, 2k, ... (k =
+``attn_every``); its cache holds one KV pair per application point
+(``attn_k``/``attn_v``, indexed ``idx // k``), each layer's SSM state
+``ssm_h`` (fp32) and conv tail ``conv``.  ``hybrid_train`` (forward only),
+``hybrid_prefill`` and ``hybrid_decode`` mirror the three entry points
+above.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from repro_torch.models.attention import attention_apply, attention_decode, atte
 from repro_torch.models.common import Param, rms_norm, softcap, stack_params
 from repro_torch.models.mlp import mlp_apply, mlp_params
 from repro_torch.models.moe import moe_apply, moe_params
+from repro_torch.models.ssm import mamba_apply, mamba_decode, mamba_params
 
 Tensor = torch.Tensor
 
@@ -60,6 +68,19 @@ def _is_moe(cfg: ArchConfig) -> bool:
 def scanned_layers(cfg: ArchConfig) -> int:
     """Layers in ``params["layers"]``: all but deepseek's dense layer 0."""
     return cfg.num_layers - (1 if _is_moe(cfg) and cfg.first_dense else 0)
+
+
+def hybrid_params(cfg: ArchConfig) -> dict:
+    """Zamba2: stacked Mamba2 backbone + ONE weight-shared attention block."""
+    d, v = cfg.d_model, cfg.padded_vocab
+    backbone = {"ln": Param((d,), (None,), init="ones"), "mamba": mamba_params(cfg)}
+    return {
+        "embed": Param((v, d), ("vocab", "embed"), init="embed", scale=0.02),
+        "ln_f": Param((d,), (None,), init="ones"),
+        "unembed": Param((d, v), ("embed", "lm_head"), fan_in=d),
+        "layers": stack_params(backbone, cfg.num_layers),
+        "shared": _block_params(cfg, moe=False),  # the shared attention block
+    }
 
 
 def decoder_params(cfg: ArchConfig) -> dict:
@@ -221,4 +242,73 @@ def decoder_decode(params, cache: dict, token: Tensor, pos: int, cfg: ArchConfig
     for i, layer in enumerate(params["layers"]):
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8 else None
         h = _dense_block_decode(layer, h, pos, cache["k"][i], cache["v"][i], cfg, moe=moe, scales=scales)
+    return lm_logits(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid stack
+# ---------------------------------------------------------------------------
+
+
+def _attn_every(cfg: ArchConfig) -> int:
+    return max(cfg.attn_every, 1)
+
+
+def n_attn_points(cfg: ArchConfig) -> int:
+    """Shared-attention application points (layers 0, k, 2k, ...): 14 of
+    zamba2-7b's 81 layers at k = 6."""
+    k = _attn_every(cfg)
+    return (cfg.num_layers + k - 1) // k
+
+
+def hybrid_train(params, tokens: Tensor, cfg: ArchConfig):
+    """tokens (B, S) -> (logits (B, S, V_padded), aux 0), forward only."""
+    h = embed_tokens(params, tokens, cfg)
+    positions = _positions(h.shape[0], h.shape[1], h.device)
+    k = _attn_every(cfg)
+    for idx, layer in enumerate(params["layers"]):
+        if idx % k == 0:
+            h, _ = _dense_block(params["shared"], h, positions, cfg, moe=False)
+        h = h + mamba_apply(layer["mamba"], rms_norm(h, layer["ln"], cfg.norm_eps), cfg)
+    return lm_logits(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def hybrid_prefill(params, tokens: Tensor, cfg: ArchConfig):
+    """Prefill: returns (last-position logits (B, 1, V), cache).
+
+    The cache holds "attn_k"/"attn_v" (napp, B, S, Hkv, hd), one KV pair per
+    application point of the shared block, "ssm_h" (L, B, H, P, N) fp32 and
+    "conv" (L, B, K-1, d_inner)."""
+    h = embed_tokens(params, tokens, cfg)
+    positions = _positions(h.shape[0], h.shape[1], h.device)
+    k = _attn_every(cfg)
+    ks, vs, states, tails = [], [], [], []
+    for idx, layer in enumerate(params["layers"]):
+        if idx % k == 0:
+            h, (ak, av) = _dense_block_prefill(params["shared"], h, positions, cfg, moe=False)
+            ks.append(ak)
+            vs.append(av)
+        y, (ssm_h, tail) = mamba_apply(
+            layer["mamba"], rms_norm(h, layer["ln"], cfg.norm_eps), cfg, return_state=True)
+        h = h + y
+        states.append(ssm_h)
+        tails.append(tail)
+    cache = {"attn_k": torch.stack(ks), "attn_v": torch.stack(vs), "ssm_h": torch.stack(states),
+             "conv": torch.stack(tails)}
+    return lm_logits(params, h[:, -1:], cfg), cache
+
+
+def hybrid_decode(params, cache: dict, token: Tensor, pos: int, cfg: ArchConfig):
+    """One decode step of the hybrid stack.  The application point's KV row
+    at ``pos`` and every layer's SSM state and conv tail are updated in
+    place."""
+    h = embed_tokens(params, token, cfg)
+    k = _attn_every(cfg)
+    for idx, layer in enumerate(params["layers"]):
+        if idx % k == 0:
+            point = idx // k
+            h = _dense_block_decode(params["shared"], h, pos, cache["attn_k"][point], cache["attn_v"][point], cfg,
+                                    moe=False)
+        x = rms_norm(h, layer["ln"], cfg.norm_eps)
+        h = h + mamba_decode(layer["mamba"], x, cache["ssm_h"][idx], cache["conv"][idx], cfg)[0]
     return lm_logits(params, h, cfg), cache

@@ -1,7 +1,8 @@
-"""Port vs reference: each model-zoo family of this slice through its
-``ModelApi`` (olmoe, deepseek-moe with its dense layer 0, internvl2 with
-patch embeddings, xLSTM, and the int8 KV cache on granite), reduced configs
-in fp32; then the cache specs, the cache growth and the serving launcher.
+"""Port vs reference: each model-zoo family through its ``ModelApi``
+(olmoe, deepseek-moe with its dense layer 0, internvl2 with patch
+embeddings, xLSTM, the int8 KV cache on granite, the zamba2 hybrid and
+seamless's encoder-decoder with source frames), reduced configs in fp32;
+then the cache specs, the cache growth and the serving launcher.
 
 The reference's parameters come over with ``convert.params_from_numpy``;
 the same seeded prompts (and patches) go through both packages.  Logits
@@ -23,6 +24,7 @@ from repro.configs.shapes import ShapeConfig as RefShape
 from repro.models import build as r_build
 from repro.models import model_zoo as r_zoo
 from repro.models import transformer as r_tf
+from repro.models import encdec as r_ed
 from repro.models import xlstm as r_xl
 from repro.models.common import materialize as r_materialize
 from repro.serving.kv_cache import init_cache as r_init_cache
@@ -32,6 +34,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import build, extend_cache
 from repro_torch.models import model_zoo as t_zoo
+from repro_torch.models import encdec as t_ed
 from repro_torch.models import transformer as t_tf
 from repro_torch.models import xlstm as t_xl
 from repro_torch.serving import kv_cache as t_kv
@@ -45,6 +48,8 @@ CASES = {
     "internvl2": ("internvl2-2b", {}),
     "xlstm": ("xlstm-350m", {"ssm_chunk": 16}),
     "int8": ("granite-3-8b", {"kv_cache_dtype": "int8"}),
+    "zamba2": ("zamba2-7b", {}),
+    "seamless": ("seamless-m4t-large-v2", {}),
 }
 
 
@@ -66,10 +71,11 @@ def cache_close(got, want):
 
 
 def _batch(api_inputs, rng, vocab):
-    """Seeded prompt inputs in the specs' order (patches, then tokens)."""
+    """Seeded prompt inputs in the specs' order (patches or source frames,
+    then tokens)."""
     out = {}
     for k, sp in api_inputs.items():
-        if k == "patches":
+        if k in ("patches", "src_embeds"):
             out[k] = (rng.standard_normal(sp.shape) * 0.1).astype(np.float32)
         else:
             out[k] = rng.integers(0, vocab, size=sp.shape).astype(np.int32)
@@ -123,10 +129,20 @@ def test_prefill_extend_and_decode_match(family):
 
 
 def _full(f, tokens, prefix, which):
-    if f["tcfg"].family == "ssm":
+    family = f["tcfg"].family
+    if family == "ssm":
         if which == "ref":
             return r_xl.xlstm_train(f["r_params"], jnp.asarray(tokens), f["rcfg"])
         return t_xl.xlstm_train(f["t_params"], torch.tensor(tokens), f["tcfg"])
+    if family == "hybrid":
+        if which == "ref":
+            return r_tf.hybrid_train(f["r_params"], jnp.asarray(tokens), f["rcfg"])
+        return t_tf.hybrid_train(f["t_params"], torch.tensor(tokens), f["tcfg"])
+    if family == "encdec":
+        src = f["batch"]["src_embeds"]
+        if which == "ref":
+            return r_ed.encdec_train(f["r_params"], jnp.asarray(src), jnp.asarray(tokens), f["rcfg"])
+        return t_ed.encdec_train(f["t_params"], torch.tensor(src), torch.tensor(tokens), f["tcfg"])
     if which == "ref":
         return r_tf.decoder_train(f["r_params"], jnp.asarray(tokens), f["rcfg"],
                                   prefix_embeds=None if prefix is None else jnp.asarray(prefix))
@@ -251,17 +267,12 @@ def test_decode_step_reads_nothing_on_the_host(family, monkeypatch):
     assert logits.shape[:2] == (B, 1)
 
 
-def test_builds_and_queued_families():
-    """Every registered architecture builds but the hybrid and
-    encoder-decoder ones, whose messages cite their ROADMAP items."""
-    queued = {n for n in ARCH_NAMES if get_config(n).family in ("hybrid", "encdec")}
-    assert queued == {"zamba2-7b", "seamless-m4t-large-v2"}
+def test_builds_every_registered_family():
+    """Every registered architecture builds at full size, the hybrid and
+    encoder-decoder ones included, with the reference's model FLOPs."""
+    assert {get_config(n).family for n in ARCH_NAMES} == {"dense", "moe", "vlm", "hybrid", "ssm", "encdec"}
     for name in ARCH_NAMES:
         cfg = get_config(name)
-        if name in queued:
-            with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 9\.[46]"):
-                build(cfg)
-            continue
         api = build(cfg)
         assert t_zoo.model_flops(cfg, ShapeConfig("d", 64, 2, "decode")) == r_zoo.model_flops(
             r_get_config(name), RefShape("d", 64, 2, "decode"))

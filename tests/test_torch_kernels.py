@@ -386,7 +386,8 @@ def test_flash_wrapper_refusals(q_shape, kv_shape, dtypes, match):
 @pytest.mark.parametrize(
     "b,s,t,h,hkv,d,causal",
     [(2, 4096, 4096, 16, 8, 128, True), (8, 512, 512, 16, 8, 128, True), (1, 100, 333, 16, 8, 128, True),
-     (1, 300, 200, 16, 8, 128, True), (2, 150, 40, 4, 4, 64, True), (1, 130, 130, 4, 4, 64, False)],
+     (1, 300, 200, 16, 8, 128, True), (2, 150, 40, 4, 4, 64, True), (1, 130, 130, 4, 4, 64, False),
+     (8, 512, 512, 32, 32, 112, True), (2, 64, 512, 16, 16, 112, False)],
 )
 def test_flash_tc_plan(b, s, t, h, hkv, d, causal):
     """The tensor-core launch's geometry: one block per 128-row query tile
@@ -412,7 +413,8 @@ def test_flash_tc_plan(b, s, t, h, hkv, d, causal):
         assert m["dims"] == (d, heads, seq, b)
         assert m["strides"] == tuple(2 * st for st in reversed(x.stride()[:3]))
         assert m["box"] == (64, 1, rows, 1) and m["box"][0] * 2 == 128  # one 128-byte swizzle row
-    assert plan["smem_bytes"] == (d // 64) * 128 * 128 * (1 + 2 * 3) + 1024 <= 232448
+    # d 112 takes two whole 64-column panels, as d 128 does.
+    assert plan["smem_bytes"] == -(-d // 64) * 128 * 128 * (1 + 2 * 3) + 1024 <= 232448
 
 
 @pytest.mark.parametrize(
@@ -484,6 +486,9 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (2, 150, 40, 4, 4, 64, True),      # S > T by more than one warpgroup's 64 rows, group 1
     (1, 300, 200, 8, 2, 64, False),    # S > T not causal, group 4
     (1, 1000, 1000, 16, 4, 128, True), # 8 key tiles: the 3-stage ring wraps, group 4
+    (2, 300, 300, 8, 8, 112, True),    # d 112 (zamba2): the second panel half zero-filled by TMA
+    (1, 100, 333, 4, 4, 112, True),    # d 112, S < T, neither a tile multiple
+    (1, 130, 200, 8, 2, 112, False),   # d 112 not causal, S != T (cross-attention), group 4
 ]
 
 
@@ -514,7 +519,10 @@ def test_cuda_flash_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
      (4, 300, 16, 4, 64, [300, 0, 17, 299]),  # G 4
      (3, 900, 8, 8, 128, [900, 450, 0]),  # G 1
      (2, 129, 12, 4, 64, [129, 64]),     # G 3: a register group of 4 with one head unused
-     (1, 257, 16, 1, 32, [257])],         # G 16: two head chunks of 8
+     (1, 257, 16, 1, 32, [257]),          # G 16: two head chunks of 8
+     (8, 576, 32, 32, 112, [575, 1, 64, 65, 576, 2, 300, 129]),  # d 112 (zamba2): 16 lanes a key, 2 idle
+     (2, 3000, 32, 32, 112, [2999, 17]),  # d 112, a cluster of 2 slices
+     (3, 100, 8, 2, 112, [100, 0, 33])],  # d 112, G 4
 )
 def test_cuda_decode_vs_plain(b, s, h, hkv, d, lengths, dtype, cuda_attention):
     da = cuda_attention[1]
@@ -560,7 +568,7 @@ def test_cuda_rmsnorm_vs_plain(shape, dtype, cuda_attention):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 def test_cuda_flash_tc_smem_matches_plan(d, cuda_attention):
     """The built kernel asks for the dynamic shared memory ``tc_plan``
     computes, within the card's 227 KB per block."""
@@ -788,7 +796,7 @@ def test_gram_plan_tiles_sum_to_plain(g, n, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 def test_cuda_decode_geometry_matches_plan(d, dtype, group, cuda_attention):
     """The built decode kernel's tile and dynamic shared memory are the

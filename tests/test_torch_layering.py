@@ -1,8 +1,9 @@
 """The port's own structural checks, over the AST of every module of
-``src/repro_torch`` (nothing is imported):
+``src/repro_torch`` and of the example twins in ``examples_torch/``
+(nothing is imported):
 
-- no module imports JAX or the reference package ``repro``, not even a
-  module of it that does not import JAX;
+- no module or example twin imports JAX or the reference package
+  ``repro``, not even a module of it that does not import JAX;
 - every module has a docstring;
 - the layer order of ``PERF.md`` §3 holds — kernels -> core/engine (with
   distributed, the node-axis mesh) -> core/sessions -> core/profiler ->
@@ -92,6 +93,21 @@ def test_no_module_imports_jax_or_the_reference():
         if target.split(".")[0] in ("jax", "jaxlib", "repro")
     ]
     assert len(MODULES) > 50 and not bad, bad
+
+
+def test_example_twins_import_neither_jax_nor_the_reference():
+    """The example twins (``examples_torch/``) run on the port alone."""
+    scripts = sorted((SRC.parent / "examples_torch").glob("*.py"))
+    bad = []
+    for path in scripts:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        assert ast.get_docstring(tree), path
+        for node in ast.walk(tree):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            bad += [f"{path.name}:{node.lineno} imports {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert len(scripts) == 4 and not bad, bad
 
 
 def test_every_module_has_a_docstring():

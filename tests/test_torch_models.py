@@ -237,18 +237,18 @@ def test_params_from_numpy_checks_the_tree(setup):
         params_from_numpy(bad, DS, device="cpu")
 
 
-def test_unported_branches_raise():
-    """The hybrid and encoder-decoder families are queued, not faked; the
-    int8 KV cache and every other family build."""
+def test_every_family_builds():
+    """Every registered architecture builds at reduced size, the hybrid and
+    encoder-decoder ones included, and the int8 KV cache; an unknown family
+    raises."""
     int8 = dataclasses.replace(REDUCED, kv_cache_dtype="int8")
     from repro_torch.configs.shapes import ShapeConfig
 
     assert build(int8).cache_spec(ShapeConfig("s", 8, 1, "prefill"))["k"].dtype == torch.int8
-    queued = [n for n in ARCH_NAMES if get_config(n).family in ("hybrid", "encdec")]
-    assert queued
-    for name in queued:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(get_config(name, reduced=True))
-    for name in set(ARCH_NAMES) - set(queued):
+    families = {get_config(n).family for n in ARCH_NAMES}
+    assert {"hybrid", "encdec"} <= families
+    for name in ARCH_NAMES:
         build(get_config(name, reduced=True))
+    with pytest.raises(ValueError, match="unknown family"):
+        build(dataclasses.replace(REDUCED, family="rnn"))
     assert isinstance(build(REDUCED).params_def["embed"], Param)

@@ -133,25 +133,46 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    decode launches must be one per attention layer (zamba2: per
    application point; seamless: encoder, decoder self- and
    cross-attention) per prefill and per decode step.
-13. Examples: the four twins in ``examples_torch/`` on the card
-   (``quickstart``, ``stream_energy`` and ``capped_cluster`` in this
-   process, ``serve_energy`` as its own).
+13. Training, after the families' weights are freed: (a) the flash VJP at
+   bf16 d 64/112/128 (the tensor-core forward) and fp32 (the FMA forward),
+   causal and not, S = T and S < T: the hand forward's out and lse against
+   the plain ``flash_fwd``, and dq, dk, dv through ``ops.flash_attention``'s
+   autograd Function against autograd through a dense fp32 attention, with
+   the forward timed with and without its lse store, ``flash_bwd``, and
+   SDPA's forward and backward; (b) internlm2-1.8b cut to 2 layers at full
+   width, fp32: one ``make_train_step`` on the card and on the CPU (loss,
+   gradients) and the AdamW update from the same gradients; (c)
+   internlm2-1.8b at full width and depth through
+   ``repro_torch.launch.train.main`` (12 steps, batch 4 x 2048, bf16
+   compute, fp32 masters, remat "full"): straight through, then with
+   checkpoints every 8 steps, killed right after step 8's checkpoint, and
+   relaunched: it resumes at 8 and must repeat the straight run's steps
+   8-11 and final parameters bitwise (the step is deterministic on the
+   card); two 21.19 GiB states written in all, under the machine's
+   45 GiB of disk writes a call; finite and falling losses; exactly 2 x
+   24 flash launches a step, all tensor-core; one warm step traced (busy,
+   idle share, the flash forward's and ``flash_bwd``'s shares), step
+   time, tokens/s, 6ND against 989 TFLOP/s, peak memory.
+14. Examples: the five twins in ``examples_torch/`` on the card
+   (``quickstart``, ``stream_energy``, ``capped_cluster`` and
+   ``train_energy`` in this process, ``serve_energy`` as its own).
 
 Each path's kernel launch counts are zeroed just before it and read just
 after (every bf16 flash launch of the serving paths must be a tensor-core
 one); while the fleet, streaming, combined, control, elastic and serving
 paths run, the plain versions are watched, and a CUDA tensor reaching one
 fails the run (the launches that compare a kernel with its plain version
-are outside those paths).
+are outside those paths); ``flash_fwd``, the plain forward of the
+training path, is watched too.
 
 Output: one line per measurement, a ``combined_control {...}`` JSON line of
-phases 5-6, an ``elastic {...}`` one of phase 7 and a ``families {...}``
-one of phase 12, then a
+phases 5-6, an ``elastic {...}`` one of phase 7, a ``families {...}``
+one of phase 12 and a ``training {...}`` one of phase 13, then a
 ``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; no network.
 
-``python3 chip_smoke.py --bench [DIR]`` runs only the decode and gram
+``python3 chip_smoke.py --bench [DIR]`` runs only the flash, decode and gram
 kernel timings (``bench_main``), of this tree or another one.
 """
 
@@ -305,6 +326,24 @@ DECODE_ZAMBA_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129), 32, 32, 112)
                        (3, 1000, (1, 999, 500), 32, 32, 112)]
 DECODE_SEAMLESS = [(8, 576, (575,) * 8, 16, 16, 64), (2, 4112, (4111,) * 2, 16, 16, 64)]
 DECODE_STATIC = [(8, 512, (512,) * 8, 16, 16, 64), (2, 4096, (4096,) * 2, 16, 16, 64)]
+# Training (phase 13): internlm2-1.8b at full width and depth through
+# ``python -m repro_torch.launch.train`` (bf16 compute, fp32 masters, the
+# config's remat "full"), a crash after step 8's checkpoint, and a relaunch.
+TRAIN_STEPS, TRAIN_CRASH = 12, 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_ARGS = ["--arch", ARCH, "--steps", str(TRAIN_STEPS)]
+FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, HKV, HD, True)  # every attention layer's flash call in a step
+# The flash VJP's parity cases (B, S, T, H, Hkv, d, causal, dtype): bf16 at d
+# 64/112/128 (the tensor-core forward) and fp32 (the FMA forward), causal and
+# not, S = T and S < T (a training row always has a live key).
+VJP_CASES = [FLASH_TRAIN + (torch.bfloat16,), (2, 512, 512, H, HKV, HD, False, torch.bfloat16),
+             (2, 256, 768, H, HKV, HD, True, torch.bfloat16), (2, 512, 512, 16, 16, 64, True, torch.bfloat16),
+             (2, 256, 640, 8, 4, 64, False, torch.bfloat16), (2, 512, 512, 32, 32, 112, True, torch.bfloat16),
+             (1, 200, 456, 8, 8, 112, True, torch.bfloat16), (2, 512, 512, H, HKV, HD, True, torch.float32),
+             (2, 256, 768, 8, 4, 64, False, torch.float32), (1, 300, 300, 8, 2, 112, True, torch.float32),
+             (1, 100, 333, 4, 4, 32, True, torch.float32)]
+# The 2-layer full-width train step held against the CPU (fp32 compute).
+STEP_PARITY_LAYERS, STEP_PARITY_SHAPE = 2, (2, 256)
 
 
 def log(msg: str) -> None:
@@ -2705,27 +2744,31 @@ def phase_launcher(ref, device="cuda") -> str:
 
 
 def phase_examples(ref, counter, device="cuda") -> dict:
-    """The four example twins (``examples_torch/``) on ``device``: the three
-    metering ones in this process (the plain versions watched, the hand
-    kernels' launches counted), ``serve_energy`` as its own process, as a
-    user runs it.  Each must finish and print its figures."""
+    """The five example twins (``examples_torch/``) on ``device``: the
+    metering ones and ``train_energy`` (its checkpoints in a fresh temporary
+    directory, so it trains all 60 steps) in this process (the plain
+    versions watched, the hand kernels' launches counted), ``serve_energy``
+    as its own process, as a user runs it.  Each must finish and print its
+    figures, none of them NaN."""
     import io
     import runpy
+    import tempfile
 
     root = Path(__file__).resolve().parent / "examples_torch"
     marks = {"quickstart": "cosine vs marginal-energy ground truth", "stream_energy": "cap stats:",
-             "capped_cluster": "static 20 W buffer"}
+             "capped_cluster": "static 20 W buffer", "train_energy": "60 steps, final loss"}
     out: dict = {}
     for name, mark in marks.items():
         t0 = time.perf_counter()
-        buf, argv = io.StringIO(), sys.argv
+        buf, argv, tmp_root = io.StringIO(), sys.argv, tempfile.tempdir
         sys.argv = [str(root / f"{name}.py"), "--device", device]
         counter.zero()
         try:
-            with contextlib.redirect_stdout(buf), main_path(ref):
+            with contextlib.redirect_stdout(buf), main_path(ref), tempfile.TemporaryDirectory() as tmp:
+                tempfile.tempdir = tmp
                 runpy.run_path(sys.argv[0], run_name="__main__")
         finally:
-            sys.argv = argv
+            sys.argv, tempfile.tempdir = argv, tmp_root
         text = buf.getvalue()
         assert mark in text and not re.search(r"\bnan\b", text.lower()), (name, text[-2000:])
         out[name] = dict(seconds=time.perf_counter() - t0, launches=counter.read())
@@ -2806,7 +2849,401 @@ def check_families(fam, int8_layers) -> None:
     log("families " + json.dumps(fam, default=str))
 
 
-PLAIN_NAMES = ("disagg_gram", "flash_attention", "decode_attention", "rmsnorm")
+# ---------------------------------------------------------------------------
+# Training (phase 13)
+# ---------------------------------------------------------------------------
+
+
+def _dense_attention(q, k, v, causal):
+    """fp32 GQA attention with the score matrix materialised, the
+    reference's ``attention_dense``: the oracle the reference pins its flash
+    VJP to (tests/test_kernels.py::test_ref_flash_backward_matches_dense)."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, hkv, h // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(d)
+    if causal:
+        live = torch.ones((s, t), dtype=torch.bool, device=q.device).tril(t - s)
+        scores = scores.masked_fill(~live, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(b, s, h, d)
+
+
+def flash_bwd_work(b, s, t, h, hkv, d, causal, dtype):
+    """(bytes, flops) of the attention backward: q, k, v, out, dout and lse
+    read once, dq, dk, dv written once; 5 products of 2 * d flops per live
+    pair (the recomputed Q K^T, dO V^T, dS K, dS^T Q, P^T dO)."""
+    nbytes, fwd_flops = flash_work(b, s, t, h, hkv, d, causal, dtype)  # q, k, v, out
+    nbytes += _elem(dtype) * (2 * b * s * h * d + 2 * b * t * hkv * d) + 4 * b * h * s  # dout, dq; dk, dv; lse
+    return nbytes, 2.5 * fwd_flops
+
+
+def _grad_close(got, want, dtype, what) -> float:
+    """fp32: the reference's pin (atol 3e-4, rtol 1e-3), atol scaled by
+    max|want| when that exceeds 1.  bf16: 1e-2 of max|want| plus 2e-2 of
+    each value: the inputs are the same bf16 values on both sides, and the
+    Function's gradients are rounded to bf16 at the end (2^-8 relative)
+    after a backward that read the kernel's bf16 output.  Returns the max
+    error over max(1, max|want|)."""
+    g, w = got.float(), want.float()
+    scale = max(1.0, float(w.abs().max()))
+    atol, rtol = (3e-4 * scale, 1e-3) if dtype == torch.float32 else (1e-2 * scale, 2e-2)
+    err = (g - w).abs()
+    bad = ~(err <= atol + rtol * w.abs())
+    assert not bad.any(), f"{what}: {int(bad.sum())} of {bad.numel()} off, max abs err {float(err.max()):.3e}"
+    return float(err.max()) / scale
+
+
+def phase_train_vjp(ref) -> dict:
+    """The flash VJP on the card: the hand forward's out and lse against the
+    plain ``flash_fwd``, and dq, dk, dv through ``ops.flash_attention``'s
+    Function (the hand forward with its lse, then ``flash_bwd``) against
+    autograd through the dense fp32 oracle; the forward with and without
+    the lse store, the backward, and SDPA's forward and backward timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows: dict = {}
+    for b, s, t, h, hkv, d, causal, dtype in VJP_CASES:
+        key = (b, s, t, h, hkv, d, causal, str(dtype).split(".")[1])
+        q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                       for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d)))
+        lse = torch.empty((b, hkv, h // hkv, s), dtype=torch.float32, device="cuda")
+        out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+        torch.cuda.synchronize()
+        want_out, want_lse = ref.flash_fwd(q, k, v, causal)
+        err_out = _check(out, want_out, _tol(dtype), "flash out with lse", rows=dtype == torch.bfloat16)
+        assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal)), "the lse store changed the output"
+        err_lse = float((lse - want_lse).abs().max())
+        assert err_lse <= 2e-5 * max(1.0, float(want_lse.abs().max())), (key, err_lse)
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        got = torch.autograd.grad(ops.flash_attention(qg, kg, vg, causal=causal), (qg, kg, vg), do)
+        q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+        want = torch.autograd.grad(_dense_attention(q32, k32, v32, causal), (q32, k32, v32), do.float())
+        errs = {n: _grad_close(a, w, dtype, f"flash VJP {n} at {key}") for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        del got, want, q32, k32, v32, qg, kg, vg
+        reps = 5 if s * t > 2**22 else 15
+        row = dict(err_out=err_out, err_lse=err_lse, **{f"err_{n}": e for n, e in errs.items()},
+                   variant=fa.variant(dtype, d),
+                   ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps),
+                   lse_ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal, lse=lse), reps),
+                   plain_ms=device_ms(lambda: ref.flash_fwd(q, k, v, causal), reps),
+                   bwd_ms=device_ms(lambda: ref.flash_bwd(q, k, v, out, lse, do, causal), reps),
+                   library_ms=None, library_bwd_ms=None)
+        if s == t or not causal:  # SDPA's causal mask is not offset by T - S
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            row["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            row["library_bwd_ms"] = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), reps)
+            del ot, qt, kt, vt
+        row["bound_ms"], row["bound_by"] = _bound(*flash_work(b, s, t, h, hkv, d, causal, dtype), dtype)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(*flash_bwd_work(b, s, t, h, hkv, d, causal, dtype), dtype)
+        rows[key] = row
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} / {row['library_bwd_ms']:.4f}"
+        log(f"train vjp {key}: {row['variant']} out {err_out:.2e} lse {err_lse:.2e} dq {errs['dq']:.2e} "
+            f"dk {errs['dk']:.2e} dv {errs['dv']:.2e} (of scale); fwd {row['ms']:.4f} ms, fwd+lse {row['lse_ms']:.4f} ms, "
+            f"plain fwd {row['plain_ms']:.3f} ms, flash_bwd {row['bwd_ms']:.3f} ms, SDPA fwd / bwd {lib} ms; "
+            f"bounds fwd {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), bwd {row['bwd_bound_ms'] * 1e3:.1f} us")
+    return rows
+
+
+def phase_train_step_parity(ref) -> dict:
+    """internlm2-1.8b cut to 2 layers at full width, fp32 compute: one
+    ``make_train_step`` on the card and on the CPU from the same masters
+    and batch (loss 1e-5 and gradients 1e-4 of scale), then
+    ``optimizer.update`` on both devices from the CPU's gradients (1e-6 of
+    scale): AdamW's first step is about lr * sign(g), so the update is
+    pinned on identical gradients, not after two steps from separate ones."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models import build
+    from repro_torch.models.common import ParamTree, map_tree, tree_leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=STEP_PARITY_LAYERS, compute_dtype="float32")
+    api = build(cfg)
+    ocfg = opt.OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    masters = ts.init_state(api, torch.Generator().manual_seed(0), ocfg).params
+    batch = synthetic_batch(api, ShapeConfig("parity", STEP_PARITY_SHAPE[1], STEP_PARITY_SHAPE[0], "train"), 0)
+
+    def fresh(dev):
+        params = ParamTree(map_tree(lambda p: p.detach().to(dev, copy=True), masters), trainable=True)
+        return ts.TrainState(params, opt.init(params, ocfg))
+
+    grads, out = {}, {}
+    real_update = opt.update
+
+    def capture(g, state, params, config):
+        grads[tree_leaves(params)[0].device.type] = [x.detach().cpu() for x in tree_leaves(g)]
+        return real_update(g, state, params, config)
+
+    opt.update = capture
+    try:
+        for dev in ("cuda", "cpu"):
+            state = fresh(dev)
+            t0 = time.perf_counter()
+            with main_path(ref) if dev == "cuda" else contextlib.nullcontext():
+                state, metrics = ts.make_train_step(api, ocfg)(state, {k: x.to(dev) for k, x in batch.items()})
+                out[dev] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                                step_s=time.perf_counter() - t0)
+            del state, metrics
+    finally:
+        opt.update = real_update
+    loss_err = abs(out["cuda"]["loss"] - out["cpu"]["loss"])
+    assert loss_err <= 1e-5 * max(1.0, abs(out["cpu"]["loss"])), out
+    g_scale = max(float(g.abs().max()) for g in grads["cpu"])
+    g_err = max(float((a - b).abs().max()) for a, b in zip(grads["cuda"], grads["cpu"]))
+    assert g_err <= 1e-4 * g_scale, (g_err, g_scale)
+    updated = {}
+    for dev in ("cuda", "cpu"):
+        state = fresh(dev)
+        it = iter(grads["cpu"])
+        params, _, _ = opt.update(map_tree(lambda p: next(it).to(dev), state.params), state.opt, state.params, ocfg)
+        updated[dev] = [p.detach().cpu() for p in tree_leaves(params)]
+        del state, params
+    p_scale = max(float(p.abs().max()) for p in updated["cpu"])
+    p_err = max(float((a - b).abs().max()) for a, b in zip(updated["cuda"], updated["cpu"]))
+    assert p_err <= 1e-6 * max(1.0, p_scale), (p_err, p_scale)
+    n = sum(p.numel() for p in tree_leaves(masters))
+    res = dict(params=n, loss=out["cuda"]["loss"], loss_err=loss_err, grad_err=g_err / g_scale,
+               update_err=p_err / max(1.0, p_scale), card_step_s=out["cuda"]["step_s"], cpu_step_s=out["cpu"]["step_s"])
+    log(f"train step parity ({cfg.num_layers} layers, d_model {cfg.d_model}, {n:,} parameters, fp32, batch "
+        f"{STEP_PARITY_SHAPE}): loss card {out['cuda']['loss']:.6f} cpu {out['cpu']['loss']:.6f} (diff {loss_err:.2e}); "
+        f"grad norm {out['cuda']['grad_norm']:.6f} / {out['cpu']['grad_norm']:.6f}; gradients {res['grad_err']:.2e} "
+        f"of scale; update on the CPU's gradients {res['update_err']:.2e} of scale; step card "
+        f"{res['card_step_s']:.2f} s, cpu {res['cpu_step_s']:.2f} s")
+    return res
+
+
+def _train_trace(state, step_fn, batch, ref) -> dict:
+    """One warm step untimed, one timed (host clock to the loss read) and
+    one under torch.profiler with ``ref.flash_bwd`` annotated: device busy,
+    idle share, top kernels, and the shares of the flash forward kernel and
+    of the kernels launched inside ``flash_bwd``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    state, m = step_fn(state, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch)
+    float(m["loss"])
+    wall = time.perf_counter() - t0
+    real_bwd = ref.flash_bwd
+
+    def annotated(*args, **kwargs):
+        with record_function("flash_bwd"):
+            return real_bwd(*args, **kwargs)
+
+    ref.flash_bwd = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+    finally:
+        ref.flash_bwd = real_bwd
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events if e.name() == "flash_bwd"]
+    kernels = [(e.name(), e.start_ns(), e.duration_ns() * 1e-3) for e in events if e.name() != "flash_bwd"]
+    busy = sum(us for _, _, us in kernels) * 1e-6
+    fwd = sum(us for name, _, us in kernels if "flash_tc_kernel" in name or "flash_fwd_kernel" in name) * 1e-6
+    bwd = sum(us for _, t, us in kernels if any(a <= t < b for a, b in spans)) * 1e-6 if spans else None
+    by_name: dict = {}
+    for name, _, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us * 1e-3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = dict(step_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall, kernels=len(kernels),
+               flash_fwd_share=fwd / busy, flash_bwd_share=None if bwd is None else bwd / busy,
+               flash_bwd_annotations=len(spans), top=[(n[:80], ms) for n, ms in top])
+    log(f"train trace: warm step {wall:.4f} s, device busy {busy:.4f} s, idle share {out['idle_share']:.4f}, "
+        f"{len(kernels)} kernels; flash forward kernels {fwd:.4f} s ({out['flash_fwd_share']:.4f} of busy), "
+        + (f"flash_bwd {bwd:.4f} s ({out['flash_bwd_share']:.4f} of busy, {len(spans)} annotated calls)"
+           if bwd is not None else "flash_bwd share not measured (no device-side annotation in the trace)"))
+    for name, ms in top:
+        log(f"train trace:   {ms:9.3f} ms  {name[:90]}")
+    return out
+
+
+class _Crash(Exception):
+    """Stands for the job dying right after a checkpoint was committed."""
+
+
+def phase_train_full(ref, counter, device="cuda", reduced=False) -> dict:
+    """internlm2-1.8b at full width and depth through ``launch.train.main``
+    (12 steps): once straight through without checkpoints, once with
+    ``--ckpt-dir`` and ``--ckpt-every 8`` killed right after step 8's
+    checkpoint is committed, and relaunched with the same arguments: the
+    relaunch must resume at 8 and give the straight run's losses of steps
+    8-11 and its final parameters bitwise (every operation of the step is
+    deterministic on the card).  A full state is
+    21.19 GiB (fp32 masters and both moments), and the card's machine takes
+    at most 45 GiB of disk writes in one call, so the run writes two states
+    (step 8, and the relaunch's step 12), not the four of checkpoints every
+    4 steps.  Every step launches 2 x 24 flash kernels (the forward, then
+    the recompute under remat "full"), all tensor-core; no CUDA tensor
+    reaches a plain version.  ``device="cpu", reduced=True`` rehearses the
+    same control flow on the reduced config (no trace)."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, batch_iterator
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model_zoo import model_flops
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_config(ARCH, reduced=reduced)
+    layers = cfg.num_layers
+    shape = ShapeConfig("train", 32 if reduced else TRAIN_SEQ, 2 if reduced else TRAIN_BATCH, "train")
+    argv = [*TRAIN_ARGS, "--batch", str(shape.global_batch), "--seq", str(shape.seq_len), "--device", device]
+    argv += ["--reduced"] if reduced else []
+    io_s: dict = {"save": [], "restore": []}
+    real_write, real_restore, real_save = ckpt._write, ckpt.restore_checkpoint, ckpt.CheckpointManager.save
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                io_s[kind].append(time.perf_counter() - t0)
+        return run
+
+    def crash_after(step):
+        def save(self, at, state, *, blocking=False):
+            real_save(self, at, state, blocking=blocking)
+            if at == step:
+                self.wait()  # committed
+                raise _Crash(step)
+        return save
+
+    tmp = tempfile.mkdtemp(prefix=".train-ckpt-", dir=Path(__file__).resolve().parent)
+    ckpt_args = ["--ckpt-dir", tmp, "--ckpt-every", str(TRAIN_CRASH)]
+    ckpt._write, ckpt.restore_checkpoint = timed("save", real_write), timed("restore", real_restore)
+    runs: dict = {}
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        for run, extra in (("straight", []), ("killed", ckpt_args), ("relaunch", ckpt_args)):
+            counter.zero()
+            buf, t0, report, state = io.StringIO(), time.perf_counter(), None, None
+            if run == "killed":
+                ckpt.CheckpointManager.save = crash_after(TRAIN_CRASH)
+            try:
+                with contextlib.redirect_stdout(buf), main_path(ref):
+                    report, state = train.main([*argv, *extra])
+            except _Crash:
+                pass
+            finally:
+                ckpt.CheckpointManager.save = real_save
+            runs[run] = dict(report=report, launches=counter.read(), wall=time.perf_counter() - t0,
+                             steps=sorted(ckpt.list_steps(tmp)))
+            for line in buf.getvalue().strip().splitlines():
+                log(f"train {run} | {line}")
+            if run == "straight":
+                straight = [p.detach().clone() for p in tree_leaves(state.params)]
+                del state
+                if cuda:
+                    torch.cuda.empty_cache()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        r1, r2 = runs["straight"]["report"], runs["relaunch"]["report"]
+        assert runs["killed"]["report"] is None and runs["killed"]["steps"] == [TRAIN_CRASH], runs["killed"]
+        assert all(math.isfinite(x) for x in r1.losses + r2.losses), (r1.losses, r2.losses)
+        assert r1.losses[-1] < r1.losses[0], f"the loss did not fall: {r1.losses}"
+        assert r1.steps_run == TRAIN_STEPS and r2.resumed_from == TRAIN_CRASH and r2.steps_run == TRAIN_STEPS - TRAIN_CRASH
+        assert runs["relaunch"]["steps"] == [TRAIN_CRASH, TRAIN_STEPS], runs["relaunch"]
+        for name, steps in (("straight", TRAIN_STEPS), ("killed", TRAIN_CRASH), ("relaunch", TRAIN_STEPS - TRAIN_CRASH)):
+            got = runs[name]["launches"]
+            want = 2 * layers * steps if cuda else 0
+            assert got["flash"] == want == got["flash_tc"], (name, got)
+            assert not any(v for k, v in got.items() if k not in ("flash", "flash_tc")), (name, got)
+        resumed = [p.detach() for p in tree_leaves(state.params)]
+        # Bitwise, with no tolerance: every operation of this step is
+        # deterministic on the card (cuBLAS at fixed shapes, the flash
+        # kernels, the plain ``flash_bwd``, and the index backward's sorted
+        # accumulation), so any difference is a fault of the resume.
+        loss_diff = max(abs(a - b) for a, b in zip(r2.losses, r1.losses[TRAIN_CRASH:]))
+        param_diff = max(float((a - b).abs().max()) for a, b in zip(straight, resumed))
+        bitwise = r2.losses == r1.losses[TRAIN_CRASH:] and all(torch.equal(a, b) for a, b in zip(straight, resumed))
+        del straight, resumed
+        log(f"train resume: {'bitwise' if bitwise else 'DIFFERS'} (loss diff {loss_diff:.3e}, "
+            f"parameter diff {param_diff:.3e}); checkpoints {runs['killed']['steps']} after the killed run, "
+            f"{runs['relaunch']['steps']} after the relaunch")
+        assert bitwise, f"the relaunch differs from the straight run: loss {loss_diff:.3e}, parameters {param_diff:.3e}"
+
+        # One warm step, traced, on the resumed state.
+        api = build(cfg)
+        ocfg = opt.OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
+        batch = next(batch_iterator(api, shape, DataConfig(seed=0), start_step=TRAIN_STEPS, device=device))
+        counter.zero()
+        trace = dict(step_s=float("nan"))
+        if cuda:
+            with main_path(ref):
+                trace = _train_trace(state, make_train_step(api, ocfg), batch, ref)
+        trace_launches = counter.read()
+        assert trace_launches["flash"] == (3 * 2 * layers if cuda else 0) == trace_launches["flash_tc"], trace_launches
+        del state, batch
+    finally:
+        ckpt._write, ckpt.restore_checkpoint, ckpt.CheckpointManager.save = real_write, real_restore, real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    tokens = shape.global_batch * shape.seq_len
+    flops = model_flops(cfg, shape)
+    launches = {name: r["launches"]["flash"] for name, r in runs.items()}
+    out = dict(
+        arch=cfg.name, params=cfg.param_count(), layers=layers, batch=shape.global_batch, seq=shape.seq_len,
+        losses=r1.losses, resumed_losses=r2.losses, resume_bitwise=bitwise, loss_diff=loss_diff,
+        param_diff=param_diff, step_times=r1.step_times, run_s={k: r["wall"] for k, r in runs.items()},
+        save_s=io_s["save"], restore_s=io_s["restore"], peak_gib=peak_gib,
+        launches=sum(launches.values()) + trace_launches["flash"], launches_by_run=launches,
+        launches_per_step=launches["straight"] / TRAIN_STEPS, tokens_per_s=tokens / trace["step_s"], model_flops=flops,
+        model_flops_share=flops / trace["step_s"] / BF16_FLOP_PER_S, trace=trace,
+    )
+    log(f"train {cfg.name}: {layers} layers, {cfg.param_count():,} parameters (6ND count), batch "
+        f"{shape.global_batch} x {shape.seq_len}; losses {[round(x, 4) for x in r1.losses]}; relaunch "
+        f"{[round(x, 4) for x in r2.losses]}; step {trace['step_s']:.4f} s, {out['tokens_per_s']:.0f} tokens/s, "
+        f"6ND {flops:.4e} flops = {out['model_flops_share']:.4f} of 989 TFLOP/s; peak {peak_gib:.2f} GiB; "
+        f"checkpoint saves {[round(x, 2) for x in io_s['save']]} s, restores {[round(x, 2) for x in io_s['restore']]} s; "
+        f"runs {', '.join(f'{k} {r:.1f} s' for k, r in out['run_s'].items())}; flash launches {launches} "
+        f"(+ {trace_launches['flash']} traced)")
+    return out
+
+
+def phase_train(ref, counter) -> dict:
+    """Phase 13: the flash VJP, the 2-layer train step against the CPU, and
+    the full-size training run with its resume."""
+    t0 = time.perf_counter()
+    out = dict(vjp=phase_train_vjp(ref))
+    torch.cuda.empty_cache()
+    out["step_parity"] = phase_train_step_parity(ref)
+    torch.cuda.empty_cache()
+    out["full"] = phase_train_full(ref, counter)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase training: {out['phase_s']:.1f} s")
+    return out
+
+
+PLAIN_NAMES = ("disagg_gram", "flash_attention", "flash_fwd", "decode_attention", "rmsnorm")
 
 
 @contextlib.contextmanager
@@ -3100,6 +3537,10 @@ def main() -> int:
     fam = phase_families(ref, counter)
     fam["int8"] = int8
     check_families(fam, layers)
+    torch.cuda.empty_cache()
+    log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card")
+    train = phase_train(ref, counter)
+    log("training " + json.dumps({**train, "vjp": {str(k): r for k, r in train["vjp"].items()}}, default=str))
     t0 = time.perf_counter()
     examples = phase_examples(ref, counter)
     log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))
@@ -3108,7 +3549,7 @@ def main() -> int:
         return [dict(shape=json.loads(json.dumps(k)), **{f: arows[(kernel, k, "bfloat16")][f] for f in (
             "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}) for k in keys]
 
-    paths = {"dense": (flash_launches, decode_launches)}
+    paths = {"dense": (flash_launches, decode_launches), "train": (train["full"]["launches"], 0)}
     paths.update({key: (fam[key]["launches"]["flash"], fam[key]["launches"]["decode"])
                   for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "launcher")})
     by_path = {k: dict(zip(("flash", "decode"), v)) for k, v in paths.items()}
@@ -3130,7 +3571,9 @@ def main() -> int:
                  moe_shapes=new_rows("flash_attention", FLASH_MOE), vlm_shapes=new_rows("flash_attention", FLASH_VLM),
                  zamba2_shapes=new_rows("flash_attention", FLASH_ZAMBA),
                  seamless_shapes=new_rows("flash_attention", FLASH_SEAMLESS),
-                 cross_shapes=new_rows("flash_attention", FLASH_CROSS)),
+                 cross_shapes=new_rows("flash_attention", FLASH_CROSS),
+                 training_shapes=[dict(shape=json.loads(json.dumps(k)), **r) for k, r in train["vjp"].items()],
+                 training_launches_per_step=train["full"]["launches_per_step"]),
         _summary("decode_attention", "src/repro/kernels/decode_attention.py:119",
                  sum(v["decode"] for v in by_path.values()),
                  [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN,
@@ -3157,11 +3600,14 @@ def main() -> int:
 
 
 def bench_main(argv: list) -> int:
-    """Time the decode-attention and gram kernels of any tree of the port.
+    """Time the flash, decode-attention and gram kernels of any tree of the
+    port.
 
     ``python3 chip_smoke.py --bench [DIR]`` imports ``repro_torch`` from
     ``DIR`` (default: this checkout's ``src``), so that one call can time
-    two trees on one card.  Per kernel and shape it prints ``time_decode``'s
+    two trees on one card.  Flash runs at the serving path's main shapes
+    (bf16, no lse: serving's call), cold-L2 median and warm per launch.
+    Per kernel and shape it prints ``time_decode``'s
     or ``time_gram``'s row (cold and warm, the kernel's and the library
     call's), at decode's main shapes (bf16) and at the gram's main shapes,
     its parity shapes with M >= 64 and those either side of the variants'
@@ -3177,14 +3623,25 @@ def bench_main(argv: list) -> int:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import disagg_solve as ds
+    from repro_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | repro_torch from {da.__file__}", flush=True)
     ds.build()
     da.build()
-    out = dict(src=str(src), device=smi, decode={}, gram={})
+    fa.build()
+    out = dict(src=str(src), device=smi, flash={}, decode={}, gram={})
     gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, s, t, h, hkv, d, causal in FLASH_MAIN:
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, t, hkv, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+        nbytes = 2.0 * (2 * b * s * h * d + 2 * b * t * hkv * d)
+        row = dict(ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
+                   warm_ms=warm_ms(lambda *a: fa.flash_attention(*a, causal=causal), (q, k, v), nbytes))
+        out["flash"][f"B={b} S={s} T={t}"] = row
+        print(f"flash B={b} S={s} T={t} H={h} Hkv={hkv} d={d}: " + " ".join(f"{k}={v}" for k, v in row.items()),
+              flush=True)
     for b, smax, lengths in DECODE_MAIN:
         q = torch.randn(b, H, HD, generator=gen, device="cuda").bfloat16()
         kc, vc = (torch.randn(b, smax, HKV, HD, generator=gen, device="cuda").bfloat16() for _ in range(2))

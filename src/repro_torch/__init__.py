@@ -13,6 +13,9 @@ against:
   engine and the profiler.
 - ``repro_torch.kernels``   -- hand-written CUDA kernels for Hopper (sm_90a)
   with their plain PyTorch versions.
+- ``repro_torch.models``, ``serving``, ``training`` -- the model zoo, its
+  metered serving path and its training path (optimizer, train step,
+  trainer); ``distributed`` the fleet mesh and the checkpoints.
 
 Entry points take ``device=`` (default ``"cuda"``) and raise when CUDA is
 absent unless the caller asks for ``device="cpu"``; see ``device.py``.

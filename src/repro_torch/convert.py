@@ -2,8 +2,8 @@
 reference package.
 
 What crosses from ``repro`` is the metering path's engine inputs, Kalman
-and streaming state, telemetry and configs, and the model zoo's parameter
-trees.  Every
+and streaming state, telemetry and configs, the model zoo's parameter
+trees and a training state (parameters and AdamW moments).  Every
 function here takes plain numpy arrays (``np.asarray(jax_array)``) or plain
 fields, never a reference object, so this module imports nothing of the
 reference.
@@ -142,10 +142,16 @@ def params_from_numpy(
     lists the port's forward pass loops over.
     """
     from repro_torch.models.common import load_params
-    from repro_torch.models.model_zoo import build
     from repro_torch.models.transformer import compute_dtype
 
-    dev = resolve_device(device)
+    return load_params(_checked_tree(tree, cfg, resolve_device(device)), dtype or compute_dtype(cfg))
+
+
+def _checked_tree(tree: dict, cfg, dev: torch.device) -> dict:
+    """The reference's (stacked) tree of numpy leaves as fp32 tensors on
+    ``dev``, each leaf checked against the port's declaration of ``cfg``."""
+    from repro_torch.models.model_zoo import build
+
     spec = build(cfg).params_def
 
     def check(spec_node, node, path):
@@ -159,4 +165,30 @@ def params_from_numpy(
             raise ValueError(f"{path}: shape {arr.shape} != the declaration's {spec_node.shape}")
         return torch.tensor(arr, device=dev)
 
-    return load_params(check(spec, tree, ""), dtype or compute_dtype(cfg))
+    return check(spec, tree, "")
+
+
+def train_state_from_numpy(
+    params: dict, mu: dict, nu: dict, count, err: dict | None = None,
+    *, cfg, device: str | torch.device = DEFAULT_DEVICE,
+):
+    """The port's ``TrainState`` from the reference's, as numpy: its
+    ``params`` and the ``opt`` moments ``mu``/``nu`` (and ``err`` when
+    gradients are compressed) as nested dicts of numpy leaves stacked like
+    the reference's, and ``count``.  The parameters become trainable fp32
+    masters, the moments fp32 trees of the same per-layer structure, the
+    count a 0-dim int32 tensor, all on ``device``."""
+    from repro_torch.models.common import ParamTree, _unstack_layers
+    from repro_torch.training.optimizer import AdamState
+    from repro_torch.training.train_step import TrainState
+
+    dev = resolve_device(device)
+
+    def tree(x):
+        return _unstack_layers(_checked_tree(x, cfg, dev))
+
+    return TrainState(
+        params=ParamTree(tree(params), trainable=True),
+        opt=AdamState(mu=tree(mu), nu=tree(nu), count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev),
+                      err=None if err is None else tree(err)),
+    )

@@ -1,7 +1,7 @@
-"""Host-side data pipeline of the port.  ``prefetch_iterator`` only: the
-model zoo's synthetic batches wait for the model-family slices (ROADMAP
-Queue 1 item 9)."""
+"""Host-side data pipeline of the port: the model zoo's deterministic
+synthetic training batches (``synthetic_batch``, ``batch_iterator``,
+bit for bit the reference's) and ``prefetch_iterator``."""
 
-from repro_torch.data.pipeline import prefetch_iterator
+from repro_torch.data.pipeline import DataConfig, batch_iterator, prefetch_iterator, synthetic_batch
 
-__all__ = ["prefetch_iterator"]
+__all__ = ["DataConfig", "batch_iterator", "prefetch_iterator", "synthetic_batch"]

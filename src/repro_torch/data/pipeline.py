@@ -1,15 +1,71 @@
-"""Host-side data pipeline: a background prefetch stage for any iterator.
+"""Host-side data pipeline -- the twin of the reference's
+``repro/data/pipeline.py``: deterministic synthetic training batches per
+``ModelApi`` spec, and a background prefetch stage for any iterator.
 
-A copy of the reference's ``prefetch_iterator`` (threading only).
-``synthetic_batch`` and ``batch_iterator`` of the reference's module feed
-the model zoo and wait for its model-family slices.
+The pipeline is spec-driven: it reads ``api.train_inputs(shape)`` and
+synthesises matching batches, so one iterator serves every family (LM
+tokens, VLM patch embeddings, encoder-decoder frame embeddings).  Batch
+``i`` is a pure function of (seed, i), drawn with numpy from
+``SeedSequence([seed, i])`` in the specs' order, exactly as the reference
+draws it, so the port's batches are the reference's bit for bit and a
+restarted trainer resumes on the same data (the iterator is seekable).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.configs.shapes import ShapeConfig
+
+#: numpy twin of each integer spec dtype (the token-like inputs).
+_NP_INT = {torch.int32: np.int32, torch.int64: np.int64}
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    # Synthetic LM stream: tokens follow a Zipf-like law so the loss has
+    # signal (uniform tokens keep the CE flat at ln V).
+    zipf_a: float = 1.2
+
+
+def _leaf_batch(spec, rng: np.random.Generator, vocab_size: int, zipf_a: float) -> torch.Tensor:
+    """One input: token-like (integer) specs draw Zipf ids over the true
+    vocabulary; float specs standard normals times 0.1 (float64, rounded
+    once to the spec's dtype, as the reference's ``astype``)."""
+    if not spec.dtype.is_floating_point:
+        z = rng.zipf(zipf_a, size=spec.shape).astype(np.int64)
+        return torch.from_numpy(np.minimum(z - 1, vocab_size - 1).astype(_NP_INT[spec.dtype]))
+    return torch.from_numpy(rng.standard_normal(spec.shape) * 0.1).to(spec.dtype)
+
+
+def synthetic_batch(api, shape: ShapeConfig, step: int, config: DataConfig = DataConfig()) -> dict:
+    """Batch ``step`` of the deterministic synthetic stream, as host (CPU)
+    tensors of the specs' dtypes; labels are the tokens shifted by one
+    (-1 at the end), the real LM objective on the stream."""
+    rng = np.random.default_rng(np.random.SeedSequence([config.seed, step]))
+    batch = {name: _leaf_batch(spec, rng, api.cfg.vocab_size, config.zipf_a)
+             for name, spec in api.train_inputs(shape).items()}
+    if "labels" in batch and "tokens" in batch:
+        toks = batch["tokens"]
+        batch["labels"] = torch.cat([toks[:, 1:], toks.new_full((toks.shape[0], 1), -1)], dim=1)
+    return batch
+
+
+def batch_iterator(api, shape: ShapeConfig, config: DataConfig = DataConfig(), *, start_step: int = 0,
+                   device: str | torch.device = "cpu") -> Iterator[dict]:
+    """Seekable infinite iterator of ``synthetic_batch`` from
+    ``start_step`` on, each batch moved to ``device``."""
+    step = start_step
+    while True:
+        yield {k: v.to(device) for k, v in synthetic_batch(api, shape, step, config).items()}
+        step += 1
 
 
 def prefetch_iterator(it: Iterator[Any], size: int = 2) -> Iterator[Any]:

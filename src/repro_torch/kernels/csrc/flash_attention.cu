@@ -28,6 +28,10 @@
 // A masked score is the reference's -1e30 sentinel and its probability is 0,
 // so a row with no live key ends as 0 / max(l, 1e-30) = 0, never NaN. Rows
 // are normalised once at the end with the reference's max(l, 1e-30) floor.
+// When the caller passes an `lse` buffer (training: the backward recomputes
+// the probabilities from it), each row's log-sum-exp m + log(max(l, 1e-30))
+// is stored there once, in (B, H, S) = (B, Hkv, G, S) order, by the row's
+// first lane; serving passes null and stores nothing more.
 //
 // Bound on an H100: causal prefill at the serving shapes does 2 * 2 * d
 // flops per live (q, k) pair against reading Q, K, V and writing O once, far
@@ -86,7 +90,8 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* __restrict__ src,
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int s, int t, int h, int hkv, int causal, float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int s, int t, int h, int hkv, int causal,
+                 float scale) {
   constexpr int LD = Layout<T, D>::LD;
   constexpr int DJ = D / 8;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -211,12 +216,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* orow = out + static_cast<int64_t>(b) * s * q_stride + r * q_stride + static_cast<int64_t>(head) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 8 * j] = from_f32<T>(acc[i][j] / denom);
+    if (lse != nullptr && tx == 0) lse[(static_cast<int64_t>(b) * h + head) * s + r] = m[i] + logf(denom);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int s, int t, int h,
-           int hkv, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int b, int s, int t,
+           int h, int hkv, int causal, float scale, cudaStream_t stream) {
   const size_t smem = Layout<T, D>::bytes();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -225,22 +231,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s,
   const dim3 grid((s + BQ - 1) / BQ, h, b);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, t, h, hkv, causal, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), s, t, h, hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int b, int s, int t, int h,
-             int hkv, int d, int causal, float scale, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out, void* lse, int b, int s, int t,
+             int h, int hkv, int d, int causal, float scale, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
   }
   if constexpr (sizeof(T) == 4) {  // bf16 at 64, 112 and 128 is flash_attention_tc.cu's
     switch (d) {
-      case 64: return launch<T, 64>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-      case 112: return launch<T, 112>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-      case 128: return launch<T, 128>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
+      case 64: return launch<T, 64>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
+      case 112: return launch<T, 112>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
+      case 128: return launch<T, 128>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -250,16 +256,17 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b, int 
 
 // q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D): contiguous,
 // 16-byte aligned, one element type; D in {16, 32, 64, 112, 128} for fp32 and
-// {16, 32} for bf16; H % Hkv == 0.
+// {16, 32} for bf16; H % Hkv == 0. lse: null, or fp32 (B, H, S) for each
+// row's natural log-sum-exp.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int b,
-                                   int s, int t, int h, int hkv, int d, int causal, float scale,
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out, void* lse,
+                                   int b, int s, int t, int h, int hkv, int d, int causal, float scale,
                                    cudaStream_t stream) {
-  return dispatch<float>(q, k, v, out, b, s, t, h, hkv, d, causal, scale, stream);
+  return dispatch<float>(q, k, v, out, lse, b, s, t, h, hkv, d, causal, scale, stream);
 }
 
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int b,
-                                    int s, int t, int h, int hkv, int d, int causal, float scale,
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
+                                    int b, int s, int t, int h, int hkv, int d, int causal, float scale,
                                     cudaStream_t stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, b, s, t, h, hkv, d, causal, scale, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, out, lse, b, s, t, h, hkv, d, causal, scale, stream);
 }

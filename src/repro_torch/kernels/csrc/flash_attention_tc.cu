@@ -54,6 +54,13 @@
 //             loaded. A
 //             masked score is -inf and its probability 0, so a row with no
 //             live key ends as 0 / max(l, 1e-30) = 0.
+//   lse       for training the caller passes an fp32 (B, H, S) buffer and
+//             the epilogue stores each row's natural log-sum-exp once (the
+//             backward recomputes the probabilities from it): the running
+//             max is of raw scores and the sums are of 2^(s * scale_log2 -
+//             m * scale_log2), so lse = (m * scale_log2 + log2 l) * ln 2,
+//             with the reference's max(l, 1e-30) floor and its -1e30 for a
+//             row with no live key. Serving passes null: no extra store.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -77,6 +84,8 @@ constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
 constexpr int PANEL = 64;        // bf16 columns in one 128-byte swizzle panel
 constexpr int ROW_BYTES = 128;   // bytes of one row of a panel
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NO_KEY_LSE = -1e30f;  // the reference's sentinel: a row with no live key
 
 // Shared memory: the Q tile, then STAGES K tiles, then STAGES V tiles, each
 // stored as ceil(D / 64) panels of (rows x 128 bytes), 1024-byte aligned (the
@@ -359,8 +368,8 @@ __device__ __forceinline__ void to_fragments(uint32_t (&pa)[BK / 16][4], const f
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int s, int t,
-                int h, int hkv, int causal, float scale_log2) {
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, int s, int t, int h, int hkv, int causal, float scale_log2) {
   using L = Smem<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, k_full[STAGES], v_full[STAGES], kv_empty[STAGES];
@@ -494,6 +503,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
     }
+    if (lse != nullptr && lane % 4 == 0) {  // the 4 lanes of a row hold the same m and l
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < s)
+          lse[(static_cast<int64_t>(b) * h + head) * s + row] =
+              m[r] == -INFINITY ? NO_KEY_LSE : (m[r] * scale_log2 + log2f(fmaxf(l[r], 1e-30f))) * LN2;
+      }
+    }
     const int64_t row_stride = static_cast<int64_t>(h) * D;
     __nv_bfloat16* ob = out + static_cast<int64_t>(b) * s * row_stride + static_cast<int64_t>(head) * D;
 #pragma unroll
@@ -549,8 +567,8 @@ int make_map(CUtensorMap* map, const void* base, int batch, int seq, int heads, 
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int s, int t, int h, int hkv,
-           int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int b, int s, int t, int h,
+           int hkv, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, b, s, h, D, BQ);
   if (err == 0) err = make_map(&tk, k, b, t, hkv, D, BK);
@@ -561,23 +579,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((s + BQ - 1) / BQ, h, b);
   flash_tc_kernel<D><<<grid, THREADS, Smem<D>::ALLOC, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s, t, h, hkv, causal, scale * LOG2E);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s, t, h, hkv, causal,
+      scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D): contiguous bf16,
-// 16-byte aligned; D in {64, 112, 128}; H % Hkv == 0. Launches on `stream` and
-// returns cudaGetLastError() (0 on success), -1 when the driver has no
-// cuTensorMapEncodeTiled, -2 when it refuses a tensor map.
-extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void* v, void* out, int b, int s,
-                                       int t, int h, int hkv, int d, int causal, float scale,
+// 16-byte aligned; D in {64, 112, 128}; H % Hkv == 0; lse null or fp32
+// (B, H, S). Launches on `stream` and returns cudaGetLastError() (0 on
+// success), -1 when the driver has no cuTensorMapEncodeTiled, -2 when it
+// refuses a tensor map.
+extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int b,
+                                       int s, int t, int h, int hkv, int d, int causal, float scale,
                                        cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<64>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-    case 112: return launch<112>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
-    case 128: return launch<128>(q, k, v, out, b, s, t, h, hkv, causal, scale, stream);
+    case 64: return launch<64>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
+    case 112: return launch<112>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
+    case 128: return launch<128>(q, k, v, out, lse, b, s, t, h, hkv, causal, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,7 +18,11 @@ anything else (nothing picks the FMA kernel after the other one fails);
 ``kernels.ops.flash_attention`` sends CPU tensors to the plain version.
 Its ``launches`` attribute counts every launch, ``launches_tc`` the
 tensor-core ones.  Neither kernel pads: ragged
-S and T are masked inside.
+S and T are masked inside.  Given an ``lse`` buffer (the training path's
+forward, ``kernels.ops.flash_attention``'s autograd Function), both kernels
+also store each query row's log-sum-exp there, which the backward
+(``ref.flash_bwd``) recomputes the probabilities from; serving passes none,
+and the kernels then store nothing more.
 """
 
 from __future__ import annotations
@@ -85,7 +89,7 @@ def build() -> str:
     for key, fn in ((("fma", torch.float32), lib.flash_attention_f32),
                     (("fma", torch.bfloat16), lib.flash_attention_bf16),
                     (("tc", torch.bfloat16), lib_tc.flash_attention_tc_bf16)):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[key] = fn
     lib_tc.flash_attention_tc_smem_bytes.argtypes = [ctypes.c_int]
@@ -120,14 +124,18 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, lse: torch.Tensor | None = None
 ) -> torch.Tensor:
     """CUDA kernel: q (B, S, H, d), k/v (B, T, Hkv, d) -> (B, S, H, d).
 
     One element type for all three (float32 or bfloat16), d in
     ``HEAD_DIMS``, H a multiple of Hkv, all on one CUDA device.  fp32
     statistics; the causal mask is offset by T - S; a query row with no live
-    key gives 0.  ``variant`` picks the kernel.
+    key gives 0.  ``variant`` picks the kernel.  ``lse``, if given, is a
+    contiguous fp32 (B, Hkv, H // Hkv, S) tensor on q's device that receives
+    each row's log-sum-exp ``m + log(max(l, 1e-30))`` of the scaled scores
+    (-1e30 for a row with no live key), as the reference's ``_flash_fwd``
+    returns it.
     """
     kind = check_args(q, k, v)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -137,13 +145,17 @@ def flash_attention(
         )
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
+    if lse is not None and (lse.shape != (b, hkv, h // hkv, s) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(b, hkv, h // hkv, s)} tensor on {q.device}; "
+                         f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
     q, k, v = (kernel_input(x, "flash_attention") for x in (q, k, v))
     out = torch.empty_like(q)
     if b and s and t:
         build()
         with torch.cuda.device(q.device):
             err = _fns[(kind, q.dtype)](
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
                 b, s, t, h, hkv, d, int(causal), 1.0 / float(d) ** 0.5, stream_of(q),
             )
         if err in _TC_ERRORS:
@@ -154,6 +166,8 @@ def flash_attention(
             flash_attention.launches_tc += 1
     elif b and s:
         out.zero_()  # no keys: every row is fully masked, as the kernel would give
+        if lse is not None:
+            lse.fill_(-1e30)
     return out
 
 

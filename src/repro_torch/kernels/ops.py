@@ -5,6 +5,13 @@ launch — there is no fallback on the card); a CPU tensor goes to the plain
 version in ``ref.py``.  The reference's ``REPRO_FORCE_KERNELS`` override has
 no twin: nothing can send a CUDA tensor to the plain version.  Signatures
 are the reference's (``repro/kernels/ops.py``).
+
+``flash_attention`` is differentiable, as the reference's is through the
+``custom_vjp`` of its ``ref.flash_attention``: when autograd records (grad
+enabled and an input requiring grad), it runs as an autograd Function whose
+forward is the hand kernel with its log-sum-exp store (CUDA) or
+``ref.flash_fwd`` (CPU) and whose backward is ``ref.flash_bwd`` on either
+device.  Without a gradient it takes the forward alone and keeps nothing.
 """
 
 from __future__ import annotations
@@ -26,6 +33,30 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
     raise ValueError(f"{name} has no path for device {x.device}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The twin of the reference's ``custom_vjp`` (``_flash_fwd`` /
+    ``_flash_bwd``): the forward saves (q, k, v, out, lse), the backward
+    recomputes the probabilities from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block, kv_block):
+        if _on_cuda("flash_attention", q):
+            b, s, h, _ = q.shape
+            hkv = k.shape[2]
+            lse = torch.empty((b, hkv, h // hkv, s), dtype=torch.float32, device=q.device)
+            out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+        else:
+            out, lse = ref.flash_fwd(q, k, v, causal, q_block, kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*ref.flash_bwd(q, k, v, out, lse, dout, *ctx.blocks), None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -38,8 +69,11 @@ def flash_attention(
     """Blocked GQA attention (B, S, H, d) x (B, T, Hkv, d) -> (B, S, H, d).
 
     The CUDA kernel chooses its own tiles and ignores ``q_block`` and
-    ``kv_block``; the plain version blocks by them, as the reference does.
+    ``kv_block``; the plain versions (``flash_fwd``, and ``flash_bwd`` on
+    every device) block by them, as the reference does.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_block, kv_block)
     if _on_cuda("flash_attention", q):
         return fa.flash_attention(q, k, v, causal=causal)
     return ref.flash_attention(q, k, v, causal, q_block, kv_block)

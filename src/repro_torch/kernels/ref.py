@@ -8,8 +8,14 @@ main path calls them for a CUDA tensor.  ``quantize_kv`` and
 the reference's models call them directly on every device
 (``repro/models/attention.py``, ``transformer.py``), so the port's models
 do too, on the card as well.  Each follows its twin in the reference's
-``repro/kernels/ref.py``; the flash backward (``_flash_bwd``) waits for the
-training slice.
+``repro/kernels/ref.py``.
+
+``flash_bwd`` is the other exception: the twin of the reference's
+``_flash_bwd``, the backward of its ``custom_vjp``, which is jnp outside any
+Pallas kernel.  It runs on every device, the card included, behind
+``kernels.ops.flash_attention``'s autograd Function, from the (out, lse)
+that the forward (the hand kernel on the card, ``flash_fwd`` on the CPU)
+saved.
 """
 
 from __future__ import annotations
@@ -43,9 +49,54 @@ def flash_attention(
     q_block: int = 512,
     kv_block: int = 1024,
 ) -> torch.Tensor:
-    """Blocked online-softmax GQA attention, forward only.
+    """Blocked online-softmax GQA attention, forward only: ``flash_fwd``'s
+    output."""
+    return flash_fwd(q, k, v, causal, q_block, kv_block)[0]
 
-    q (B, S, H, d), k/v (B, T, Hkv, d) -> (B, S, H, d) in q's dtype.  The
+
+def _blocks(s: int, t: int, q_block: int, kv_block: int) -> tuple[int, int, int, int]:
+    """Block sizes clipped to the sequence lengths and the block counts
+    (ragged lengths are padded up to whole blocks)."""
+    q_block = max(1, min(q_block, s))
+    kv_block = max(1, min(kv_block, t))
+    return q_block, kv_block, -(-s // q_block), -(-t // kv_block)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x (B, N, ...) in fp32, zero-padded along axis 1 to ``rows``."""
+    x = x.to(torch.float32)
+    return torch.nn.functional.pad(x, (0, 0) * (x.ndim - 2) + (0, rows - x.shape[1]))
+
+
+def _live(qi: int, ki: int, q_block: int, kv_block: int, t: int, offset: int, causal: bool, device) -> torch.Tensor:
+    """(qb, kvb) mask of the live (query, key) pairs of one block pair: keys
+    below T and, when causal, at or before the query's position + T - S."""
+    q_pos = qi * q_block + torch.arange(q_block, device=device) + offset
+    k_pos = ki * kv_block + torch.arange(kv_block, device=device)
+    live = (k_pos < t)[None, :]
+    return live & (q_pos[:, None] >= k_pos[None, :]) if causal else live
+
+
+def _kv_blocks_of(qi: int, q_block: int, kv_block: int, nk: int, offset: int, causal: bool) -> int:
+    """How many kv blocks query block ``qi`` visits: all, or (causal) up to
+    its last query's position."""
+    return min((qi * q_block + q_block + offset + kv_block - 1) // kv_block, nk) if causal else nk
+
+
+def flash_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    q_block: int = 512,
+    kv_block: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked online-softmax GQA attention: (out, lse), the twin of the
+    reference's ``_flash_fwd``.
+
+    q (B, S, H, d), k/v (B, T, Hkv, d) -> out (B, S, H, d) in q's dtype and
+    lse (B, Hkv, H // Hkv, S) fp32, each row's log-sum-exp
+    ``m + log(max(l, 1e-30))`` of its scaled scores.  The
     blocked semantics of the reference's ``ref.flash_attention`` with the
     ragged handling of its Pallas wrapper: S and T are padded up to block
     multiples, padded keys are masked, the causal mask is offset by T - S,
@@ -60,31 +111,21 @@ def flash_attention(
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    q_block = max(1, min(q_block, s))
-    kv_block = max(1, min(kv_block, t))
-    nq, nk = -(-s // q_block), -(-t // kv_block)
+    q_block, kv_block, nq, nk = _blocks(s, t, q_block, kv_block)
     scale = 1.0 / float(d) ** 0.5
     offset = t - s
-    q32 = torch.nn.functional.pad(q.to(torch.float32), (0, 0, 0, 0, 0, nq * q_block - s))
-    k32 = torch.nn.functional.pad(k.to(torch.float32), (0, 0, 0, 0, 0, nk * kv_block - t))
-    v32 = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, 0, 0, nk * kv_block - t))
-    qg = q32.reshape(b, nq, q_block, hkv, g, d)
-    kb = k32.reshape(b, nk, kv_block, hkv, d)
-    vb = v32.reshape(b, nk, kv_block, hkv, d)
-    outs = []
+    qg = _pad_rows(q, nq * q_block).reshape(b, nq, q_block, hkv, g, d)
+    kb = _pad_rows(k, nk * kv_block).reshape(b, nk, kv_block, hkv, d)
+    vb = _pad_rows(v, nk * kv_block).reshape(b, nk, kv_block, hkv, d)
+    outs, lses = [], []
     for qi in range(nq):
         qq = qg[:, qi]                                            # (B, qb, Hkv, G, d)
-        q_pos = qi * q_block + torch.arange(q_block, device=q.device) + offset
         m = torch.full((b, hkv, g, q_block), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, hkv, g, q_block), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, hkv, g, q_block, d), dtype=torch.float32, device=q.device)
-        hi = min((qi * q_block + q_block + offset + kv_block - 1) // kv_block, nk) if causal else nk
-        for ki in range(hi):
+        for ki in range(_kv_blocks_of(qi, q_block, kv_block, nk, offset, causal)):
             scores = torch.einsum("bqkgd,btkd->bkgqt", qq, kb[:, ki]) * scale
-            k_pos = ki * kv_block + torch.arange(kv_block, device=q.device)
-            live = (k_pos < t)[None, :]
-            if causal:
-                live = live & (q_pos[:, None] >= k_pos[None, :])
+            live = _live(qi, ki, q_block, kv_block, t, offset, causal, q.device)
             scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
             m_new = torch.maximum(m, scores.amax(dim=-1))
             # A row with no live key yet still has the sentinel max: taken
@@ -95,11 +136,73 @@ def flash_attention(
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p, vb[:, ki])
             m = m_new
-        out = acc / torch.clamp(l[..., None], min=1e-30)
-        outs.append(out.permute(0, 3, 1, 2, 4))                   # (B, qb, Hkv, G, d)
+        l = torch.clamp(l, min=1e-30)
+        lses.append(m + torch.log(l))
+        outs.append((acc / l[..., None]).permute(0, 3, 1, 2, 4))  # (B, qb, Hkv, G, d)
     out = torch.cat(outs, dim=1)[:, :s]
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return out.reshape(b, s, h, d).to(q.dtype), torch.cat(lses, dim=-1)[..., :s]
 
+
+def flash_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    causal: bool = True,
+    q_block: int = 512,
+    kv_block: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recomputing FlashAttention backward: (dq, dk, dv) in the inputs'
+    dtypes, the twin of the reference's ``_flash_bwd``.
+
+    ``out`` and ``lse`` are the forward's (``flash_fwd``, or the CUDA
+    kernel's with its lse store).  Per (q block, kv block) pair the masked,
+    normalised probabilities are recomputed as exp(s - lse), then dS = P
+    (dO V^T - rowsum(dO * O)), dQ += dS K * scale, dK += dS^T Q * scale and
+    dV += P^T dO, all in fp32.  The reference visits every live block pair
+    twice (once in a loop over q blocks for dQ, once over kv blocks for dK
+    and dV); here one pass over the kv blocks, each over the q blocks that
+    reach it, feeds all three, and every accumulator still sums its blocks
+    in the reference's order (dQ over ascending kv blocks, dK and dV over
+    ascending q blocks): the same sums at half the products.  Dead pairs
+    get probability 0 from the mask itself, not from exp(-1e30 - lse), so
+    a row with no live key (lse -1e30, output 0) gets zero gradient.
+    Ragged S and T are zero-padded to whole blocks, as in ``flash_fwd``.
+    """
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    q_block, kv_block, nq, nk = _blocks(s, t, q_block, kv_block)
+    scale = 1.0 / float(d) ** 0.5
+    offset = t - s
+    qg = _pad_rows(q, nq * q_block).reshape(b, nq, q_block, hkv, g, d)
+    dog = _pad_rows(dout, nq * q_block).reshape(b, nq, q_block, hkv, g, d)
+    og = _pad_rows(out, nq * q_block).reshape(b, nq, q_block, hkv, g, d)
+    lseg = torch.nn.functional.pad(lse.to(torch.float32), (0, nq * q_block - s)).reshape(b, hkv, g, nq, q_block)
+    kb = _pad_rows(k, nk * kv_block).reshape(b, nk, kv_block, hkv, d)
+    vb = _pad_rows(v, nk * kv_block).reshape(b, nk, kv_block, hkv, d)
+    dsum = (dog * og).sum(dim=-1).permute(0, 1, 3, 4, 2)          # rowsum(dO * O): (B, nq, Hkv, G, qb)
+    dq = [torch.zeros((b, q_block, hkv, g, d), dtype=torch.float32, device=q.device) for _ in range(nq)]
+    dks, dvs = [], []
+    for ki in range(nk):
+        kk, vv = kb[:, ki], vb[:, ki]
+        dk = torch.zeros((b, kv_block, hkv, d), dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        for qi in range(max((ki * kv_block - offset) // q_block, 0) if causal else 0, nq):
+            live = _live(qi, ki, q_block, kv_block, t, offset, causal, q.device)
+            scores = torch.einsum("bqkgd,btkd->bkgqt", qg[:, qi], kk) * scale
+            p = torch.where(live, torch.exp(scores - lseg[:, :, :, qi][..., None]), 0.0)  # (B, Hkv, G, qb, kvb)
+            dp = torch.einsum("bqkgd,btkd->bkgqt", dog[:, qi], vv)
+            ds = p * (dp - dsum[:, qi][..., None])
+            dq[qi] = dq[qi] + torch.einsum("bkgqt,btkd->bqkgd", ds, kk) * scale
+            dk = dk + torch.einsum("bkgqt,bqkgd->btkd", ds, qg[:, qi]) * scale
+            dv = dv + torch.einsum("bkgqt,bqkgd->btkd", p, dog[:, qi])
+        dks.append(dk)
+        dvs.append(dv)
+    dq = torch.cat(dq, dim=1)[:, :s].reshape(b, s, h, d).to(q.dtype)
+    return dq, torch.cat(dks, dim=1)[:, :t].to(k.dtype), torch.cat(dvs, dim=1)[:, :t].to(v.dtype)
 
 def decode_attention(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor

@@ -12,23 +12,35 @@ that holds the same leaves under the reference's names (``p["wq"]``,
 of per-layer trees, so the forward pass is a Python loop over layers in
 place of ``lax.scan``.
 
-Weights are stored in the compute dtype.  The reference keeps fp32 masters
-and casts each weight with ``.astype(dt)`` at every use; casting once at
-load gives exactly the same values without re-reading the fp32 masters on
-every decode step.  The leaves the reference reads in fp32 stay fp32
-(``keeps_fp32``): norm gains, the MoE router, the xLSTM gate biases and
-sLSTM recurrence, and the Mamba2 decay, step bias, skip and gate norm.
-The loss functions wait for the training slice.
+Serving stores weights in the compute dtype.  The reference keeps fp32
+masters and casts each weight with ``.astype(dt)`` at every use; casting
+once at load gives exactly the same values without re-reading the fp32
+masters on every decode step.  The leaves the reference reads in fp32 stay
+fp32 (``keeps_fp32``): norm gains, the MoE router, the xLSTM gate biases
+and sLSTM recurrence, and the Mamba2 decay, step bias, skip and gate norm.
+
+Training keeps fp32 masters that require grad (``materialize(...,
+trainable=True)``) and the forward reads them through a ``ComputeView``,
+which casts each leaf where it is read, as the reference does; the casts
+are autograd operations, so the gradients land on the masters in fp32.
+``maybe_remat`` is the reference's activation-checkpoint policy, and
+``cross_entropy_loss`` / ``chunked_lm_loss`` its masked LM losses.
+``tree_leaves``, ``map_tree`` and ``leaf_groups`` walk a parameter or
+train-state tree in the reference's flattening order (sorted dict keys),
+``leaf_groups`` under the reference's ``keystr`` paths with the per-layer
+lists stacked back along their leading axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 Tensor = torch.Tensor
 
@@ -101,19 +113,20 @@ class ParamTree(nn.Module):
     """Parameters addressed like the reference's dict tree.
 
     ``tree`` is a nested dict of tensors; a list value becomes an
-    ``nn.ModuleList`` of trees (the per-layer blocks).  Parameters carry no
-    gradient: the serving slice only runs forward.
+    ``nn.ModuleList`` of trees (the per-layer blocks).  Serving's trees
+    (``load_params``, ``cast_params``) carry no gradient; a ``trainable``
+    tree (the training path's fp32 masters) requires grad on every leaf.
     """
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, *, trainable: bool = False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, trainable=trainable))
             elif isinstance(value, (list, tuple)):
-                self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
+                self.add_module(name, nn.ModuleList(ParamTree(v, trainable=trainable) for v in value))
             else:
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value, requires_grad=trainable))
 
     def __getitem__(self, name: str):
         if name in self._parameters:
@@ -191,12 +204,15 @@ def load_params(tree: dict, dtype: torch.dtype) -> ParamTree:
     return ParamTree(_unstack_layers(_cast(tree, dtype)))
 
 
-def materialize(tree: dict, generator: torch.Generator, dtype: torch.dtype = torch.float32) -> ParamTree:
+def materialize(tree: dict, generator: torch.Generator, dtype: torch.dtype = torch.float32, *,
+                trainable: bool = False) -> ParamTree:
     """Instantiate every Param leaf with its init law, drawn in fp32 on the
     generator's device in sorted-key order and cast leaf by leaf to ``dtype``
     (the ``keeps_fp32`` leaves stay fp32).  The draws differ from the reference's
-    ``jax.random`` bits; the laws are the same."""
-    return load_params(tree_map(lambda name, p: _cast(_leaf_init(p, generator), dtype, name), tree), dtype)
+    ``jax.random`` bits; the laws are the same.  ``trainable`` (fp32
+    masters for training) makes every leaf require grad."""
+    leaves = tree_map(lambda name, p: _cast(_leaf_init(p, generator), dtype, name), tree)
+    return ParamTree(_unstack_layers(_cast(leaves, dtype)), trainable=trainable)
 
 
 def cast_params(params: ParamTree, dtype: torch.dtype) -> ParamTree:
@@ -204,6 +220,137 @@ def cast_params(params: ParamTree, dtype: torch.dtype) -> ParamTree:
     ``keeps_fp32`` leaves stay fp32): the compute-dtype copy of fp32
     masters."""
     return ParamTree(_cast(params.to_tree(), dtype))
+
+
+# ---------------------------------------------------------------------------
+# Trees: parameters, gradients, optimizer moments and train states
+# ---------------------------------------------------------------------------
+
+
+def _children(node) -> list | None:
+    """(key, child) pairs of a dict-like node in sorted-key order (the order
+    in which JAX flattens a dict), or None when ``node`` is not one."""
+    if isinstance(node, ParamTree):
+        items = {**node._parameters, **node._modules}
+    elif isinstance(node, dict):
+        items = node
+    else:
+        return None
+    return [(k, items[k]) for k in sorted(items)]
+
+
+def tree_leaves(tree) -> list:
+    """Every tensor of a nested ``ParamTree`` / dict / per-layer list, depth
+    first in sorted-key order, layer by layer; None leaves are skipped.  Two
+    trees of one structure give their leaves in the same order."""
+    kids = _children(tree)
+    if kids is not None:
+        return [leaf for _, child in kids for leaf in tree_leaves(child)]
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return [leaf for child in tree for leaf in tree_leaves(child)]
+    return [] if tree is None else [tree]
+
+
+def map_tree(fn: Callable, tree, *rest):
+    """``fn`` applied leaf by leaf over trees of one structure (the first a
+    ``ParamTree`` or nested dict/list, the others nested dicts/lists or
+    ``ParamTree``s); returns nested dicts and lists."""
+    kids = _children(tree)
+    if kids is not None:
+        return {k: map_tree(fn, child, *(r[k] for r in rest)) for k, child in kids}
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return [map_tree(fn, child, *(r[i] for r in rest)) for i, child in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def leaf_groups(tree, path: str = "") -> list[tuple[str, list, bool]]:
+    """(path, leaves, stacked) for every leaf of a state tree, in the
+    reference's flattening order and under the paths ``jax.tree_util.keystr``
+    gives its twin: ``.field`` for a NamedTuple's fields, ``['key']`` for
+    dict keys.  A per-layer list is one group per leaf path whose
+    ``leaves`` are the layers' tensors in order (``stacked``: the reference
+    holds them as one (L, ...) array); any other leaf (a tensor, an array,
+    an int) is a group of one.  None leaves are skipped, as JAX skips them."""
+    if hasattr(tree, "_fields"):
+        return [g for f in tree._fields for g in leaf_groups(getattr(tree, f), f"{path}.{f}")]
+    kids = _children(tree)
+    if kids is not None:
+        return [g for k, child in kids for g in leaf_groups(child, f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        per_layer = [leaf_groups(child, path) for child in tree]
+        return [(name, [leaf for layer in per_layer for leaf in layer[i][1]], True)
+                for i, (name, _, _) in enumerate(per_layer[0])]
+    return [] if tree is None else [(path, [tree], False)]
+
+
+class ComputeView:
+    """Fp32 master parameters as the forward reads them: each leaf cast to
+    the compute dtype where it is read, as the reference casts its masters
+    (``.astype(x.dtype)``) at every use.  The ``keeps_fp32`` leaves come
+    back in fp32 and the embedding table as stored (it is indexed in its
+    own dtype and the rows cast after, and unembedding casts it itself).
+    Per-layer lists come back as lists of views.  Each read is an autograd
+    cast, so gradients land on the masters in fp32.  The model code reads a
+    view as it reads a ``ParamTree``: ``p["wq"]``, ``"bq" in p``, ``for
+    layer in p["layers"]``."""
+
+    __slots__ = ("_node", "_dtype")
+
+    def __init__(self, node, dtype: torch.dtype):
+        self._node, self._dtype = node, dtype
+
+    def __getitem__(self, name: str):
+        child = self._node[name]
+        if isinstance(child, (ParamTree, dict)):
+            return ComputeView(child, self._dtype)
+        if isinstance(child, (list, nn.ModuleList)):
+            return [ComputeView(c, self._dtype) for c in child]
+        if name == "embed":
+            return child
+        return child.to(torch.float32 if keeps_fp32(name) else self._dtype)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._node
+
+
+def cast_masters(params: ParamTree, dtype: torch.dtype) -> dict:
+    """The reference's ``cast_params`` of a train step: every fp32 leaf of
+    two or more dims cast to ``dtype`` once (an autograd cast; the rest
+    kept), as nested dicts and lists."""
+    return map_tree(lambda p: p.to(dtype) if p.dtype == torch.float32 and p.ndim >= 2 else p, params)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of the products without batch
+    dimensions (the projections), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, policy: str) -> Callable:
+    """Wrap a block fn with the config's activation-checkpoint policy, the
+    twin of the reference's ``jax.checkpoint`` policies: ``"none"`` keeps
+    every activation, ``"full"`` keeps only the block's inputs and
+    recomputes its forward in the backward, ``"dots"`` keeps the outputs of
+    the products without batch dimensions (the reference's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest.  Without
+    a gradient being recorded the block runs as it is."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        kw = {}
+    elif policy == "dots":
+        kw = {"context_fn": functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, _save_products)}
+    else:
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+    def block(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return block
 
 
 # ---------------------------------------------------------------------------
@@ -247,3 +394,55 @@ def softcap(logits: Tensor, cap: float) -> Tensor:
     if cap <= 0.0:
         return logits
     return torch.tanh(logits / cap) * cap
+
+
+def _ce_sums(logits: Tensor, labels: Tensor, vocab_size: int, z_loss: float):
+    """Masked CE partial sums: (nll_sum, z_sum, valid_count), fp32."""
+    logits = logits.to(torch.float32)
+    v_pad = logits.shape[-1]
+    if v_pad > vocab_size:
+        logits = torch.where(torch.arange(v_pad, device=logits.device) < vocab_size, logits, -1e30)
+    valid = labels >= 0
+    labels_c = torch.clamp(labels, 0, vocab_size - 1).to(torch.int64)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = torch.where(valid, logz - gold, 0.0)
+    zl = torch.where(valid, z_loss * torch.square(logz), 0.0)
+    return torch.sum(nll), torch.sum(zl), torch.sum(valid)
+
+
+def _loss_metrics(nll_sum: Tensor, z_sum: Tensor, n_valid: Tensor) -> tuple[Tensor, dict]:
+    denom = torch.clamp(n_valid, min=1)
+    loss = (nll_sum + z_sum) / denom
+    return loss, {"loss": loss, "nll": nll_sum / denom, "tokens": denom.to(torch.float32)}
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor, vocab_size: int, z_loss: float = 1e-4):
+    """Masked softmax cross-entropy with z-loss, fp32 accumulation.
+
+    logits (B, S, V_padded) in the compute dtype, labels (B, S) int (< 0
+    ignored), ``vocab_size`` the true vocabulary: the padded tail is masked
+    to -1e30, so pad entries get no probability mass whatever their
+    weights.  Returns (loss, {"loss", "nll", "tokens"})."""
+    return _loss_metrics(*_ce_sums(logits, labels, vocab_size, z_loss))
+
+
+def chunked_lm_loss(h: Tensor, unembed: Tensor, labels: Tensor, vocab_size: int, chunk: int,
+                    z_loss: float = 1e-4, logit_softcap: float = 0.0):
+    """Sequence-chunked CE over final hidden states h (B, S, d) (ln_f
+    applied) and the unembedding (d, V_padded): the logits are formed one
+    (B, chunk, V) slice at a time, the partial sums added in the
+    reference's order.  Returns what ``cross_entropy_loss`` does."""
+    b, s, d = h.shape
+    pad = (-s) % chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    w = unembed.to(h.dtype)
+    nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    n_valid = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(0, h.shape[1], chunk):
+        logits = softcap(h[:, i:i + chunk] @ w, logit_softcap)
+        nll, zl, cnt = _ce_sums(logits, labels[:, i:i + chunk], vocab_size, z_loss)
+        nll_sum, z_sum, n_valid = nll_sum + nll, z_sum + zl, n_valid + cnt
+    return _loss_metrics(nll_sum, z_sum, n_valid)

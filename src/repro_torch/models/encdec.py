@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention_apply, attention_decode, attention_params
-from repro_torch.models.common import Param, rms_norm, stack_params
+from repro_torch.models.common import Param, maybe_remat, rms_norm, stack_params
 from repro_torch.models.mlp import mlp_apply, mlp_params
 from repro_torch.models.transformer import _positions, compute_dtype, embed_tokens, lm_logits
 
@@ -66,13 +66,19 @@ def encdec_params(cfg: ArchConfig) -> dict:
 
 
 def encode(params, src_embeds: Tensor, cfg: ArchConfig) -> Tensor:
-    """(B, S_src, F) frame embeddings -> (B, S_src, d) memory."""
+    """(B, S_src, F) frame embeddings -> (B, S_src, d) memory; each layer
+    under ``cfg.remat``."""
     p = params["proj"]
     h = rms_norm(src_embeds.to(compute_dtype(cfg)), p["ln"], cfg.norm_eps) @ p["w"]
     positions = _positions(h.shape[0], h.shape[1], h.device)
+
+    def layer_fn(layer, x):
+        x = x + attention_apply(layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), positions, cfg, causal=False)
+        return x + mlp_apply(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps), cfg)
+
+    block = maybe_remat(layer_fn, cfg.remat)
     for layer in params["enc_layers"]:
-        h = h + attention_apply(layer["attn"], rms_norm(h, layer["ln1"], cfg.norm_eps), positions, cfg, causal=False)
-        h = h + mlp_apply(layer["mlp"], rms_norm(h, layer["ln2"], cfg.norm_eps), cfg)
+        h = block(layer, h)
     return rms_norm(h, params["enc_ln_f"], cfg.norm_eps)
 
 
@@ -93,12 +99,13 @@ def _dec_block(layer, x: Tensor, positions: Tensor, memory: Tensor, cfg: ArchCon
 
 def encdec_train(params, src_embeds: Tensor, tgt_tokens: Tensor, cfg: ArchConfig):
     """Teacher-forced full-sequence decode over the encoded source: (logits
-    (B, S, V_padded), aux 0), forward only."""
+    (B, S, V_padded), aux 0); each decoder layer under ``cfg.remat``."""
     memory = encode(params, src_embeds, cfg)
     h = embed_tokens(params, tgt_tokens, cfg)
     positions = _positions(h.shape[0], h.shape[1], h.device)
+    block = maybe_remat(lambda layer, x: _dec_block(layer, x, positions, memory, cfg)[0], cfg.remat)
     for layer in params["dec_layers"]:
-        h = _dec_block(layer, h, positions, memory, cfg)[0]
+        h = block(layer, h)
     return lm_logits(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
 
 

@@ -6,13 +6,16 @@ KV cache as an option of each), hybrid (zamba2), ssm (xLSTM) and encdec
 ``build(cfg)`` returns a :class:`ModelApi`:
 
 - ``params_def``                        declarative Param tree
+- ``loss(params, batch)``               -> (loss, metrics): the full train
+  forward + masked CE (+ the MoE aux loss, weighted ``MOE_AUX_WEIGHT``)
 - ``prefill(params, batch)``            -> (last logits, decode cache)
 - ``decode(params, cache, token, pos)`` -> (logits, cache)   [serve step]
-- ``prefill_inputs/decode_inputs(shape)`` TensorSpec trees
+- ``train_inputs/prefill_inputs/decode_inputs(shape)`` TensorSpec trees
 - ``cache_spec(shape)``                 TensorSpec tree matching the cache
 
-``loss`` and ``train_inputs`` wait for the training slice (ROADMAP Queue 1
-item 9.7).
+``loss`` reads ``params`` as the other entry points do: a ``ParamTree`` in
+the compute dtype, or the training path's ``common.ComputeView`` of fp32
+masters.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.common import chunked_lm_loss, cross_entropy_loss, rms_norm
+
+MOE_AUX_WEIGHT = 0.01
 
 #: Source length of an encoder-decoder's cross-attention memory in the
 #: cache spec of a decode cell (a ~30 s utterance), as the reference's.
@@ -44,8 +50,10 @@ class TensorSpec:
 class ModelApi:
     cfg: ArchConfig
     params_def: Any
+    loss: Callable             # (params, batch) -> (loss, metrics)
     prefill: Callable          # (params, batch) -> (logits, cache)
     decode: Callable           # (params, cache, token, pos) -> (logits, cache)
+    train_inputs: Callable     # (ShapeConfig) -> TensorSpec tree
     prefill_inputs: Callable   # (ShapeConfig) -> TensorSpec tree
     decode_inputs: Callable    # (ShapeConfig) -> token/pos specs
     cache_spec: Callable       # (ShapeConfig) -> TensorSpec tree
@@ -59,12 +67,47 @@ def _decode_inputs(shape: ShapeConfig) -> dict:
     return {"token": _tok(shape.global_batch, 1), "pos": TensorSpec((), torch.int32, ())}
 
 
+def _with_labels(prefill_inputs: Callable) -> Callable:
+    """train_inputs: the prefill inputs plus labels shaped like the tokens."""
+    def train_inputs(shape: ShapeConfig) -> dict:
+        spec = prefill_inputs(shape)
+        return {**spec, "labels": spec["tokens"]}
+    return train_inputs
+
+
+def _lm_loss(forward: Callable, cfg: ArchConfig) -> Callable:
+    """loss for a family whose ``forward(params, batch)`` gives (logits, aux)."""
+    def loss(params, batch):
+        logits, _ = forward(params, batch)
+        return cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
+    return loss
+
+
 def _build_decoder(cfg: ArchConfig) -> ModelApi:
     """dense / moe / vlm.  A VLM prompt of ``seq_len`` is ``frontend_tokens``
     patch embeddings followed by ``seq_len - frontend_tokens`` tokens."""
     vlm = cfg.family == "vlm"
     n_scan = tf.scanned_layers(cfg)
     cdt = tf.compute_dtype(cfg)
+
+    def loss(params, batch):
+        prefix = batch.get("patches") if vlm else None
+        labels = batch["labels"]
+        if vlm:  # no label at the patch positions
+            labels = torch.cat([labels.new_full((labels.shape[0], cfg.frontend_tokens), -1), labels], dim=1)
+        if cfg.ce_chunk > 0:
+            h, aux = tf.decoder_hidden_states(params, batch["tokens"], cfg, prefix_embeds=prefix)
+            h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+            w = params["unembed"] if "unembed" in params else params["embed"].T
+            l, metrics = chunked_lm_loss(h, w, labels, cfg.vocab_size, cfg.ce_chunk, logit_softcap=cfg.logit_softcap)
+        else:
+            logits, aux = tf.decoder_train(params, batch["tokens"], cfg, prefix_embeds=prefix)
+            l, metrics = cross_entropy_loss(logits, labels, cfg.vocab_size)
+        if cfg.family == "moe":
+            l = l + MOE_AUX_WEIGHT * aux
+            metrics["moe_aux"] = aux
+        metrics["loss"] = l
+        return l, metrics
 
     def prefill(params, batch):
         return tf.decoder_prefill(params, batch["tokens"], cfg, prefix_embeds=batch.get("patches") if vlm else None)
@@ -96,7 +139,8 @@ def _build_decoder(cfg: ArchConfig) -> ModelApi:
             spec["k0"] = spec["v0"] = TensorSpec(kv[1:], cdt, kv_axes[1:])
         return spec
 
-    return ModelApi(cfg, tf.decoder_params(cfg), prefill, decode, prefill_inputs, _decode_inputs, cache_spec)
+    return ModelApi(cfg, tf.decoder_params(cfg), loss, prefill, decode, _with_labels(prefill_inputs), prefill_inputs,
+                    _decode_inputs, cache_spec)
 
 
 def _build_xlstm(cfg: ArchConfig) -> ModelApi:
@@ -118,7 +162,9 @@ def _build_xlstm(cfg: ArchConfig) -> ModelApi:
         spec.update({name: s_state for name in xlstm_mod.S_KEYS})
         return spec
 
-    return ModelApi(cfg, xlstm_mod.xlstm_params(cfg), prefill, decode, prefill_inputs, _decode_inputs, cache_spec)
+    loss = _lm_loss(lambda params, batch: xlstm_mod.xlstm_train(params, batch["tokens"], cfg), cfg)
+    return ModelApi(cfg, xlstm_mod.xlstm_params(cfg), loss, prefill, decode, _with_labels(prefill_inputs),
+                    prefill_inputs, _decode_inputs, cache_spec)
 
 
 def _build_hybrid(cfg: ArchConfig) -> ModelApi:
@@ -145,7 +191,9 @@ def _build_hybrid(cfg: ArchConfig) -> ModelApi:
             "conv": TensorSpec((layers, b, cfg.ssm_conv - 1, cfg.d_inner), cdt, ("layers", "batch", None, "mlp")),
         }
 
-    return ModelApi(cfg, tf.hybrid_params(cfg), prefill, decode, prefill_inputs, _decode_inputs, cache_spec)
+    loss = _lm_loss(lambda params, batch: tf.hybrid_train(params, batch["tokens"], cfg), cfg)
+    return ModelApi(cfg, tf.hybrid_params(cfg), loss, prefill, decode, _with_labels(prefill_inputs), prefill_inputs,
+                    _decode_inputs, cache_spec)
 
 
 def _build_encdec(cfg: ArchConfig) -> ModelApi:
@@ -173,7 +221,10 @@ def _build_encdec(cfg: ArchConfig) -> ModelApi:
         cross = TensorSpec((layers, b, min(s, DECODE_SRC_LEN), cfg.num_kv_heads, cfg.head_dim), cdt, axes)
         return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
 
-    return ModelApi(cfg, encdec_mod.encdec_params(cfg), prefill, decode, prefill_inputs, _decode_inputs, cache_spec)
+    loss = _lm_loss(lambda params, batch: encdec_mod.encdec_train(params, batch["src_embeds"], batch["tokens"], cfg),
+                    cfg)
+    return ModelApi(cfg, encdec_mod.encdec_params(cfg), loss, prefill, decode, _with_labels(prefill_inputs),
+                    prefill_inputs, _decode_inputs, cache_spec)
 
 
 _BUILDERS = {

@@ -110,7 +110,7 @@ def ssd_chunked(
     # Intra-chunk: y[i] += sum_{j<=i} exp(cum_i - cum_j) (C_i.B_j) dt_j x_j
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B, nc, Qi, Qj, H)
     tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(li), 0.0)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], li, -torch.inf))
     scores = torch.einsum("bcihn,bcjhn->bcijh", c32, b32)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores * decay * dtc[:, :, None], x32)
 

@@ -11,8 +11,11 @@ With ``cfg.kv_cache_dtype == "int8"`` the scanned layers' cache is int8
 with bf16 row scales (``k0``/``v0`` stay in the compute dtype, as in the
 reference).  Entry points:
 
-- ``decoder_train``   : tokens -> (logits over the full sequence, MoE aux),
-  forward only (the consistency checks compare the serving path against it);
+- ``decoder_hidden_states`` / ``decoder_train`` : tokens -> final hidden
+  states / logits over the full sequence, and the MoE aux: the training
+  forward (each block under the config's ``remat`` policy,
+  ``common.maybe_remat``), and what the consistency checks compare the
+  serving path against;
 - ``decoder_prefill`` : tokens -> (last-position logits, decode cache);
 - ``decoder_decode``  : one token + cache -> (logits, cache), the cache
   updated in place.
@@ -22,7 +25,8 @@ The hybrid stack (zamba2) is a Mamba2 backbone (``params["layers"]``, each
 (``params["shared"]``) applied before layers 0, k, 2k, ... (k =
 ``attn_every``); its cache holds one KV pair per application point
 (``attn_k``/``attn_v``, indexed ``idx // k``), each layer's SSM state
-``ssm_h`` (fp32) and conv tail ``conv``.  ``hybrid_train`` (forward only),
+``ssm_h`` (fp32) and conv tail ``conv``.  ``hybrid_train`` (remat'd per
+layer, shared block included, as the reference's scan body),
 ``hybrid_prefill`` and ``hybrid_decode`` mirror the three entry points
 above.
 """
@@ -34,7 +38,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref
 from repro_torch.models.attention import attention_apply, attention_decode, attention_params
-from repro_torch.models.common import Param, rms_norm, softcap, stack_params
+from repro_torch.models.common import Param, maybe_remat, rms_norm, softcap, stack_params
 from repro_torch.models.mlp import mlp_apply, mlp_params
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.ssm import mamba_apply, mamba_decode, mamba_params
@@ -182,24 +186,33 @@ def _positions(b: int, s: int, device) -> Tensor:
 
 
 def decoder_hidden(params, h: Tensor, positions: Tensor, cfg: ArchConfig):
-    """Run the full decoder over hidden states.  Returns (h, aux_loss): the
-    MoE aux summed over the scanned layers (0 for dense and VLM)."""
+    """Run the full decoder over hidden states, each block under
+    ``cfg.remat``.  Returns (h, aux_loss): the MoE aux summed over the
+    scanned layers (0 for dense and VLM)."""
     moe = _is_moe(cfg)
     if "dense0" in params:
-        h, _ = _dense_block(params["dense0"], h, positions, cfg, moe=False)
+        block0 = maybe_remat(lambda p, x: _dense_block(p, x, positions, cfg, moe=False), cfg.remat)
+        h, _ = block0(params["dense0"], h)
+    block = maybe_remat(lambda p, x: _dense_block(p, x, positions, cfg, moe=moe), cfg.remat)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in params["layers"]:
-        h, a = _dense_block(layer, h, positions, cfg, moe=moe)
+        h, a = block(layer, h)
         if a is not None:
             aux = aux + a
     return h, aux
 
 
+def decoder_hidden_states(params, tokens: Tensor, cfg: ArchConfig, *, prefix_embeds: Tensor | None = None):
+    """tokens (B, S) [with an optional (B, P, F) frontend prefix] -> (final
+    hidden states (B, P+S, d) before ``ln_f``, aux)."""
+    h = _embed_inputs(params, tokens, cfg, prefix_embeds)
+    return decoder_hidden(params, h, _positions(h.shape[0], h.shape[1], h.device), cfg)
+
+
 def decoder_train(params, tokens: Tensor, cfg: ArchConfig, *, prefix_embeds: Tensor | None = None):
     """tokens (B, S) [with an optional (B, P, F) frontend prefix] ->
-    (logits (B, P+S, V_padded), aux), forward only."""
-    h = _embed_inputs(params, tokens, cfg, prefix_embeds)
-    h, aux = decoder_hidden(params, h, _positions(h.shape[0], h.shape[1], h.device), cfg)
+    (logits (B, P+S, V_padded), aux)."""
+    h, aux = decoder_hidden_states(params, tokens, cfg, prefix_embeds=prefix_embeds)
     return lm_logits(params, h, cfg), aux
 
 
@@ -262,14 +275,21 @@ def n_attn_points(cfg: ArchConfig) -> int:
 
 
 def hybrid_train(params, tokens: Tensor, cfg: ArchConfig):
-    """tokens (B, S) -> (logits (B, S, V_padded), aux 0), forward only."""
+    """tokens (B, S) -> (logits (B, S, V_padded), aux 0); each layer (with
+    the shared block before it at an application point) under
+    ``cfg.remat``."""
     h = embed_tokens(params, tokens, cfg)
     positions = _positions(h.shape[0], h.shape[1], h.device)
     k = _attn_every(cfg)
+
+    def layer_fn(layer, shared, x, with_attn):
+        if with_attn:
+            x, _ = _dense_block(shared, x, positions, cfg, moe=False)
+        return x + mamba_apply(layer["mamba"], rms_norm(x, layer["ln"], cfg.norm_eps), cfg)
+
+    block = maybe_remat(layer_fn, cfg.remat)
     for idx, layer in enumerate(params["layers"]):
-        if idx % k == 0:
-            h, _ = _dense_block(params["shared"], h, positions, cfg, moe=False)
-        h = h + mamba_apply(layer["mamba"], rms_norm(h, layer["ln"], cfg.norm_eps), cfg)
+        h = block(layer, params["shared"], h, idx % k == 0)
     return lm_logits(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
 
 

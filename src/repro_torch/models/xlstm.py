@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import Param, rms_norm, softcap, stack_params
+from repro_torch.models.common import Param, maybe_remat, rms_norm, softcap, stack_params
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models.transformer import compute_dtype
 
@@ -230,10 +230,12 @@ def _logits(params, h: Tensor, cfg: ArchConfig) -> Tensor:
 
 
 def xlstm_train(params, tokens: Tensor, cfg: ArchConfig):
-    """Full forward (B, S) -> (logits (B, S, V_padded), aux = 0)."""
+    """Full forward (B, S) -> (logits (B, S, V_padded), aux = 0), each
+    (mLSTM, sLSTM) pair under ``cfg.remat``."""
     h = _embed(params, tokens, cfg)
+    block = maybe_remat(lambda pair, x: slstm_apply(pair["s"], mlstm_apply(pair["m"], x, cfg), cfg), cfg.remat)
     for pair in params["pairs"]:
-        h = slstm_apply(pair["s"], mlstm_apply(pair["m"], h, cfg), cfg)
+        h = block(pair, h)
     return _logits(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
 
 

@@ -511,6 +511,61 @@ def test_cuda_flash_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", FLASH_CUDA_CASES)
+def test_cuda_flash_lse_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
+    """With an ``lse`` buffer both kernels store each row's log-sum-exp:
+    within 2e-5 of the plain ``flash_fwd``'s (of max(1, |lse|)) on rows
+    with a live key, the reference's -1e30 on rows without one; the output
+    is the same bits as without the store."""
+    fa = cuda_attention[0]
+    rng = np.random.default_rng(s + t + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+               for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+    lse = torch.full((b, hkv, h // hkv, s), float("nan"), device="cuda")
+    out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal))
+    want_out, want_lse = ref.flash_fwd(q, k, v, causal)
+    _assert_attention_close(out, want_out, dtype)
+    live = want_lse > -1e29
+    assert bool((lse[~live] <= -1e29).all())
+    err = float((lse - want_lse)[live].abs().max()) if live.any() else 0.0
+    assert err <= 2e-5 * max(1.0, float(want_lse[live].abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", FLASH_CUDA_CASES)
+def test_cuda_flash_backward_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
+    """``ops.flash_attention`` with a gradient on CUDA: one kernel launch
+    with the lse store, then ``ref.flash_bwd``; its dq, dk, dv against
+    ``flash_bwd`` from the plain forward's (out, lse).  fp32: 1e-4 of
+    max(1, max|want|) plus 1e-3 of each value (the two outputs differ in
+    the last bits, through rowsum(dO * O)); bf16: 2e-2 of both (the
+    kernel's output rounds P to bf16)."""
+    from repro_torch.kernels import ops
+
+    fa = cuda_attention[0]
+    rng = np.random.default_rng(s + t + 2)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+                   for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d)))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    before = fa.flash_attention.launches
+    got = torch.autograd.grad(ops.flash_attention(qg, kg, vg, causal=causal), (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want_out, want_lse = ref.flash_fwd(q, k, v, causal)
+    want = ref.flash_bwd(q, k, v, want_out, want_lse, do, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = max(1.0, float(w.float().abs().max()))
+        atol, rtol = (1e-4 * scale, 1e-3) if dtype == torch.float32 else (2e-2 * scale, 2e-2)
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= atol + rtol * w.float().abs()).all()), (name, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,s,h,hkv,d,lengths",
     [(3, 100, 8, 8, 32, [1, 100, 37]), (2, 70, 4, 2, 16, [70, 1]), (8, 600, 16, 8, 128, [575, 1, 64, 65, 600, 2, 300, 128]),

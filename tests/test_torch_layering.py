@@ -6,9 +6,9 @@
   ``repro``, not even a module of it that does not import JAX;
 - every module has a docstring;
 - the layer order of ``PERF.md`` §3 holds — kernels -> core/engine (with
-  distributed, the node-axis mesh) -> core/sessions -> core/profiler ->
-  serving — with no import from a lower layer into a higher one.
-  Function-scope imports count too.
+  distributed, the node-axis mesh and the checkpoints, and the models) ->
+  core/sessions and training -> core/profiler -> serving — with no import
+  from a lower layer into a higher one.  Function-scope imports count too.
 
 ``scripts/check_layering.py`` and the ``scripts/ci.sh`` docstring gate walk
 only ``src/repro``; this file is their counterpart for the port.
@@ -21,7 +21,7 @@ SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 PKG = SRC / "repro_torch"
 
 # Longest-prefix match decides a module's layer; unlisted packages
-# (telemetry, workload, data, models, configs, launch, device, convert) are
+# (telemetry, workload, data, configs, launch, device, convert) are
 # infrastructure shared across layers and not constrained.
 LAYERS = {
     "repro_torch.kernels": 0,
@@ -38,7 +38,9 @@ LAYERS = {
     "repro_torch.core.pricing": 1,
     "repro_torch.core.baselines": 1,
     "repro_torch.distributed": 1,
+    "repro_torch.models": 1,
     "repro_torch.core.sessions": 2,
+    "repro_torch.training": 2,
     "repro_torch.core.profiler": 3,
     "repro_torch.core": 3,  # the package facade re-exports the profiler
     "repro_torch.serving": 4,
@@ -107,7 +109,7 @@ def test_example_twins_import_neither_jax_nor_the_reference():
                 [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             bad += [f"{path.name}:{node.lineno} imports {n}" for n in names
                     if n.split(".")[0] in ("jax", "jaxlib", "repro")]
-    assert len(scripts) == 4 and not bad, bad
+    assert len(scripts) == 5 and not bad, bad
 
 
 def test_every_module_has_a_docstring():
@@ -158,6 +160,25 @@ def test_layer_map_places_the_elastic_slice():
         "repro_torch.distributed.sharding": 1,
         "repro_torch.core.sessions.slots": 2,
         "repro_torch.serving.scheduler": 4,
+    }
+    assert {mod: _layer(mod) for mod in expected} == expected
+    assert all(mod in MODULES for mod in expected)
+
+
+def test_layer_map_places_the_training_slice():
+    """The training slice sits above what it drives: the step loop and the
+    optimizer over the models, the checkpoints beside the node-axis mesh in
+    ``distributed``."""
+    expected = {
+        "repro_torch.training": 2,
+        "repro_torch.training.optimizer": 2,
+        "repro_torch.training.train_step": 2,
+        "repro_torch.training.trainer": 2,
+        "repro_torch.distributed.checkpoint": 1,
+        "repro_torch.models.common": 1,
+        "repro_torch.models.model_zoo": 1,
+        "repro_torch.kernels.ops": 0,
+        "repro_torch.launch.train": None,
     }
     assert {mod: _layer(mod) for mod in expected} == expected
     assert all(mod in MODULES for mod in expected)

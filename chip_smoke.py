@@ -153,7 +153,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    24 flash launches a step, all tensor-core; one warm step traced (busy,
    idle share, the flash forward's and ``flash_bwd``'s shares), step
    time, tokens/s, 6ND against 989 TFLOP/s, peak memory.
-14. Examples: the five twins in ``examples_torch/`` on the card
+   The launcher places the state on the local mesh (1, 1) ("data",
+   "model") under ``TRAIN_RULES``; on one device every leaf stays a plain
+   tensor (checked).
+14. Distributed, on a one-rank NCCL group made in this process (a
+   ``TCPStore`` on a free port; the group is destroyed at the phase's end)
+   and the local mesh (1, 1): (b) olmoe-1b-7b's MoE block at full width on
+   tokens 8 x 512 through ``moe_apply``'s EP path (``use_rules``) against
+   the capacity path, outputs, aux and the gradients of x and the expert
+   weights, fp32 (1e-5 of scale, bitwise printed) and bf16 (2e-2), both
+   timed; (c) the int8 and exact all-to-alls at (64, cap, 2048) bf16,
+   bitwise against their plain versions, µs and device operations per
+   call; (f) ``--mesh pod`` raising with the 256 ranks it needs; (e) the
+   training phase's last checkpoint restored with ``state_shardings`` on
+   the local mesh, bitwise against the unplaced restore; (d)
+   ``compressed_pod_mean`` on a one-rank "pod" mesh over the restored
+   1.896e9-element parameter tree, each leaf within amax/127 + 1e-6; (g)
+   ``launch.costs.step_cost`` of the training cell beside its measured
+   step.  No hand kernel runs here (every count stays 0).
+15. Examples: the five twins in ``examples_torch/`` on the card
    (``quickstart``, ``stream_energy``, ``capped_cluster`` and
    ``train_energy`` in this process, ``serve_energy`` as its own).
 
@@ -167,7 +185,8 @@ training path, is watched too.
 
 Output: one line per measurement, a ``combined_control {...}`` JSON line of
 phases 5-6, an ``elastic {...}`` one of phase 7, a ``families {...}``
-one of phase 12 and a ``training {...}`` one of phase 13, then a
+one of phase 12, a ``training {...}`` one of phase 13 and a
+``distributed {...}`` one of phase 14, then a
 ``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; no network.
@@ -332,6 +351,9 @@ DECODE_STATIC = [(8, 512, (512,) * 8, 16, 16, 64), (2, 4096, (4096,) * 2, 16, 16
 TRAIN_STEPS, TRAIN_CRASH = 12, 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_ARGS = ["--arch", ARCH, "--steps", str(TRAIN_STEPS)]
+# The same step before the launcher placed its state (no mesh), on an H100
+# 80GB HBM3 at 700 W (PERF.md §5): printed beside this run's.
+TRAIN_STEP_UNPLACED_S = (0.7525, 0.7564)
 FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, HKV, HD, True)  # every attention layer's flash call in a step
 # The flash VJP's parity cases (B, S, T, H, Hkv, d, causal, dtype): bf16 at d
 # 64/112/128 (the tensor-core forward) and fp32 (the FMA forward), causal and
@@ -356,6 +378,22 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def idle_power() -> dict:
+    """The card's power draw at rest (the median of 10 ``nvidia-smi``
+    samples 0.2 s apart, before any work) and its power limit, in W: the
+    source of ``launch.mesh``'s ``CHIP_IDLE_W`` (the idle draw) and
+    ``CHIP_DYN_W`` (the limit less the idle draw)."""
+    draws, limit = [], float("nan")
+    for _ in range(10):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=power.draw,power.limit", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout
+        draw, limit = (float(v) for v in out.strip().splitlines()[0].split(","))
+        draws.append(draw)
+        time.sleep(0.2)
+    idle = statistics.median(draws)
+    return dict(idle_w=idle, limit_w=limit, dyn_w=limit - idle, samples=draws)
 
 
 def gram_work(g: int, n: int, m: int) -> tuple[float, float]:
@@ -3080,7 +3118,7 @@ class _Crash(Exception):
     """Stands for the job dying right after a checkpoint was committed."""
 
 
-def phase_train_full(ref, counter, device="cuda", reduced=False) -> dict:
+def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False) -> dict:
     """internlm2-1.8b at full width and depth through ``launch.train.main``
     (12 steps): once straight through without checkpoints, once with
     ``--ckpt-dir`` and ``--ckpt-every 8`` killed right after step 8's
@@ -3093,8 +3131,12 @@ def phase_train_full(ref, counter, device="cuda", reduced=False) -> dict:
     (step 8, and the relaunch's step 12), not the four of checkpoints every
     4 steps.  Every step launches 2 x 24 flash kernels (the forward, then
     the recompute under remat "full"), all tensor-core; no CUDA tensor
-    reaches a plain version.  ``device="cpu", reduced=True`` rehearses the
-    same control flow on the reduced config (no trace)."""
+    reaches a plain version.  The launcher places the state on the local
+    mesh (1, 1) ("data", "model"): on one device every leaf stays a plain
+    tensor.  ``keep_ckpt`` leaves the checkpoint directory for the
+    distributed phase (``out["ckpt_dir"]``), which deletes it.
+    ``device="cpu", reduced=True`` rehearses the same control flow on the
+    reduced config (no trace)."""
     import io
     import shutil
     import tempfile
@@ -3109,6 +3151,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False) -> dict:
     from repro_torch.models.model_zoo import model_flops
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_step import make_train_step
+    from torch.distributed.tensor import DTensor
 
     cfg = get_config(ARCH, reduced=reduced)
     layers = cfg.num_layers
@@ -3160,6 +3203,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False) -> dict:
             for line in buf.getvalue().strip().splitlines():
                 log(f"train {run} | {line}")
             if run == "straight":
+                assert not any(isinstance(x, DTensor) for x in tree_leaves(state)), "one device: plain tensors"
                 straight = [p.detach().clone() for p in tree_leaves(state.params)]
                 del state
                 if cuda:
@@ -3204,7 +3248,8 @@ def phase_train_full(ref, counter, device="cuda", reduced=False) -> dict:
         del state, batch
     finally:
         ckpt._write, ckpt.restore_checkpoint, ckpt.CheckpointManager.save = real_write, real_restore, real_save
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep_ckpt:
+            shutil.rmtree(tmp, ignore_errors=True)
         if cuda:
             torch.cuda.empty_cache()
     tokens = shape.global_batch * shape.seq_len
@@ -3218,6 +3263,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False) -> dict:
         launches=sum(launches.values()) + trace_launches["flash"], launches_by_run=launches,
         launches_per_step=launches["straight"] / TRAIN_STEPS, tokens_per_s=tokens / trace["step_s"], model_flops=flops,
         model_flops_share=flops / trace["step_s"] / BF16_FLOP_PER_S, trace=trace,
+        ckpt_dir=tmp if keep_ckpt else None,
     )
     log(f"train {cfg.name}: {layers} layers, {cfg.param_count():,} parameters (6ND count), batch "
         f"{shape.global_batch} x {shape.seq_len}; losses {[round(x, 4) for x in r1.losses]}; relaunch "
@@ -3237,9 +3283,279 @@ def phase_train(ref, counter) -> dict:
     torch.cuda.empty_cache()
     out["step_parity"] = phase_train_step_parity(ref)
     torch.cuda.empty_cache()
-    out["full"] = phase_train_full(ref, counter)
+    out["full"] = phase_train_full(ref, counter, keep_ckpt=True)
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase training: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Distributed (phase 14)
+# ---------------------------------------------------------------------------
+
+
+def _qdq_rows(x):
+    """The int8 all-to-all's plain version on one rank: each row quantized
+    and dequantized in ``moe._q_a2a``'s arithmetic, with no exchange."""
+    scale = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return (q.to(torch.float32) * scale.to(torch.float32)).to(x.dtype)
+
+
+def _events_per_call(fn) -> int:
+    """Device operations (kernels, copies, collectives) of one ``fn()``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return len(_device_events(prof))
+
+
+def _warm_us(fn, reps: int = 50) -> float:
+    """Mean device µs of back-to-back ``fn()`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps
+
+
+def _open_group(device: str):
+    """A one-rank process group in this process on a free port (NCCL on
+    the card, gloo on the CPU) and the local mesh (1, 1) over it."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("localhost", port, world_size=1, is_master=True)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", store=store, rank=0, world_size=1)
+    return init_device_mesh(device, (1, 1), mesh_dim_names=("data", "model"))
+
+
+def phase_dist_ep(mesh, device="cuda", reduced=False) -> dict:
+    """(b) olmoe-1b-7b's MoE block at full width (d 2048, 64 experts top-8,
+    expert d_ff 1024; random weights from a seeded generator) on tokens
+    (8, 512): ``moe_apply`` under ``use_rules(mesh, TRAIN_RULES)`` (the EP
+    path: one rank, so no exchange) against no rule context (the capacity
+    path): outputs, aux and the gradients of x and the three expert weights,
+    in fp32 (1e-5 of scale; bitwise or not is printed) and bf16 (2e-2 of
+    scale, the reference's bf16 tolerance), with both paths' forward +
+    backward device times."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe
+    from repro_torch.models.common import materialize
+
+    cfg = get_config(OLMOE, reduced=reduced)
+    b, s = (2, 16) if reduced else (8, 512)
+    gen = torch.Generator(device=device).manual_seed(0)
+    base = materialize(moe.moe_params(cfg), gen, torch.float32).to_tree()
+    x0 = torch.randn(b, s, cfg.d_model, generator=gen, device=device) * 0.3
+    cot = torch.randn(b, s, cfg.d_model, generator=gen, device=device)
+    names = ("w_gate", "w_up", "w_down")
+    out: dict = dict(arch=cfg.name, tokens=(b, s), capacity=moe._capacity(cfg, b * s))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        c = dataclasses.replace(cfg, compute_dtype="float32" if dtype == torch.float32 else "bfloat16")
+        p = {k: v.detach().to(torch.float32 if k == "router" else dtype).clone().requires_grad_()
+             for k, v in base.items()}
+        x = x0.to(dtype).clone().requires_grad_()
+
+        def run(ctx, p=p, x=x, c=c):
+            with ctx:
+                y, aux = moe.moe_apply(p, x, c)
+            grads = torch.autograd.grad((y.to(torch.float32) * cot).sum(), [x] + [p[n] for n in names])
+            return [y, aux] + list(grads)
+
+        ep, cap = run(shd.use_rules(mesh, shd.TRAIN_RULES)), run(contextlib.nullcontext())
+        labels = ["y", "aux", "dx"] + [f"d{n}" for n in names]
+        errs = {k: _rel(a.detach().float(), w.detach().float()) for k, a, w in zip(labels, ep, cap)}
+        bitwise = all(torch.equal(a, w) for a, w in zip(ep, cap))
+        row = dict(max_rel_err=max(errs.values()), errs=errs, bitwise=bitwise, tol=tol)
+        if device == "cuda":
+            row["ep_ms"] = device_ms(lambda: run(shd.use_rules(mesh, shd.TRAIN_RULES)), reps=5)
+            row["capacity_ms"] = device_ms(lambda: run(contextlib.nullcontext()), reps=5)
+        out[str(dtype).removeprefix("torch.")] = row
+        log(f"dist ep {cfg.name} {dtype}: EP vs capacity max {row['max_rel_err']:.3e} of scale "
+            f"({'bitwise' if bitwise else 'not bitwise'}; tolerance {tol}); "
+            f"fwd+bwd EP {row.get('ep_ms', float('nan')):.3f} ms, capacity {row.get('capacity_ms', float('nan')):.3f} ms")
+        assert row["max_rel_err"] <= tol, (dtype, errs)
+        del ep, cap, p, x
+    return out
+
+
+def phase_dist_a2a(mesh, cap: int, device="cuda", reduced=False) -> dict:
+    """(c) the MoE block's two all-to-alls on the group's "model" axis at
+    (64, cap, 2048) bf16: the int8 Function's forward and backward against
+    its plain row quantize-dequantize (bitwise on one rank), the exact one
+    against the identity (bitwise), with µs and device operations per call."""
+    from repro_torch.models import moe
+
+    e, d = (8, 64) if reduced else (64, 2048)
+    group = mesh.get_group("model")
+    gen = torch.Generator(device=device).manual_seed(1)
+    buf = torch.randn(e, cap, d, generator=gen, device=device).to(torch.bfloat16).requires_grad_()
+    cot = torch.randn(e, cap, d, generator=gen, device=device).to(torch.bfloat16)
+    out: dict = dict(shape=(e, cap, d))
+    for kind in ("int8", "bf16"):
+        y = moe._a2a(buf, group, 0, 1, kind)
+        (g,) = torch.autograd.grad(y, buf, cot)
+        want_y, want_g = (_qdq_rows(buf.detach()), _qdq_rows(cot)) if kind == "int8" else (buf.detach(), cot)
+        ok = torch.equal(y.detach(), want_y) and torch.equal(g, want_g)
+        row = dict(bitwise=ok)
+        if device == "cuda":
+            with torch.no_grad():
+                row["fwd_us"] = _warm_us(lambda: moe._a2a(buf, group, 0, 1, kind))
+                row["fwd_launches"] = _events_per_call(lambda: moe._a2a(buf, group, 0, 1, kind))
+            row["fwd_bwd_us"] = _warm_us(lambda: torch.autograd.grad(moe._a2a(buf, group, 0, 1, kind), buf, cot), 20)
+        out[kind] = row
+        log(f"dist a2a {kind} {tuple(buf.shape)} bf16 on a 1-rank group: {'bitwise' if ok else 'DIFFERS'} against "
+            f"{'its row quantize-dequantize' if kind == 'int8' else 'the identity'}; forward "
+            f"{row.get('fwd_us', float('nan')):.1f} us ({row.get('fwd_launches')} device ops), forward + backward "
+            f"{row.get('fwd_bwd_us', float('nan')):.1f} us")
+        assert ok, kind
+    return out
+
+
+def phase_dist_restore(mesh, ckpt_dir: str, device="cuda", reduced=False):
+    """(e) the training phase's last checkpoint restored with
+    ``shardings=state_shardings(...)`` on the local mesh, against the
+    unplaced restore: bitwise.  Returns (row, the restored state)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import init_state, state_shardings
+    from torch.distributed.tensor import DTensor
+
+    api = build(get_config(ARCH, reduced=reduced))
+    ocfg = opt.OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
+    step = ckpt.latest_step(ckpt_dir)
+    assert step == TRAIN_STEPS, ckpt.list_steps(ckpt_dir)
+    gen = torch.Generator(device=device).manual_seed(5)
+    t0 = time.perf_counter()
+    plain = ckpt.restore_checkpoint(ckpt_dir, step, init_state(api, gen, ocfg))
+    _sync(device)
+    plain_s = time.perf_counter() - t0
+    shardings = state_shardings(api, ocfg, mesh, shd.TRAIN_RULES)
+    t0 = time.perf_counter()
+    placed = ckpt.restore_checkpoint(ckpt_dir, step, init_state(api, gen, ocfg), shardings=shardings)
+    _sync(device)
+    placed_s = time.perf_counter() - t0
+    a, b = tree_leaves(plain), tree_leaves(placed)
+    bitwise = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not any(isinstance(x, DTensor) for x in b)
+    row = dict(step=step, leaves=len(b), bitwise=bitwise, unplaced_s=plain_s, placed_s=placed_s)
+    log(f"dist restore: step {step} onto the local mesh (1, 1): {len(b)} leaves "
+        f"{'bitwise' if bitwise else 'DIFFER'} against the unplaced restore; {placed_s:.2f} s "
+        f"(unplaced {plain_s:.2f} s)")
+    assert bitwise
+    del plain, a, b
+    return row, placed
+
+
+def phase_dist_pod_mean(params, device="cuda") -> dict:
+    """(d) ``make_compressed_pod_mean`` on a one-rank "pod" mesh over a
+    whole parameter tree: every leaf within amax / 127 + 1e-6 of itself
+    (the reference's bound), with seconds and bytes."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.collectives import make_compressed_pod_mean
+    from repro_torch.models.common import map_tree, tree_leaves
+
+    pod = init_device_mesh(device, (1,), mesh_dim_names=("pod",))
+    mean = make_compressed_pod_mean(pod, "pod")
+    leaves = tree_leaves(params)
+    elems = sum(x.numel() for x in leaves)
+    with torch.no_grad():
+        _sync(device)
+        t0 = time.perf_counter()
+        got = mean(map_tree(lambda x: x.detach(), params))
+        _sync(device)
+        secs = time.perf_counter() - t0
+        margins = torch.stack([(g - x).abs().max() - (x.abs().max() / 127.0 + 1e-6)
+                               for g, x in zip(tree_leaves(got), leaves)])
+        worst = float(margins.max())
+    row = dict(leaves=len(leaves), elements=elems, fp32_bytes=4 * elems, int32_payload_bytes=4 * elems,
+               int8_values=elems, seconds=secs, worst_margin=worst)
+    log(f"dist compressed_pod_mean: {len(leaves)} leaves, {elems:,} fp32 elements ({4 * elems / 1e9:.3f} GB; "
+        f"int32 sum payload {4 * elems / 1e9:.3f} GB) in {secs:.3f} s; worst leaf error minus its bound "
+        f"(amax/127 + 1e-6) {worst:.3e}")
+    assert worst <= 0, worst
+    del got
+    return row
+
+
+def phase_distributed(ref, counter, train_full: dict, device="cuda", reduced=False) -> dict:
+    """Phase 14: (a) a one-rank process group and the local mesh (1, 1);
+    (b) EP at olmoe-1b-7b's full width; (c) the two all-to-alls; (d)
+    ``compressed_pod_mean`` over internlm2-1.8b's restored parameters;
+    (e) the re-shard restore of the training phase's last checkpoint; (f)
+    ``--mesh pod`` raising; (g) the training cell's analytic step cost
+    beside its measured step.  No hand kernel is on these paths: every
+    count must stay 0 and no plain version may see a CUDA tensor."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import costs, train
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    counter.zero()
+    mesh = _open_group(device)
+    try:
+        with main_path(ref):
+            out["ep"] = phase_dist_ep(mesh, device, reduced)
+            out["a2a"] = phase_dist_a2a(mesh, out["ep"]["capacity"], device, reduced)
+            try:
+                train.main([*TRAIN_ARGS, "--batch", "1", "--seq", "8", "--mesh", "pod", "--device", device])
+            except RuntimeError as exc:
+                out["pod_mesh_error"] = str(exc)
+            assert "needs 256 ranks" in out.get("pod_mesh_error", ""), out.get("pod_mesh_error")
+            log(f"dist --mesh pod on one card: {out['pod_mesh_error']}")
+            out["restore"], state = phase_dist_restore(mesh, train_full["ckpt_dir"], device, reduced)
+            out["pod_mean"] = phase_dist_pod_mean(state.params, device)
+            del state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(train_full["ckpt_dir"], ignore_errors=True)
+        _sync(device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    launches = counter.read()
+    assert not any(launches.values()), launches
+    cfg = get_config(ARCH, reduced=reduced)
+    shape = ShapeConfig("train", train_full["seq"], train_full["batch"], "train")
+    cost = costs.step_cost(cfg, shape)
+    step_s = train_full["trace"]["step_s"]
+    out["cost"] = dict(arch=cfg.name, remat=cfg.remat, batch=shape.global_batch, seq=shape.seq_len, flops=cost.flops,
+                       hbm_bytes=cost.hbm_bytes, compute_s=cost.flops / PEAK_FLOPS_BF16,
+                       memory_s=cost.hbm_bytes / HBM_BW, measured_step_s=step_s,
+                       run_step_s=statistics.median(train_full["step_times"]))
+    c = out["cost"]
+    log(f"dist step cost {cfg.name} {shape.global_batch} x {shape.seq_len} remat {cfg.remat}: {c['flops']:.4e} FLOPs, "
+        f"{c['hbm_bytes']:.4e} HBM bytes; compute term {c['compute_s']:.4f} s at 989 TFLOP/s, memory term "
+        f"{c['memory_s']:.4f} s at 3.35 TB/s; measured step {step_s:.4f} s traced, {c['run_step_s']:.4f} s median "
+        f"of the run, against {TRAIN_STEP_UNPLACED_S[0]}-{TRAIN_STEP_UNPLACED_S[1]} s before the launcher placed "
+        f"its state ({nvidia_smi_line() if device == 'cuda' else 'cpu'})")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase distributed: {out['phase_s']:.1f} s; hand-kernel launches {launches}")
     return out
 
 
@@ -3335,6 +3651,9 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    power = idle_power()
+    log(f"idle power: draw {power['idle_w']:.2f} W (median of {power['samples']}), limit {power['limit_w']:.2f} W, "
+        f"limit less idle {power['dyn_w']:.2f} W | {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3541,6 +3860,8 @@ def main() -> int:
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card")
     train = phase_train(ref, counter)
     log("training " + json.dumps({**train, "vjp": {str(k): r for k, r in train["vjp"].items()}}, default=str))
+    distributed = phase_distributed(ref, counter, train["full"])
+    log("distributed " + json.dumps(distributed, default=str))
     t0 = time.perf_counter()
     examples = phase_examples(ref, counter)
     log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))

@@ -15,8 +15,14 @@ against:
   with their plain PyTorch versions.
 - ``repro_torch.models``, ``serving``, ``training`` -- the model zoo, its
   metered serving path and its training path (optimizer, train step,
-  trainer); ``distributed`` the fleet mesh and the checkpoints.
+  trainer); ``distributed`` the logical-axis sharding rules, the fleet
+  mesh, the collectives and the checkpoints; ``launch`` the launchers, their
+  meshes and the analytic step cost.
 
 Entry points take ``device=`` (default ``"cuda"``) and raise when CUDA is
 absent unless the caller asks for ``device="cpu"``; see ``device.py``.
 """
+
+from repro_torch.version import __version__
+
+__all__ = ["__version__"]

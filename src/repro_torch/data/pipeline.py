@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.distributed.sharding import place
 
 #: numpy twin of each integer spec dtype (the token-like inputs).
 _NP_INT = {torch.int32: np.int32, torch.int64: np.int64}
@@ -59,12 +60,19 @@ def synthetic_batch(api, shape: ShapeConfig, step: int, config: DataConfig = Dat
 
 
 def batch_iterator(api, shape: ShapeConfig, config: DataConfig = DataConfig(), *, start_step: int = 0,
-                   device: str | torch.device = "cpu") -> Iterator[dict]:
+                   device: str | torch.device = "cpu", shardings: Any = None) -> Iterator[dict]:
     """Seekable infinite iterator of ``synthetic_batch`` from
-    ``start_step`` on, each batch moved to ``device``."""
+    ``start_step`` on, each batch moved to ``device``, or, given
+    ``shardings`` (``train_step.batch_shardings``), placed on them: every
+    rank draws the same host batch and keeps its own block
+    (``distributed.sharding.place``; the whole batch on a one-device mesh)."""
     step = start_step
     while True:
-        yield {k: v.to(device) for k, v in synthetic_batch(api, shape, step, config).items()}
+        host = synthetic_batch(api, shape, step, config)
+        if shardings is not None:
+            yield {k: place(v, shardings[k]) for k, v in host.items()}
+        else:
+            yield {k: v.to(device) for k, v in host.items()}
         step += 1
 
 

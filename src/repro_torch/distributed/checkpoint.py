@@ -24,10 +24,17 @@ split into the per-layer tensors on restore (``models.common.leaf_groups``).
   training phase prints the save and restore times.
 - **Restore onto a device**: ``restore_checkpoint`` reads and checks every
   leaf on the host first, then copies each into the target's own tensors
-  (on whatever device they live), so a damaged checkpoint leaves the target
-  untouched and a restore needs no second copy of the state on the card.
-  The reference's elastic re-shard onto a mesh (``shardings=``) waits for
-  the distributed slice (ROADMAP item 9.8).
+  (on whatever device they live; a ``DTensor`` leaf takes its own block),
+  so a damaged checkpoint leaves the target untouched and a restore needs
+  no second copy of the state on the card.
+- **Elastic re-shard**: leaves are stored whole, so ``shardings=`` (a
+  ``NamedSharding`` tree, ``train_step.state_shardings``) places the
+  restored state onto any mesh, whatever mesh wrote it: a one-device mesh
+  keeps plain tensors, a larger one ``DTensor``s of each rank's block.
+- **A placed state** (``DTensor`` leaves) is gathered whole for a save
+  (``full_tensor``, a collective every rank joins) and written by process
+  0 alone, so it gives the same files, leaf names and bytes as the save of
+  the same state unplaced; a blocking save ends at a barrier.
 """
 
 from __future__ import annotations
@@ -43,7 +50,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import local_block, place_tree
 from repro_torch.models.common import leaf_groups
 
 _MANIFEST = "manifest.json"
@@ -55,6 +65,7 @@ def _host(leaves: list, stacked: bool) -> np.ndarray:
     """A host copy (never a view: the step updates the state in place next)."""
     if all(isinstance(x, torch.Tensor) for x in leaves):
         with torch.no_grad():
+            leaves = [x.full_tensor() if isinstance(x, DTensor) else x for x in leaves]
             x = torch.stack(leaves) if stacked else leaves[0].clone()  # copied where the leaves live
             return x.cpu().numpy()
     return np.stack([np.asarray(x) for x in leaves]) if stacked else np.array(leaves[0])
@@ -66,10 +77,25 @@ def host_arrays(state: Any) -> dict[str, np.ndarray]:
     return {name: _host(leaves, stacked) for name, leaves, stacked in leaf_groups(state)}
 
 
+def _writer() -> bool:
+    """Process 0 writes; every process of a group gathers."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _placed(state: Any) -> bool:
+    return any(isinstance(x, DTensor) for _, leaves, _ in leaf_groups(state) for x in leaves)
+
+
 def save_checkpoint(directory: str, step: int, state: Any, *, process_index: int = 0) -> str:
-    """Write one checkpoint of ``state`` (tensors on any device)
+    """Write one checkpoint of ``state`` (tensors on any device, or placed)
     synchronously.  Returns the committed path."""
-    return _write(directory, step, host_arrays(state), process_index)
+    arrays = host_arrays(state)
+    path = os.path.join(directory, f"step_{step:08d}")
+    if _writer():
+        path = _write(directory, step, arrays, process_index)
+    if _placed(state):
+        dist.barrier()
+    return path
 
 
 def _write(directory: str, step: int, arrays: dict[str, np.ndarray], process_index: int = 0) -> str:
@@ -131,15 +157,18 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, target: Any) -> Any:
-    """Restore ``step`` into ``target``'s own tensors and return ``target``.
+def restore_checkpoint(directory: str, step: int, target: Any, *, shardings: Any = None) -> Any:
+    """Restore ``step`` into ``target``'s own tensors and return it.
 
     Every leaf of ``target`` (a train state, or any tree of tensors) must
     be in the checkpoint with its shape (stacked (L, ...) for a per-layer
     list); all of them are read and checked before any is written, so a
     missing leaf, a wrong shape or an unreadable file (``KeyError``,
     ``ValueError``, ``OSError``) leaves ``target`` as it was.  Values are
-    cast to each target tensor's dtype.
+    cast to each target tensor's dtype; a ``DTensor`` leaf takes its own
+    block.  ``shardings`` (a matching tree of ``NamedSharding``, ``None``
+    where a leaf stays as it is) then places the result on any mesh
+    (``distributed.sharding.place_tree``).
     """
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, _MANIFEST)) as f:
@@ -168,8 +197,11 @@ def restore_checkpoint(directory: str, step: int, target: Any) -> Any:
     with torch.no_grad():
         for leaves, arr in loaded:
             for leaf, a in zip(leaves, arr):
-                leaf.copy_(torch.as_tensor(a))
-    return target
+                if isinstance(leaf, DTensor):
+                    leaf.to_local().copy_(local_block(torch.as_tensor(a), leaf.device_mesh, leaf.placements))
+                else:
+                    leaf.copy_(torch.as_tensor(a))
+    return place_tree(target, shardings)
 
 
 def _read_npz(path: str) -> dict[str, np.ndarray]:
@@ -194,6 +226,11 @@ class CheckpointManager:
         or ``wait``."""
         self.wait()  # one in-flight save at a time
         arrays = host_arrays(state)
+        placed = _placed(state)
+        if not _writer():
+            if blocking and placed:
+                dist.barrier()
+            return
 
         def write():
             try:
@@ -205,6 +242,8 @@ class CheckpointManager:
         if blocking:
             write()
             self.wait()
+            if placed:
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=write, daemon=True, name="checkpoint-writer")
             self._thread.start()
@@ -218,13 +257,13 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, target: Any) -> tuple[int, Any] | None:
-        """(step, target restored) from the newest valid checkpoint, or
-        None.  Falls back through damaged checkpoints (crash-mid-save
-        recovery)."""
+    def restore_latest(self, target: Any, *, shardings: Any = None) -> tuple[int, Any] | None:
+        """(step, target restored and placed on ``shardings``) from the
+        newest valid checkpoint, or None.  Falls back through damaged
+        checkpoints (crash-mid-save recovery)."""
         for step in reversed(list_steps(self.directory)):
             try:
-                return step, restore_checkpoint(self.directory, step, target)
+                return step, restore_checkpoint(self.directory, step, target, shardings=shardings)
             except (OSError, ValueError, KeyError):
                 continue
         return None

@@ -1,14 +1,49 @@
-"""Fleet-axis sharding: the B-node axis of the engines over a list of devices.
+"""Sharding: logical-axis rules for the model zoo and the train state, and
+the fleet's node axis over a list of devices -- the twin of the reference's
+``repro/distributed/sharding.py``, both halves.
 
-The port of the reference's ``FleetMesh`` (``repro/distributed/sharding.py``,
-its fleet-axis part).  The reference shards with ``shard_map`` over a 1-D
-JAX ``Mesh``; here a sharded tree is a ``Shards`` tuple holding one tree
-per mesh device, each with that device's contiguous block of B / n nodes
-on its leading axis, and the engines run their unsharded local function on
-each shard in turn from one host thread (``core.engine.sharding``).  CUDA
-launches return before the work is done, so shards on separate cards
-overlap.  Per-node math needs no communication; the one cross-shard
-reduction is ``fleet_attribution_totals`` (the reference's ``psum``).
+**Logical-axis rules.**  Parameters, batches, caches and activations are
+annotated with logical axes ("embed", "qkv", "batch", "kv_heads", ...);
+the rule tables ``TRAIN_RULES``, ``SERVE_RULES``, ``EP_RULES`` and
+``ZERO3_RULES`` (the reference's, as data) map each onto candidate tuples
+of mesh axes.  ``spec_for`` resolves one tensor's axes, in the logical
+priority order ``_PRIORITY``, taking a candidate only when
+
+  1. the dimension is divisible by the product of its mesh-axis sizes, and
+  2. none of those mesh axes is already used by another dimension,
+
+and otherwise falls back along the chain to replication.  It returns the
+port's ``PartitionSpec`` (a tuple of ``None``, an axis name or a tuple of
+names, trailing ``None``s trimmed), equal entry for entry to the
+reference's.  ``spec_for`` reads only the mesh's axis sizes, so it takes a
+``torch.distributed.DeviceMesh`` with named dimensions or an
+``AbstractMesh`` (axis sizes alone, for rule checks at production sizes).
+
+``sharding_for`` turns a spec into DTensor placements, one per mesh
+dimension (``Shard(i)`` where tensor dim ``i`` names that mesh axis,
+``Replicate()`` elsewhere), kept in a ``NamedSharding`` record (mesh,
+spec, placements).  A tensor dim on two mesh axes becomes two ``Shard(i)``:
+DTensor splits them in mesh-dimension order, which is JAX's major-to-minor
+order only because every rule tuple lists its axes in mesh order, and
+``sharding_for`` asserts that.
+
+``use_rules(mesh, rules)`` activates a (mesh, rules) pair on a
+``threading.local``; inside it ``shard_activation`` redistributes a
+``DTensor`` activation to its resolved placements, and outside it (or for
+a plain tensor) it is the identity, so model code stays mesh-agnostic.
+The port's placed train step (``training.train_step``) runs the model on
+each rank's local tensors, so there the calls are identities; the rule
+context is what selects the MoE block's expert-parallel path.
+
+**Fleet-axis sharding** (``FleetMesh``).  The reference shards the
+engines' B-node axis with ``shard_map`` over a 1-D JAX ``Mesh``; here a
+sharded tree is a ``Shards`` tuple holding one tree per mesh device, each
+with that device's contiguous block of B / n nodes on its leading axis,
+and the engines run their unsharded local function on each shard in turn
+from one host thread (``core.engine.sharding``).  CUDA launches return
+before the work is done, so shards on separate cards overlap.  Per-node
+math needs no communication; the one cross-shard reduction is
+``fleet_attribution_totals`` (the reference's ``psum``).
 
 Two departures from the reference, both recorded in ROADMAP Queue 3:
 
@@ -22,13 +57,342 @@ Two departures from the reference, both recorded in ROADMAP Queue 3:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import threading
 from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+# ---------------------------------------------------------------------------
+# Logical-axis rules
+# ---------------------------------------------------------------------------
+
+# Each rule: logical axis -> tuple of candidate mesh-axis tuples, tried in
+# order; () means replicate.
+Rules = dict[str, tuple[tuple[str, ...], ...]]
+
+TRAIN_RULES: Rules = {
+    "batch": (("pod", "data"), ("data",), ()),
+    "seq": ((),),
+    "embed": (("data",), ()),          # FSDP shard of weight rows
+    "act_embed": ((),),                # activations keep embed replicated
+    "qkv": (("model",), ()),           # flattened heads*head_dim
+    "heads": (("model",), ()),
+    "kv_heads": (("model",), ()),
+    "o_in": (("model",), ()),
+    "mlp": (("model",), ()),
+    "vocab": (("model",), ()),
+    "lm_head": (("model",), ()),      # unembed output dim (logits vocab)
+    "expert": (("model",), ()),
+    "expert_mlp": ((),),
+    "kv_seq": (("model",), ()),        # decode KV-cache sequence fallback
+    "layers": ((),),
+    "state": ((),),
+    "conv": ((),),
+    "cap": (("pod", "data"), ("data",), ()),  # MoE capacity slots
+    "frontend": ((),),
+}
+
+SERVE_RULES: Rules = {
+    **TRAIN_RULES,
+    "batch": (("pod", "data"), ("data",), ()),
+    "embed": ((),),                    # weights replicated over data for serve
+    "kv_heads": (("model",), ()),
+}
+
+#: Expert-parallel-first variant: the "model" axis is reserved for experts;
+#: attention and shared-MLP weights drop TP, FSDP over "data" stays.
+EP_RULES: Rules = {
+    **TRAIN_RULES,
+    "qkv": ((),),
+    "heads": ((),),
+    "kv_heads": ((),),
+    "o_in": ((),),
+    "mlp": ((),),
+}
+
+#: ZeRO-3 / pure-FSDP variant: the "model" axis joins the batch axis (TP
+#: degree 1) and weights shard their row dim over (data x model).  The
+#: embedding table keeps vocab replicated with its embed dim sharded; the
+#: unembedding stays vocab-sharded.  Not for MoE: EP needs "model".
+ZERO3_RULES: Rules = {
+    **TRAIN_RULES,
+    "batch": (("pod", "data", "model"), ("data", "model"), ("data",), ()),
+    "embed": (("data", "model"), ("data",), ()),
+    "qkv": ((),),
+    "heads": ((),),
+    "kv_heads": ((),),
+    "o_in": ((),),
+    "mlp": ((),),
+    "vocab": ((),),
+    "lm_head": (("data", "model"), ("model",), ()),
+    "expert": ((),),
+    "kv_seq": ((),),
+}
+
+#: When two dims of one tensor compete for the same mesh axis, the higher-
+#: priority logical axis wins (a KV cache prefers kv_heads on "model",
+#: falling back to kv_seq only when the head count is not divisible).
+_PRIORITY = (
+    "batch", "vocab", "lm_head", "expert", "qkv", "mlp", "kv_heads", "heads",
+    "o_in", "embed", "kv_seq", "cap", "seq",
+)
+_PRIO = {name: i for i, name in enumerate(_PRIORITY)}
+
+
+class PartitionSpec(tuple):
+    """Per tensor dimension: ``None`` (replicated), one mesh-axis name, or a
+    tuple of names (major to minor), trailing ``None``s trimmed -- the twin
+    of ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes with no devices (``jax.sharding.AbstractMesh``):
+    enough for ``spec_for`` and for placements, not for placing data."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def mesh_dim_names(self) -> tuple[str, ...]:
+        return self.axis_names
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` with named dims, an
+    ``AbstractMesh``, or anything whose ``.shape`` is such a dict."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names:
+        return dict(zip(names, mesh.shape.values() if isinstance(mesh.shape, dict) else mesh.shape))
+    return dict(mesh.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A resolved placement on a mesh: the spec and its DTensor placements
+    (one per mesh dimension) -- the twin of ``jax.sharding.NamedSharding``."""
+
+    mesh: Any
+    spec: PartitionSpec
+    placements: tuple
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(mesh_axes(self.mesh).values())
+
+
+_ctx = threading.local()
+
+
+def _active() -> tuple[Any, Rules] | None:
+    return getattr(_ctx, "active", None)
+
+
+@contextlib.contextmanager
+def use_rules(mesh, rules: Rules):
+    """Activate (mesh, rules) on this thread, so model-internal
+    ``shard_activation`` calls resolve against them and ``moe_apply`` takes
+    its expert-parallel path; no-op outside the context."""
+    prev = _active()
+    _ctx.active = (mesh, rules)
+    try:
+        yield
+    finally:
+        _ctx.active = prev
+
+
+def spec_for(logical: Sequence[str | None], shape: Sequence[int], mesh, rules: Rules) -> PartitionSpec:
+    """Resolve logical axes to a ``PartitionSpec`` under the divisibility
+    and axis-reuse constraints, visiting dims in logical-axis priority
+    order."""
+    sizes = mesh_axes(mesh)
+    used: set[str] = set()
+    entries: list[Any] = [None] * len(logical)
+    order = sorted(
+        range(len(logical)),
+        key=lambda i: _PRIO.get(logical[i], len(_PRIORITY)) if logical[i] else 1e9,
+    )
+    for i in order:
+        name, dim = logical[i], shape[i]
+        if name is None:
+            continue
+        for cand in rules.get(name, ((),)):
+            if not cand:
+                break
+            if any(a in used for a in cand) or any(a not in sizes for a in cand):
+                continue
+            if dim % math.prod(sizes[a] for a in cand) != 0:
+                continue
+            entries[i] = cand if len(cand) > 1 else cand[0]
+            used.update(cand)
+            break
+    while entries and entries[-1] is None:
+        entries.pop()
+    return PartitionSpec(*entries)
+
+
+def placements_for(spec: PartitionSpec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh dimension:
+    ``Shard(i)`` where tensor dim ``i`` names that axis, ``Replicate()``
+    elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_axes(mesh))
+    owner: dict[str, int] = {}
+    for i, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        # DTensor splits a dim sharded on several mesh dims in mesh order;
+        # that is JAX's major-to-minor order only when the axes come in it.
+        assert [names.index(a) for a in axes] == sorted(names.index(a) for a in axes), (spec, names)
+        owner.update({a: i for a in axes})
+    return tuple(Shard(owner[n]) if n in owner else Replicate() for n in names)
+
+
+def sharding_for(logical: Sequence[str | None], shape: Sequence[int], mesh, rules: Rules) -> NamedSharding:
+    """``spec_for`` resolved into a ``NamedSharding`` on ``mesh``."""
+    spec = spec_for(logical, shape, mesh, rules)
+    return NamedSharding(mesh, spec, placements_for(spec, mesh))
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(isinstance(e, (str, type(None))) for e in x)
+
+
+def map_logical(fn, logical_tree, *rest):
+    """``fn(axes, *leaves)`` over a tree whose leaves are logical-axis
+    tuples (nested dicts, lists and NamedTuples; ``None`` passes through),
+    with matching trees ``rest``."""
+    if logical_tree is None:
+        return None
+    if _is_axes(logical_tree):
+        return fn(logical_tree, *rest)
+    if hasattr(logical_tree, "_fields"):
+        return type(logical_tree)(*(map_logical(fn, x, *(r[i] for r in rest)) for i, x in enumerate(logical_tree)))
+    if isinstance(logical_tree, dict):
+        return {k: map_logical(fn, v, *(r[k] for r in rest)) for k, v in logical_tree.items()}
+    if isinstance(logical_tree, (list, tuple)):
+        return type(logical_tree)(map_logical(fn, x, *(r[i] for r in rest)) for i, x in enumerate(logical_tree))
+    raise TypeError(f"not a logical-axis tree: {type(logical_tree).__name__}")
+
+
+def tree_shardings(logical_tree: Any, abstract_tree: Any, mesh, rules: Rules) -> Any:
+    """A tree of logical-axis tuples and a matching tree of shaped leaves
+    (anything with ``.shape``) -> a tree of ``NamedSharding``."""
+    return map_logical(lambda axes, a: sharding_for(axes, a.shape, mesh, rules), logical_tree, abstract_tree)
+
+
+def abstract_with_sharding(abstract_tree: Any, logical_tree: Any, mesh, rules: Rules) -> Any:
+    """Attach shardings to a ``TensorSpec`` tree: each spec comes back with
+    its ``sharding`` set (the dry run's input specs).  No caller yet: the
+    dry run (ROADMAP item 9.9) is its first."""
+    return map_logical(lambda axes, a: dataclasses.replace(a, sharding=sharding_for(axes, a.shape, mesh, rules)),
+                       logical_tree, abstract_tree)
+
+
+def shard_activation(x, logical: Sequence[str | None]):
+    """Constrain an activation's placement if a rule context is active: a
+    ``DTensor`` is redistributed to the resolved placements; a plain
+    tensor (a rank's local block, or any tensor outside a context) comes
+    back as it is."""
+    active = _active()
+    if active is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh, rules = active
+    return x.redistribute(x.device_mesh, sharding_for(logical, x.shape, mesh, rules).placements)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's blocks live on for ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def local_block(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``placements`` on
+    ``mesh``: for each mesh dim in order, its ``Shard(i)`` cuts dim ``i``
+    into equal chunks and keeps this rank's coordinate (DTensor's layout;
+    ``spec_for`` shards only divisible dims).  No communication."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    for mesh_dim, placement in enumerate(placements):
+        if isinstance(placement, Shard):
+            x = x.chunk(mesh.size(mesh_dim), dim=placement.dim)[coord[mesh_dim]]
+    return x
+
+
+def place(x: torch.Tensor, sharding: NamedSharding):
+    """``x`` (the whole tensor, equal on every rank) placed by ``sharding``:
+    on a mesh of one device the whole tensor on that device; otherwise a
+    ``DTensor`` built from this rank's block, with no communication."""
+    from torch.distributed.tensor import DTensor
+
+    dev = mesh_device(sharding.mesh)
+    if isinstance(x, DTensor):
+        if x.device_mesh == sharding.mesh and tuple(x.placements) == tuple(sharding.placements):
+            return x
+        x = x.full_tensor()
+    if sharding.num_devices == 1:
+        return x.to(dev)
+    block = local_block(x, sharding.mesh, sharding.placements).to(dev).contiguous()
+    return DTensor.from_local(block, sharding.mesh, sharding.placements, run_check=False)
+
+
+def place_tree(tree: Any, shardings: Any) -> Any:
+    """``place`` over matching trees of tensors and ``NamedSharding``s
+    (NamedTuples, dicts and lists are rebuilt; an ``nn.Module`` tree -- a
+    ``ParamTree`` -- has its parameters replaced in place, gradient flags
+    kept).  A ``None`` sharding leaves its leaf as it is, and a leaf already
+    where its sharding puts it comes back as the same object."""
+    if shardings is None or tree is None:
+        return tree
+    if isinstance(shardings, NamedSharding):
+        return place(tree, shardings)
+    if isinstance(tree, torch.nn.Module):
+        with torch.no_grad():
+            for name, param in list(tree._parameters.items()):
+                placed = place(param, shardings[name])
+                if placed is not param:
+                    tree._parameters[name] = torch.nn.Parameter(placed, requires_grad=param.requires_grad)
+        for name, mod in tree._modules.items():
+            place_tree(mod, shardings[int(name)] if isinstance(shardings, list) else shardings[name])
+        return tree
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(place_tree(x, sh) for x, sh in zip(tree, shardings)))
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_tree(x, sh) for x, sh in zip(tree, shardings))
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Fleet-axis sharding: the B-node axis of the engines over a list of devices
+# ---------------------------------------------------------------------------
 
 #: Name of the fleet's node axis.
 FLEET_AXIS = "node"

@@ -1,19 +1,25 @@
 """Training launcher: ``--arch <id> [--reduced] --steps N`` -- the twin of
 the reference's ``repro/launch/train.py``.
 
-Trains one architecture on one device with the reference's flags and
-defaults, plus ``--device`` (default ``cuda``)::
+Trains one architecture with the reference's flags and defaults, plus
+``--device`` (default ``cuda``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --reduced \\
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
 
-Weights come from a seeded ``torch.Generator`` on the device, batches from
-``data.pipeline.batch_iterator`` (the reference's synthetic stream).  With
-``--ckpt-dir`` a run checkpoints every ``--ckpt-every`` steps and at the
-end, and a relaunch resumes from the newest complete checkpoint.  Only
-``--mesh local`` (one device) runs here: the reference's ``pod`` and
-``multipod`` meshes need the distributed slice (ROADMAP items 9.8, 9.9),
-and its TPU XLA flags have no twin.
+``--mesh local`` (the default) builds (n, 1) ("data", "model") over the
+process group's ranks (one rank in a single process, which makes its own
+group); ``pod`` and ``multipod`` build the reference's (16, 16) and
+(2, 16, 16) meshes and raise unless the group has 256 or 512 ranks
+(``launch.mesh``).  As in the reference, the state is placed by
+``state_shardings`` under ``TRAIN_RULES``, the batches by
+``batch_shardings``, and the step runs inside ``use_rules(mesh,
+TRAIN_RULES)``.  Weights come from a seeded ``torch.Generator`` on the
+device, batches from ``data.pipeline.batch_iterator`` (the reference's
+synthetic stream).  With ``--ckpt-dir`` a run checkpoints every
+``--ckpt-every`` steps and at the end, and a relaunch resumes from the
+newest complete checkpoint, re-placed on the mesh.  The reference's TPU XLA
+flags have no twin.
 """
 
 from __future__ import annotations
@@ -26,9 +32,13 @@ from repro_torch.configs.registry import get_config
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.data.pipeline import DataConfig, batch_iterator
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh, process_group
 from repro_torch.models.model_zoo import build
 from repro_torch.training import optimizer as opt
-from repro_torch.training.train_step import TrainState, init_state, make_train_step
+from repro_torch.training.train_step import (
+    TrainState, batch_shardings, init_state, make_train_step, place_state, state_shardings,
+)
 from repro_torch.training.trainer import Trainer, TrainerConfig, TrainerReport
 
 
@@ -56,9 +66,6 @@ def main(argv: list[str] | None = None) -> tuple[TrainerReport, TrainState]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "local":
-        raise NotImplementedError(f"--mesh {args.mesh} needs a device mesh over several cards, which the port "
-                                  "does not have yet (ROADMAP items 9.8 and 9.9); use --mesh local")
 
     dev = resolve_device(args.device)
     api = build(get_config(args.arch, reduced=args.reduced))
@@ -67,16 +74,28 @@ def main(argv: list[str] | None = None) -> tuple[TrainerReport, TrainState]:
         learning_rate=args.lr, total_steps=args.steps, warmup_steps=max(args.steps // 10, 1),
         compress_grads=args.compress_grads,
     )
-    state = init_state(api, torch.Generator(device=dev).manual_seed(args.seed), ocfg)
-    trainer = Trainer(
-        make_train_step(api, ocfg, accum_steps=args.accum),
-        state,
-        lambda start: batch_iterator(api, shape, DataConfig(seed=args.seed), start_step=start, device=dev),
-        TrainerConfig(total_steps=args.steps, checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir,
-                      log_every=10),
-        on_step=_log_step,
-    )
-    report = trainer.run()
+    with process_group(dev.type):
+        mesh = {
+            "local": lambda: make_local_mesh(dev.type),
+            "pod": lambda: make_production_mesh(multi_pod=False, device_type=dev.type),
+            "multipod": lambda: make_production_mesh(multi_pod=True, device_type=dev.type),
+        }[args.mesh]()
+        rules = shd.TRAIN_RULES
+        st_sh = state_shardings(api, ocfg, mesh, rules)
+        b_sh = batch_shardings(api.train_inputs(shape), mesh, rules)
+        with shd.use_rules(mesh, rules):
+            state = place_state(init_state(api, torch.Generator(device=dev).manual_seed(args.seed), ocfg), st_sh)
+            trainer = Trainer(
+                make_train_step(api, ocfg, accum_steps=args.accum),
+                state,
+                lambda start: batch_iterator(api, shape, DataConfig(seed=args.seed), start_step=start,
+                                             shardings=b_sh),
+                TrainerConfig(total_steps=args.steps, checkpoint_every=args.ckpt_every,
+                              checkpoint_dir=args.ckpt_dir, log_every=10),
+                state_shardings=st_sh,
+                on_step=_log_step,
+            )
+            report = trainer.run()
     print(f"done: {report.steps_run} steps, final loss {report.final_loss:.4f}, "
           f"resumed_from={report.resumed_from}, stragglers={report.straggler_steps}")
     return report, trainer.state

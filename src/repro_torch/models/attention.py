@@ -4,9 +4,10 @@ The twin of the reference's ``repro/models/attention.py``.  Projections are
 stored flattened -- wq: (d_model, H*head_dim) -- in the reference's layout.
 The score/value contractions route through ``repro_torch.kernels.ops``
 (the CUDA kernels on the card, the plain versions on the CPU); the
-projections are plain ``torch.matmul``.  No mesh is active in the port, so
-the reference's ``shard_activation`` calls (identities without one) are
-dropped.
+projections are plain ``torch.matmul``.  The reference's four
+``shard_activation`` calls (q and k after the rotary embedding, the decode
+cache after its write) are made at the same places; they are identities on
+plain tensors and outside a rule context.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import Param, apply_rope
 
@@ -69,6 +71,8 @@ def attention_apply(
     if use_rope and memory is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_activation(q, ("batch", "seq", "heads", None))
+    k = shard_activation(k, ("batch", "seq", "kv_heads", None))
     out = ops.flash_attention(q, k, v, causal=causal)
     b, s = q.shape[:2]
     y = out.reshape(b, s, cfg.q_dim) @ p["wo"]
@@ -126,6 +130,8 @@ def attention_decode(
         return y[:, None, :], k_cache, v_cache, (k_scale, v_scale)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    k_cache = shard_activation(k_cache, ("batch", "kv_seq", "kv_heads", None))
+    v_cache = shard_activation(v_cache, ("batch", "kv_seq", "kv_heads", None))
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)
     y = out.reshape(b, cfg.q_dim) @ p["wo"]
     return y[:, None, :], k_cache, v_cache

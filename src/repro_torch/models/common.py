@@ -75,6 +75,30 @@ def param_count(tree: dict) -> int:
     return sum(sizes)
 
 
+def layer_specs(tree: dict) -> dict:
+    """A ``Param`` spec tree in the port's state layout: each stacked
+    subtree (``_STACKED``) becomes a list of per-layer trees whose leaves
+    drop the leading per-layer axis.  Leaves keep their shape and logical
+    axes, so the tree maps 1:1 onto a ``ParamTree``'s leaves."""
+
+    def per_layer(node: dict) -> list:
+        first = node
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        layer = tree_map(lambda _, p: dataclasses.replace(p, shape=p.shape[1:], axes=p.axes[1:]), node)
+        return [layer] * first.shape[0]
+
+    return {k: per_layer(v) if k in _STACKED else v for k, v in tree.items()}
+
+
+def logical_axes(tree: dict) -> dict:
+    """Logical-axis tuples of a ``Param`` spec tree, in the port's state
+    layout (``layer_specs``).  The reference's stacked leaves carry a
+    leading "layers"-like axis, which every rule table replicates, so a
+    per-layer leaf's spec is the reference's with that first entry dropped."""
+    return map_tree(lambda p: p.axes, layer_specs(tree))
+
+
 def stack_params(tree: dict, n: int) -> dict:
     """Stack a per-layer Param tree ``n`` times along a leading "layers" axis.
 

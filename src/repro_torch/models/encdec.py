@@ -13,6 +13,11 @@ Decode cache: per-layer self-attention K/V ("k"/"v", written in place at
 ``pos``) and per-layer cross-attention K/V ("cross_k"/"cross_v"), computed
 once from the memory at prefill and static afterwards.  Cross decode runs
 the decode kernel with ``lengths = S_src`` for every sequence.
+
+The reference's five ``shard_activation`` calls are made at its places:
+three here (the encoder's projection and each encoder and decoder block's
+output), and the target embedding's and the logits' through the
+transformer's ``embed_tokens`` and ``lm_logits``, which make them.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.attention import attention_apply, attention_decode, attention_params
 from repro_torch.models.common import Param, maybe_remat, rms_norm, stack_params
 from repro_torch.models.mlp import mlp_apply, mlp_params
@@ -70,11 +76,13 @@ def encode(params, src_embeds: Tensor, cfg: ArchConfig) -> Tensor:
     under ``cfg.remat``."""
     p = params["proj"]
     h = rms_norm(src_embeds.to(compute_dtype(cfg)), p["ln"], cfg.norm_eps) @ p["w"]
+    h = shard_activation(h, ("batch", "seq", "act_embed"))
     positions = _positions(h.shape[0], h.shape[1], h.device)
 
     def layer_fn(layer, x):
         x = x + attention_apply(layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), positions, cfg, causal=False)
-        return x + mlp_apply(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps), cfg)
+        x = x + mlp_apply(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps), cfg)
+        return shard_activation(x, ("batch", "seq", "act_embed"))
 
     block = maybe_remat(layer_fn, cfg.remat)
     for layer in params["enc_layers"]:
@@ -94,7 +102,7 @@ def _dec_block(layer, x: Tensor, positions: Tensor, memory: Tensor, cfg: ArchCon
     )
     x = x + c
     x = x + mlp_apply(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps), cfg)
-    return x, kv, cross_kv
+    return shard_activation(x, ("batch", "seq", "act_embed")), kv, cross_kv
 
 
 def encdec_train(params, src_embeds: Tensor, tgt_tokens: Tensor, cfg: ArchConfig):

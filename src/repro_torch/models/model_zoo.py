@@ -44,6 +44,7 @@ class TensorSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype
     axes: tuple[str | None, ...]
+    sharding: Any = None  # a NamedSharding, set by distributed.sharding.abstract_with_sharding
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.common import Param, rms_norm
 
 Tensor = torch.Tensor
@@ -138,7 +139,7 @@ def mamba_apply(p, x: Tensor, cfg: ArchConfig, *, state: tuple | None = None, re
     z, xin, bmat, cmat, dt = _project(p, x, cfg)
     h0, tail = state if state is not None else (None, None)
     xc, new_tail = _conv1d(xin, p["conv_w"], p["conv_b"], tail)
-    xh = xc.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    xh = shard_activation(xc.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim), ("batch", None, "heads", None))
     a = -torch.exp(p["a_log"].to(torch.float32))
     y, h_final = ssd_chunked(xh, dt, dt * a, bmat, cmat, cfg.ssm_chunk, h0)
     y = y + p["d_skip"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)

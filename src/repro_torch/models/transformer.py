@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.kernels import ref
 from repro_torch.models.attention import attention_apply, attention_decode, attention_params
 from repro_torch.models.common import Param, maybe_remat, rms_norm, softcap, stack_params
@@ -115,15 +116,15 @@ def decoder_params(cfg: ArchConfig) -> dict:
 
 
 def embed_tokens(params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
-    """Token-embedding lookup in the compute dtype."""
-    return params["embed"][tokens].to(compute_dtype(cfg))
+    """Token-embedding lookup in the compute dtype, activation-sharded."""
+    return shard_activation(params["embed"][tokens].to(compute_dtype(cfg)), ("batch", "seq", "act_embed"))
 
 
 def lm_logits(params, h: Tensor, cfg: ArchConfig) -> Tensor:
     """Final norm + (tied) unembedding + logit softcap."""
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     w = params["unembed"] if "unembed" in params else params["embed"].T
-    return softcap(h @ w.to(h.dtype), cfg.logit_softcap)
+    return shard_activation(softcap(h @ w.to(h.dtype), cfg.logit_softcap), ("batch", "seq", "vocab"))
 
 
 def project_frontend(params, embeds: Tensor, cfg: ArchConfig) -> Tensor:
@@ -155,7 +156,7 @@ def _dense_block(p, h: Tensor, positions: Tensor, cfg: ArchConfig, *, moe: bool)
     """Pre-norm attention + channel mixer.  Returns (h, aux or None)."""
     h = h + attention_apply(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), positions, cfg)
     m, aux = _mixer(p["mixer"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg, moe)
-    return h + m, aux
+    return shard_activation(h + m, ("batch", "seq", "act_embed")), aux
 
 
 def _dense_block_prefill(p, h: Tensor, positions: Tensor, cfg: ArchConfig, *, moe: bool):
@@ -164,7 +165,8 @@ def _dense_block_prefill(p, h: Tensor, positions: Tensor, cfg: ArchConfig, *, mo
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), positions, cfg, return_kv=True
     )
     h = h + a
-    return h + _mixer(p["mixer"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg, moe)[0], (k, v)
+    h = h + _mixer(p["mixer"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg, moe)[0]
+    return shard_activation(h, ("batch", "seq", "act_embed")), (k, v)
 
 
 def _dense_block_decode(p, h: Tensor, pos: int, k_c: Tensor, v_c: Tensor, cfg: ArchConfig,
@@ -285,7 +287,8 @@ def hybrid_train(params, tokens: Tensor, cfg: ArchConfig):
     def layer_fn(layer, shared, x, with_attn):
         if with_attn:
             x, _ = _dense_block(shared, x, positions, cfg, moe=False)
-        return x + mamba_apply(layer["mamba"], rms_norm(x, layer["ln"], cfg.norm_eps), cfg)
+        x = x + mamba_apply(layer["mamba"], rms_norm(x, layer["ln"], cfg.norm_eps), cfg)
+        return shard_activation(x, ("batch", "seq", "act_embed"))
 
     block = maybe_remat(layer_fn, cfg.remat)
     for idx, layer in enumerate(params["layers"]):
@@ -313,7 +316,8 @@ def hybrid_prefill(params, tokens: Tensor, cfg: ArchConfig):
         h = h + y
         states.append(ssm_h)
         tails.append(tail)
-    cache = {"attn_k": torch.stack(ks), "attn_v": torch.stack(vs), "ssm_h": torch.stack(states),
+    cache = {"attn_k": shard_activation(torch.stack(ks), (None, "batch", "kv_seq", "kv_heads", None)),
+             "attn_v": torch.stack(vs), "ssm_h": torch.stack(states),
              "conv": torch.stack(tails)}
     return lm_logits(params, h[:, -1:], cfg), cache
 

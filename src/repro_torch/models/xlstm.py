@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.common import Param, maybe_remat, rms_norm, softcap, stack_params
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models.transformer import compute_dtype
@@ -100,6 +101,7 @@ def mlstm_apply(blk, x: Tensor, cfg: ArchConfig, *, state: Tensor | None = None,
         state,
     )
     out = x + _mlstm_out(blk, y_aug[..., :pp], y_aug[..., pp], z, cfg, x)
+    out = shard_activation(out, ("batch", "seq", "act_embed"))
     return (out, h_final) if return_state else out
 
 
@@ -191,7 +193,7 @@ def slstm_apply(blk, x: Tensor, cfg: ArchConfig, *, state: tuple | None = None, 
     for t in range(pre.shape[1]):
         state = _slstm_cell(r_cat, bias, pre[:, t], state)
         hs.append(state[3])
-    out = _slstm_out(blk, torch.stack(hs, dim=1), cfg, x)
+    out = shard_activation(_slstm_out(blk, torch.stack(hs, dim=1), cfg, x), ("batch", "seq", "act_embed"))
     return (out, state) if return_state else out
 
 
@@ -222,11 +224,12 @@ def xlstm_params(cfg: ArchConfig) -> dict:
 
 
 def _embed(params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
-    return params["embed"][tokens].to(compute_dtype(cfg))
+    return shard_activation(params["embed"][tokens].to(compute_dtype(cfg)), ("batch", "seq", "act_embed"))
 
 
 def _logits(params, h: Tensor, cfg: ArchConfig) -> Tensor:
-    return softcap(rms_norm(h, params["ln_f"], cfg.norm_eps) @ params["unembed"], cfg.logit_softcap)
+    logits = softcap(rms_norm(h, params["ln_f"], cfg.norm_eps) @ params["unembed"], cfg.logit_softcap)
+    return shard_activation(logits, ("batch", "seq", "vocab"))
 
 
 def xlstm_train(params, tokens: Tensor, cfg: ArchConfig):

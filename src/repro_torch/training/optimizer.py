@@ -14,6 +14,13 @@ moments into the given tensors (the reference's launcher donates its state
 to the jitted step; a 1.9e9-parameter model's masters and moments are
 22.7 GB, which a functional copy would double).  The numbers are the
 reference's, term for term.
+
+A state placed on a mesh of several ranks (``train_step.place_state``)
+holds ``DTensor`` parameters, gradients, moments and error buffers of one
+placement per leaf: the reductions (the global norm, a leaf's amax) are
+taken over the whole tensor (a ``DTensor`` reduction, then
+``full_tensor``), and the elementwise update runs on each rank's local
+block.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import leaf_groups, map_tree, tree_leaves
 
@@ -52,7 +60,18 @@ class AdamState(NamedTuple):
 
 
 def _zeros(params) -> dict:
-    return map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    return map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+
+def _local(x: Tensor) -> Tensor:
+    """This rank's block of a ``DTensor`` (the tensor itself, not a copy);
+    a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _whole(x: Tensor) -> Tensor:
+    """A reduction's value over the whole ``DTensor``; a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def init(params, config: OptimizerConfig) -> AdamState:
@@ -75,14 +94,16 @@ def schedule(step: Tensor, config: OptimizerConfig) -> Tensor:
 
 def global_norm(tree) -> Tensor:
     """Global L2 norm over a gradient tree (fp32 accumulation)."""
-    return torch.sqrt(torch.sum(torch.stack([torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)])))
+    return torch.sqrt(torch.sum(torch.stack([_whole(torch.sum(torch.square(x.to(torch.float32))))
+                                             for x in tree_leaves(tree)])))
 
 
 def clip_by_global_norm(grads, max_norm: float):
-    """Scale grads onto the ``max_norm`` ball; returns (clipped, pre-clip norm)."""
+    """Scale grads onto the ``max_norm`` ball; returns (clipped, pre-clip
+    norm).  Placed gradients come back as their local blocks."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return map_tree(lambda g: g * scale, grads), norm
+    return map_tree(lambda g: _local(g) * scale, grads), norm
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +126,13 @@ def dequantize_int8(q: Tensor, scale: Tensor) -> Tensor:
     return q.to(torch.float32) * scale
 
 
+def _like(ref: Tensor, local: Tensor) -> Tensor:
+    """``local`` as a ``DTensor`` of ``ref``'s placement when ``ref`` is one."""
+    if isinstance(ref, DTensor):
+        return DTensor.from_local(local, ref.device_mesh, ref.placements, run_check=False)
+    return local
+
+
 def ef_compress(grads, err):
     """Error-feedback int8 round trip: g' = deq(quant(g + err)), and the
     residual (g + err) - g' carried to the next step, so the compression is
@@ -115,9 +143,10 @@ def ef_compress(grads, err):
     new: dict[int, Tensor] = {}
     for (_, gs, _), (_, es, _) in zip(leaf_groups(grads), leaf_groups(err), strict=True):
         targets = [g.to(torch.float32) + e for g, e in zip(gs, es)]
-        scale = torch.clamp(torch.max(torch.stack([torch.max(torch.abs(t)) for t in targets])), min=1e-12) / 127.0
+        amax = torch.max(torch.stack([_whole(torch.max(torch.abs(t))) for t in targets]))
+        scale = torch.clamp(amax, min=1e-12) / 127.0
         for g, e, target in zip(gs, es, targets):
-            deq = dequantize_int8(_quantize(target, scale), scale)
+            deq = _like(target, dequantize_int8(_quantize(_local(target), scale), scale))
             new[id(g)], new[id(e)] = deq.to(g.dtype), (target - deq).to(e.dtype)
     return map_tree(lambda g: new[id(g)], grads), map_tree(lambda e: new[id(e)], err)
 
@@ -142,7 +171,7 @@ def update(grads, state: AdamState, params, config: OptimizerConfig):
     b1, b2 = config.beta1, config.beta2
     bc1 = 1.0 - b1 ** step_f
     bc2 = 1.0 - b2 ** step_f
-    for p, g, m, v in zip(*(tree_leaves(t) for t in (params, grads, state.mu, state.nu)), strict=True):
+    for p, g, m, v in zip(*(map(_local, tree_leaves(t)) for t in (params, grads, state.mu, state.nu)), strict=True):
         g32 = g.to(torch.float32)
         m.copy_(b1 * m + (1.0 - b1) * g32)
         v.copy_(b2 * v + (1.0 - b2) * g32 * g32)

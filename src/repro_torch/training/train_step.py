@@ -1,5 +1,5 @@
-"""The train step: loss, gradients and AdamW -- the twin of the reference's
-``repro/training/train_step.py``.
+"""The train step: loss, gradients and AdamW, with the state placed on a
+mesh -- the twin of the reference's ``repro/training/train_step.py``.
 
 ``make_train_step`` closes over the ``ModelApi`` and the optimizer config
 and returns ``(state, batch) -> (state, metrics)``.  The state's fp32
@@ -9,11 +9,32 @@ the gradients come from ``torch.autograd.grad`` in fp32 on the masters, and
 ``optimizer.update`` writes the new parameters and moments into the
 state's own tensors.
 
-The reference's XLA sharding and lowering tools -- ``abstract_state``,
-``state_logical``, ``state_shardings``, ``batch_shardings``,
-``abstract_batch`` and ``jit_train_step`` -- place the state on a device
-mesh and lower the step for the dry-run; the port runs eagerly on one card
-and has no twin of them (ROADMAP items 9.8 and 9.9).
+**Placement.**  ``state_logical``, ``state_shardings`` and
+``batch_shardings`` resolve the reference's logical-axis rules over the
+port's state layout (a per-layer list's leaves drop the stacked axis, which
+every rule replicates, so their specs are the reference's with that entry
+dropped), and ``place_state`` distributes each leaf onto its sharding.  On
+a mesh of one device every spec places the whole tensor on that device, so
+there ``place_state`` leaves plain tensors: a one-device ``DTensor`` would
+only add host dispatch to each of a training step's launches.  On a mesh of
+several ranks the parameters and moments become ``DTensor``s (``count``
+stays a plain scalar, equal on every rank), and the step runs as each
+rank's local program:
+
+- each weight is gathered whole where the forward reads it (an all-gather;
+  its gradient comes back as a partial sum over the token axes, reduced
+  and scattered onto the weight's own placement -- FSDP's pattern);
+  expert weights on the MoE block's expert-parallel path are gathered by
+  that path to the rank's own experts instead;
+- the batch is the rank's block on the token axes ("pod", "data"); the
+  "model" ranks of a token shard compute the same values (the port
+  places the state by the tensor-parallel rules but does not split the
+  products over "model");
+- each rank's loss is weighted by its share of the valid tokens, so the
+  sum over token shards is the global mean loss, whose value is reported.
+
+The dry run's ``abstract_state``, ``abstract_batch`` and ``jit_train_step``
+come with the dry-run slice (ROADMAP item 9.9).
 """
 
 from __future__ import annotations
@@ -21,8 +42,13 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.models.common import ComputeView, cast_masters, map_tree, materialize, tree_leaves
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.common import (
+    ComputeView, cast_masters, layer_specs, logical_axes, map_tree, materialize, tree_leaves,
+)
 from repro_torch.models.model_zoo import ModelApi
 from repro_torch.models.transformer import compute_dtype
 from repro_torch.training import optimizer as opt
@@ -38,6 +64,68 @@ def init_state(api: ModelApi, generator: torch.Generator, config: opt.OptimizerC
     optimizer state."""
     params = materialize(api.params_def, generator, torch.float32, trainable=True)
     return TrainState(params=params, opt=opt.init(params, config))
+
+
+def state_logical(api: ModelApi, config: opt.OptimizerConfig) -> TrainState:
+    """Logical-axis tree matching ``TrainState`` (the moments mirror the
+    parameters)."""
+    axes = logical_axes(api.params_def)
+    return TrainState(params=axes, opt=opt.AdamState(mu=axes, nu=axes, count=(),
+                                                     err=axes if config.compress_grads else None))
+
+
+def state_shardings(api: ModelApi, config: opt.OptimizerConfig, mesh, rules) -> TrainState:
+    """``NamedSharding`` tree for the train state under (mesh, rules).
+    ``count`` gets ``None``: the step counter stays a plain scalar, equal
+    on every rank (the reference's replicated 0-dim leaf)."""
+    specs = layer_specs(api.params_def)
+    shaped = TrainState(params=specs, opt=opt.AdamState(mu=specs, nu=specs, count=torch.zeros(()),
+                                                        err=specs if config.compress_grads else None))
+    out = shd.tree_shardings(state_logical(api, config), shaped, mesh, rules)
+    return out._replace(opt=out.opt._replace(count=None))
+
+
+def batch_shardings(spec_tree: Any, mesh, rules) -> Any:
+    """``NamedSharding`` tree for a host-batch ``TensorSpec`` tree."""
+    return {k: shd.sharding_for(s.axes, s.shape, mesh, rules) for k, s in spec_tree.items()}
+
+
+def place_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """Distribute each leaf of ``state`` onto its sharding (the reference's
+    ``device_put(state, shardings)``): plain tensors on a one-device mesh,
+    ``DTensor``s from each rank's block otherwise."""
+    return shd.place_tree(state, shardings)
+
+
+def _placed_mesh(params):
+    """The mesh of a placed state's parameters, or None when they are plain."""
+    first = tree_leaves(params)[0]
+    return first.device_mesh if isinstance(first, DTensor) else None
+
+
+def _token_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the mesh's token axes ("pod", "data")."""
+    x = x.clone()
+    for axis in mesh.mesh_dim_names:
+        if axis in ("pod", "data"):
+            dist.all_reduce(x, group=mesh.get_group(axis))
+    return x
+
+
+def _local_view(params, logical, mesh, ep: bool):
+    """Each placed weight as this rank's whole tensor (gradient: a partial
+    sum over the token axes), except the expert weights that the MoE
+    block's EP path gathers itself."""
+    names = mesh.mesh_dim_names
+    whole = [Replicate()] * len(names)
+    grad = [Partial() if n in ("pod", "data") else Replicate() for n in names]
+
+    def gather(leaf, axes):
+        if ep and axes[:1] == ("expert",):
+            return leaf
+        return leaf.redistribute(mesh, whole).to_local(grad_placements=grad)
+
+    return map_tree(gather, params, logical)
 
 
 def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: int = 1, cast_params: bool = False):
@@ -56,22 +144,35 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
     compute dtype before the cast back, as the reference's does.  Its one
     consumer in the reference is the dry run's ``--bf16-params``; no
     launcher or example of the port sets it until that twin exists.
-    """
+
+    A state placed on a mesh of several ranks (``place_state``) runs as
+    the module docstring says; its batch is the ``batch_iterator(shardings=)``
+    one."""
     cdt = compute_dtype(api.cfg)
+    logical = logical_axes(api.params_def)
+    ep = api.cfg.family == "moe" and api.cfg.router_impl != "ragged"
 
     def grad_of(params, leaves, batch):
+        mesh = _placed_mesh(params)
+        if mesh is not None:
+            params = _local_view(params, logical, mesh, ep and shd._active() is not None)
         tree = cast_masters(params, cdt) if cast_params else params
         loss, metrics = api.loss(ComputeView(tree, cdt), batch)
+        if mesh is not None:  # this rank's share of the global mean
+            tokens = metrics["tokens"].detach()
+            loss = loss * (tokens / _token_sum(tokens, mesh))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        loss = loss.detach() if mesh is None else _token_sum(loss.detach(), mesh)
+        return loss, {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         leaves = tree_leaves(state.params)
+        batch = {k: v.to_local() if isinstance(v, DTensor) else v for k, v in batch.items()}  # this rank's block
         if accum_steps <= 1:
             loss, metrics, grads = grad_of(state.params, leaves, batch)
         else:
             micro = {k: torch.chunk(x, accum_steps, dim=0) for k, x in batch.items()}
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             losses = []
             for i in range(accum_steps):
                 loss_i, _, grads = grad_of(state.params, leaves, {k: x[i] for k, x in micro.items()})

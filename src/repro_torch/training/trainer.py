@@ -16,13 +16,16 @@ metrics -- the twin of the reference's ``repro/training/trainer.py``.
   of the last 50; a step beyond ``watchdog_factor`` times it is counted.
 - The loss is read to the host once a step (the reference's
   ``device_get``): that read is also where a step's wall time ends.
+- **Elastic re-shard**: with ``state_shardings`` the restore places the
+  checkpoint's whole leaves onto that tree (``distributed.checkpoint``),
+  whatever mesh the checkpoint was written under.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 
@@ -64,6 +67,7 @@ class Trainer:
         data_iter_factory: Callable[[int], Iterator[dict]],
         config: TrainerConfig = TrainerConfig(),
         *,
+        state_shardings: Any = None,
         on_step: Callable[[int, dict], None] | None = None,
     ):
         self.step_fn = step_fn
@@ -71,6 +75,7 @@ class Trainer:
         self.data_iter_factory = data_iter_factory
         self.config = config
         self.on_step = on_step
+        self._shardings = state_shardings
         self.ckpt = CheckpointManager(config.checkpoint_dir, keep=config.keep_checkpoints) \
             if config.checkpoint_dir else None
 
@@ -79,7 +84,7 @@ class Trainer:
         report = TrainerReport()
         start = 0
         if self.ckpt is not None:
-            restored = self.ckpt.restore_latest(self.state)
+            restored = self.ckpt.restore_latest(self.state, shardings=self._shardings)
             if restored is not None:
                 start, self.state = restored
                 report.resumed_from = start

@@ -13,12 +13,16 @@ Two populations:
 - ``arch_functions()``: model-invocation classes over the assigned
   architectures (``<arch>/prefill``, ``<arch>/decode``, ``<arch>/train``),
   with power/latency derived from each arch's FLOP count — the framework's
-  tenant population.
+  tenant population.  A class's dynamic power is its utilisation times the
+  H100's dynamic watts (``launch.mesh.CHIP_DYN_W``), where the reference
+  takes its TPU's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.launch.mesh import CHIP_DYN_W
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,10 +84,6 @@ def paper_functions() -> FunctionRegistry:
     )
 
 
-#: TPU v5e-flavored constants used to derive invocation-class specs.
-_V5E_PEAK_TFLOPS = 197.0
-_V5E_DYN_W = 160.0   # dynamic chip watts at full utilization
-_V5E_IDLE_W = 60.0
 
 
 def arch_functions(archs: dict[str, dict] | None = None) -> FunctionRegistry:
@@ -108,7 +108,7 @@ def arch_functions(archs: dict[str, dict] | None = None) -> FunctionRegistry:
                 name=name,
                 mean_latency_s=d["latency_s"],
                 latency_cov=0.15,
-                dyn_power_w=_V5E_DYN_W * util,
+                dyn_power_w=CHIP_DYN_W * util,
                 cpu_frac=0.9,
                 mem_gb=8.0,
                 gflops=d["gflops_per_call"],

@@ -182,3 +182,32 @@ def test_layer_map_places_the_training_slice():
     }
     assert {mod: _layer(mod) for mod in expected} == expected
     assert all(mod in MODULES for mod in expected)
+
+
+def test_layer_map_places_the_distributed_slice():
+    """The distributed slice: the rules, the collectives and the MoE
+    block's EP path in layer 1 beside the models that call them, the
+    placement in the training layer, the launchers' meshes and costs in
+    ``launch`` (infrastructure)."""
+    expected = {
+        "repro_torch.distributed.sharding": 1,
+        "repro_torch.distributed.collectives": 1,
+        "repro_torch.models.moe": 1,
+        "repro_torch.training.train_step": 2,
+        "repro_torch.launch.mesh": None,
+        "repro_torch.launch.costs": None,
+        "repro_torch.version": None,
+    }
+    assert {mod: _layer(mod) for mod in expected} == expected
+    assert all(mod in MODULES for mod in expected)
+
+
+def test_launch_costs_imports_only_the_configs():
+    """``launch.costs`` is analytic: besides the standard library it
+    imports only ``repro_torch.configs``, as the reference's imports only
+    its configs."""
+    mod = "repro_torch.launch.costs"
+    targets = {t for _, t in _imports(mod, ast.parse(MODULES[mod].read_text()))}
+    port = {t for t in targets if t.split(".")[0] == "repro_torch"}
+    assert port and all(t.startswith("repro_torch.configs") for t in port), port
+    assert targets - port <= {"__future__", "dataclasses"}, targets - port

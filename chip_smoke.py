@@ -171,7 +171,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    1.896e9-element parameter tree, each leaf within amax/127 + 1e-6; (g)
    ``launch.costs.step_cost`` of the training cell beside its measured
    step.  No hand kernel runs here (every count stays 0).
-15. Examples: the five twins in ``examples_torch/`` on the card
+15. Dry run (``launch.dryrun``): (a) the training cell (internlm2-1.8b,
+   4 x 2048, remat "full", bf16 on fp32 masters) traced on fake CUDA
+   tensors on the (1, 1) mesh of a one-rank fake world, then one real step
+   of it on a fresh state under ``FlopCounterMode``: the trace's
+   ``flash_attention_lse`` ops must equal the real step's flash launches
+   (48), its FLOPs the real step's exactly, and its ``peak_bytes_est`` the
+   real step's ``max_memory_allocated`` above what was allocated before,
+   within 15 %; (b) internlm2-1.8b train_4k, olmoe-1b-7b train_4k under the
+   EP rules, internlm2-1.8b prefill_32k and decode_32k on the (16, 16) pod
+   of a fake 256-rank world, each with its custom ops counted and its
+   roofline row printed; (c) host µs per call of the decode and flash
+   kernels through the wrapper, the ``repro_torch::`` custom op and
+   ``ops``.  No fake trace may launch a kernel, build a library or hand a
+   CUDA tensor to a plain version.  The kernel parity of phase 2 and the
+   flash VJP of phase 13 call the kernels through their custom ops.
+16. Examples: the five twins in ``examples_torch/`` on the card
    (``quickstart``, ``stream_energy``, ``capped_cluster`` and
    ``train_energy`` in this process, ``serve_energy`` as its own).
 
@@ -185,8 +200,9 @@ training path, is watched too.
 
 Output: one line per measurement, a ``combined_control {...}`` JSON line of
 phases 5-6, an ``elastic {...}`` one of phase 7, a ``families {...}``
-one of phase 12, a ``training {...}`` one of phase 13 and a
-``distributed {...}`` one of phase 14, then a
+one of phase 12, a ``training {...}`` one of phase 13, a
+``distributed {...}`` one of phase 14 and a ``dryrun {...}`` one of phase
+15, then a
 ``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; no network.
@@ -198,6 +214,7 @@ kernel timings (``bench_main``), of this tree or another one.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -574,8 +591,8 @@ def gram_parity(ds, ref, c, w, warm: bool, label: str = "parity") -> dict:
     version's and ``torch.bmm``'s (with ``warm``, the warm back-to-back
     rates too), and the bytes-or-operations bound."""
     g, n, m = c.shape
-    gram, rhs = ds.disagg_gram(c, w)
-    gram2, rhs2 = ds.disagg_gram(c, w)
+    gram, rhs = torch.ops.repro_torch.disagg_gram(c, w)  # the custom op: the kernel's launch on the card
+    gram2, rhs2 = torch.ops.repro_torch.disagg_gram(c, w)
     torch.cuda.synchronize()
     assert torch.equal(gram, gram2) and torch.equal(rhs, rhs2), f"disagg_gram not deterministic at {(g, n, m)}"
     pg, pr = ref.disagg_gram(c, w)
@@ -2200,7 +2217,7 @@ def phase_attention_parity(ref) -> dict:
         flash_cases += FLASH_ZAMBA + FLASH_ZAMBA_RAGGED + FLASH_SEAMLESS + FLASH_CROSS
         for b, s, t, h, hkv, d, causal in flash_cases:
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
-            got = fa.flash_attention(q, k, v, causal=causal)
+            got = torch.ops.repro_torch.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
             want = ref.flash_attention(q, k, v, causal)
             bf16 = dtype == torch.bfloat16
@@ -2211,7 +2228,7 @@ def phase_attention_parity(ref) -> dict:
             if bf16 and (b, s, t, h, hkv, d, causal) in FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_ZAMBA:
                 more["planted_err_rms"] = _planted_tile_fault(ref, q, k, v, want, tol)
             reps = 5 if s * t > 2**22 else 25
-            t_kernel = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps)
+            t_kernel = device_ms(lambda: torch.ops.repro_torch.flash_attention(q, k, v, causal), reps)
             t_plain = device_ms(lambda: ref.flash_attention(q, k, v, causal), reps)
             t_lib = None
             if s == t or not causal:  # SDPA's causal mask is not offset by T - S
@@ -2231,8 +2248,8 @@ def phase_attention_parity(ref) -> dict:
             q = rnd(b, h, d, dtype=dtype)
             kc, vc = rnd(b, smax, hkv, d, dtype=dtype), rnd(b, smax, hkv, d, dtype=dtype)
             lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-            got = da.decode_attention(q, kc, vc, lens)
-            again = da.decode_attention(q, kc, vc, lens)
+            got = torch.ops.repro_torch.decode_attention(q, kc, vc, lens)
+            again = torch.ops.repro_torch.decode_attention(q, kc, vc, lens)
             torch.cuda.synchronize()
             assert torch.equal(got, again), f"decode_attention not deterministic at {key}"
             want = ref.decode_attention(q, kc, vc, lens)
@@ -2247,12 +2264,12 @@ def phase_attention_parity(ref) -> dict:
                     f"decode {tag} B={b} S_max={smax} H={h} Hkv={hkv} d={d} lengths={list(lengths)}", **more)
         for n, d in RMS_MAIN + RMS_RAGGED:
             x, g = rnd(n, d, dtype=dtype), rnd(d, dtype=torch.float32)
-            got = rn.rmsnorm(x, g)
+            got = torch.ops.repro_torch.rmsnorm(x, g, 1e-5)
             torch.cuda.synchronize()
             tol_rms = 1e-5 if dtype == torch.float32 else 2e-2  # the reference's RMSNorm tolerances
             err = _check(got, ref.rmsnorm(x, g), tol_rms, "rmsnorm")
             g_lib = g.to(dtype)
-            t_kernel = device_ms(lambda: rn.rmsnorm(x, g))
+            t_kernel = device_ms(lambda: torch.ops.repro_torch.rmsnorm(x, g, 1e-5))
             t_plain = device_ms(lambda: ref.rmsnorm(x, g))
             t_lib = device_ms(lambda: F.rms_norm(x, (d,), g_lib, 1e-5))
             _record(rows, ("rmsnorm", (n, d), tag), err, tol_rms, t_kernel, t_plain, t_lib,
@@ -2949,12 +2966,12 @@ def phase_train_vjp(ref) -> dict:
         key = (b, s, t, h, hkv, d, causal, str(dtype).split(".")[1])
         q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                        for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d)))
-        lse = torch.empty((b, hkv, h // hkv, s), dtype=torch.float32, device="cuda")
-        out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+        out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
         torch.cuda.synchronize()
         want_out, want_lse = ref.flash_fwd(q, k, v, causal)
         err_out = _check(out, want_out, _tol(dtype), "flash out with lse", rows=dtype == torch.bfloat16)
-        assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal)), "the lse store changed the output"
+        assert torch.equal(out, torch.ops.repro_torch.flash_attention(q, k, v, causal)), \
+            "the lse store changed the output"
         err_lse = float((lse - want_lse).abs().max())
         assert err_lse <= 2e-5 * max(1.0, float(want_lse.abs().max())), (key, err_lse)
         qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -3559,6 +3576,195 @@ def phase_distributed(ref, counter, train_full: dict, device="cuda", reduced=Fal
     return out
 
 
+# The dry run's cells on the (16, 16) pod (phase 15 (b)): a dense train
+# cell, olmoe's under the expert-parallel rules, a prefill and a decode.
+DRYRUN_CELLS = [(ARCH, "train_4k", "train"), (OLMOE, "train_4k", "ep"), (ARCH, "prefill_32k", "train"),
+                (ARCH, "decode_32k", "train")]
+BENCH_CHAT_REQUESTS = 9  # the --bench run's chat requests (the first is the cold start)
+DRYRUN_PEAK_RTOL = 0.15  # the trace's peak against the real step's max_memory_allocated
+
+
+def _host_us(fn, calls: int = 1000, rounds: int = 5) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls with no
+    synchronisation, the median of ``rounds`` rounds (the card drains
+    between rounds)."""
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def phase_dispatch_cost() -> dict:
+    """Host µs per call of the decode and flash kernels at the dense chat
+    shapes: the wrapper called directly against the ``repro_torch::``
+    custom op and ``ops``'s dispatch, which the models call."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, smax, lengths = DECODE_MAIN[0]
+    q = torch.randn(b, H, HD, generator=gen, device="cuda").bfloat16()
+    kc, vc = (torch.randn(b, smax, HKV, HD, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    fb, fs, ft, fh, fhkv, fd, causal = FLASH_MAIN[0]
+    fq = torch.randn(fb, fs, fh, fd, generator=gen, device="cuda").bfloat16()
+    fk, fv = (torch.randn(fb, ft, fhkv, fd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    out = {}
+    for name, fn in (("decode_direct", lambda: da.decode_attention(q, kc, vc, lens)),
+                     ("decode_op", lambda: torch.ops.repro_torch.decode_attention(q, kc, vc, lens)),
+                     ("decode_ops", lambda: ops.decode_attention(q, kc, vc, lens)),
+                     ("decode_direct_again", lambda: da.decode_attention(q, kc, vc, lens)),
+                     ("flash_direct", lambda: fa.flash_attention(fq, fk, fv, causal=causal)),
+                     ("flash_op", lambda: torch.ops.repro_torch.flash_attention(fq, fk, fv, causal)),
+                     ("flash_ops", lambda: ops.flash_attention(fq, fk, fv, causal=causal)),
+                     ("flash_direct_again", lambda: fa.flash_attention(fq, fk, fv, causal=causal))):
+        out[name] = _host_us(fn, 1000 if name.startswith("decode") else 200)
+    log("dispatch host us per call (decode B=8 S_max=576; flash B=8 S=T=512), direct / custom op / ops / direct: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f" | {nvidia_smi_line()}")
+    return out
+
+
+def _real_step(cfg, shape, ocfg, counter, device):
+    """One train step at ``shape`` on a fresh state through the placed
+    launcher's program on the local mesh (1, 1), under
+    ``FlopCounterMode``: its FLOPs, flash launches and peak memory above
+    what was allocated before the state."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data.pipeline import DataConfig, batch_iterator
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.training.train_step import init_state, jit_train_step, place_state, state_shardings
+
+    mesh = _open_group(device)
+    try:
+        api = build(cfg)
+        cuda = device == "cuda"
+        base = torch.cuda.memory_allocated() if cuda else 0
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = place_state(init_state(api, gen, ocfg), state_shardings(api, ocfg, mesh, shd.TRAIN_RULES))
+        batch = next(batch_iterator(api, shape, DataConfig(seed=0), device=device))
+        step, _ = jit_train_step(api, ocfg, mesh, shd.TRAIN_RULES)[0](shape)
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        counter.zero()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as flops:
+            state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        _sync(device)
+        out = dict(flops=float(flops.get_total_flops()), launches=counter.read(), loss=loss,
+                   step_s=time.perf_counter() - t0,
+                   peak_bytes=(torch.cuda.max_memory_allocated() - base) if cuda else float("nan"),
+                   max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else float("nan"))
+        del state, batch
+    finally:
+        dist.destroy_process_group()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    assert math.isfinite(out["loss"]), out
+    return out
+
+
+def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
+    """Phase 15, the dry run (``launch.dryrun``): (a) the training phase's
+    cell -- internlm2-1.8b, batch 4 x 2048, remat "full", bf16 on fp32
+    masters -- traced on fake tensors on the local mesh (1, 1), then run for
+    real on the card: the trace's flash ops must equal the real step's
+    flash launches (48 a step), its ``FlopCounterMode`` total the real
+    step's, and its ``peak_bytes_est`` the real step's peak within 15 %;
+    (b) one cell of each kind on the (16, 16) pod (a fake 256-rank world),
+    each with its roofline row and the custom ops its trace reached; (c)
+    the dispatch cost of the custom ops against the direct call.  No trace
+    may launch a kernel, build a library, or hand a CUDA tensor to a plain
+    version.  ``device="cpu", reduced=True`` rehearses the control flow on
+    the reduced configs (as overrides of the full ones) at 1 x 256 for (a)
+    (the plain versions then run, so FLOPs and memory are not compared)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.training import optimizer as opt
+
+    def cut(arch):  # the reduced config's fields as overrides of the full one (its experts split over 16)
+        full, small = get_config(arch), get_config(arch, reduced=True)
+        return {f.name: getattr(small, f.name) for f in dataclasses.fields(full)
+                if reduced and f.name not in ("name", "num_experts", "top_k")
+                and getattr(small, f.name) != getattr(full, f.name)}
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    overrides = cut(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), **overrides)
+    shape = ShapeConfig("train", 256 if reduced else TRAIN_SEQ, 1 if reduced else TRAIN_BATCH, "train")
+    ocfg = opt.OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
+    built_before = list(kbuild.built)
+    counter.zero()
+    with main_path(ref):
+        rec = dryrun.lower_cell(ARCH, shape, opt_config=ocfg, cfg_overrides=overrides, mesh="local")
+    traced_launches = counter.read()
+    assert not any(traced_launches.values()), f"a fake trace launched a kernel: {traced_launches}"
+    with main_path(ref):
+        real = _real_step(cfg, shape, ocfg, counter, device)
+    mem = rec["memory"]
+    flash_trace = rec["kernels"].get("flash_attention_lse", 0)
+    out["local"] = dict(record=rec, real=real, flash_trace=flash_trace, flash_real=real["launches"]["flash"],
+                        peak_rel=(mem["peak_bytes_est"] - real["peak_bytes"]) / real["peak_bytes"]
+                        if device == "cuda" else float("nan"))
+    log(f"dryrun (a) {cfg.name} {shape.global_batch} x {shape.seq_len} on the (1, 1) mesh: trace {rec['compile_s']} s on "
+        f"fake {rec['device']} tensors; flash ops traced {flash_trace}, launched by the real step "
+        f"{real['launches']['flash']}; FLOPs traced {rec['flops_per_device']:.6e}, real {real['flops']:.6e}; "
+        f"peak_bytes_est {mem['peak_bytes_est'] / 2**30:.3f} GiB (arguments {mem['argument_bytes'] / 2**30:.3f}, "
+        f"temp {mem['temp_bytes'] / 2**30:.3f}), real step {real['peak_bytes'] / 2**30:.3f} GiB above the "
+        f"{(real['max_memory_allocated'] - real['peak_bytes']) / 2**30:.3f} GiB allocated before "
+        f"(max_memory_allocated {real['max_memory_allocated'] / 2**30:.3f} GiB), rel {out['local']['peak_rel']:+.4f}; "
+        f"real step {real['step_s']:.3f} s under FlopCounterMode, loss {real['loss']:.4f}")
+    if device == "cuda":
+        assert flash_trace == real["launches"]["flash"] == 2 * cfg.num_layers, (flash_trace, real["launches"])
+        assert rec["flops_per_device"] == real["flops"], (rec["flops_per_device"], real["flops"])
+        assert abs(out["local"]["peak_rel"]) <= DRYRUN_PEAK_RTOL, out["local"]["peak_rel"]
+
+    # (b) the production cells on the pod.
+    rows, records = [], {}
+    counter.zero()
+    with main_path(ref):
+        for arch, shape_name, rules in DRYRUN_CELLS:
+            c0 = time.perf_counter()
+            r = dryrun.lower_cell(arch, shape_name, rules_name=rules, cfg_overrides=cut(arch))
+            r["wall_s"] = time.perf_counter() - c0
+            records[f"{arch}_{shape_name}_{rules}"] = r
+            rows.append(roofline.analyze_record(r))
+            c = dataclasses.replace(get_config(arch), **cut(arch))
+            layers = c.num_layers
+            per_step = layers * (1 if c.remat == "none" else 2)  # the forward, then the remat recompute
+            want = {"train": {"flash_attention_lse": per_step}, "prefill": {"flash_attention": layers},
+                    "decode": {"decode_attention": layers}}[r["kind"]]
+            assert r["kernels"] == want, (arch, shape_name, r["kernels"], want)
+            log(f"dryrun (b) {arch} {shape_name} rules {r['rules']} on {r['mesh']}: wall {r['wall_s']:.1f} s; "
+                f"{r['flops_per_device']:.4e} FLOPs/card, peak {r['memory']['peak_bytes_est'] / 2**30:.2f} GiB, "
+                f"collectives {json.dumps(r['collective_bytes'])}, by axis {json.dumps(r['collective_bytes_by_axis'])}, "
+                f"kernels {r['kernels']}")
+    pod_launches = counter.read()
+    assert not any(pod_launches.values()), f"a fake trace launched a kernel: {pod_launches}"
+    assert kbuild.built == built_before, f"a fake trace built a library: {kbuild.built[len(built_before):]}"
+    for line in roofline.to_markdown(rows).strip().splitlines():
+        log(f"dryrun roofline | {line}")
+    out["pod"] = dict(records=records, rows=rows)
+    if device == "cuda":
+        out["dispatch_us"] = phase_dispatch_cost()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase dry run: {out['phase_s']:.1f} s")
+    return out
+
+
 PLAIN_NAMES = ("disagg_gram", "flash_attention", "flash_fwd", "decode_attention", "rmsnorm")
 
 
@@ -3636,6 +3842,7 @@ def main() -> int:
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import disagg_solve as ds
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ops  # noqa: F401  (registers the repro_torch:: custom ops)
         from repro_torch.kernels import ref
         from repro_torch.kernels import rmsnorm as rn
     except ImportError as exc:
@@ -3862,6 +4069,8 @@ def main() -> int:
     log("training " + json.dumps({**train, "vjp": {str(k): r for k, r in train["vjp"].items()}}, default=str))
     distributed = phase_distributed(ref, counter, train["full"])
     log("distributed " + json.dumps(distributed, default=str))
+    dry = phase_dryrun(ref, counter)
+    log("dryrun " + json.dumps({k: v for k, v in dry.items() if k != "pod"}, default=str))
     t0 = time.perf_counter()
     examples = phase_examples(ref, counter)
     log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))
@@ -3870,7 +4079,8 @@ def main() -> int:
         return [dict(shape=json.loads(json.dumps(k)), **{f: arows[(kernel, k, "bfloat16")][f] for f in (
             "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}) for k in keys]
 
-    paths = {"dense": (flash_launches, decode_launches), "train": (train["full"]["launches"], 0)}
+    paths = {"dense": (flash_launches, decode_launches), "train": (train["full"]["launches"], 0),
+             "dryrun_real_step": (dry["local"]["flash_real"], 0)}
     paths.update({key: (fam[key]["launches"]["flash"], fam[key]["launches"]["decode"])
                   for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "launcher")})
     by_path = {k: dict(zip(("flash", "decode"), v)) for k, v in paths.items()}
@@ -3933,9 +4143,12 @@ def bench_main(argv: list) -> int:
     call's), at decode's main shapes (bf16) and at the gram's main shapes,
     its parity shapes with M >= 64 and those either side of the variants'
     threshold.  For decode it adds ``len1_ms`` (every length 1: the
-    launch's fixed cost at that grid) and ``host_us`` (the wrapper's host
+    launch's fixed cost at that grid), ``host_us`` (the wrapper's host
     time per call over 1,000 calls with no synchronisation, the median of
-    five rounds).  The last line is all of it as JSON.
+    five rounds) and ``ops_host_us`` (the same through ``ops``, the
+    models' entry).  Then it serves internlm2-1.8b chat at full width
+    (``BENCH_CHAT_REQUESTS`` requests) and reports its warm latency and
+    decode tokens/s.  The last line is all of it as JSON.
     """
     if not torch.cuda.is_available():
         print("chip_smoke --bench: torch.cuda.is_available() is false; this needs a CUDA GPU", file=sys.stderr)
@@ -3945,6 +4158,7 @@ def bench_main(argv: list) -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import disagg_solve as ds
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -3970,16 +4184,8 @@ def bench_main(argv: list) -> int:
         row = time_decode(da, q, kc, vc, lens, warm=True)
         ones = torch.ones_like(lens)
         row["len1_ms"] = device_ms(lambda: da.decode_attention(q, kc, vc, ones))
-        rounds = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(1000):
-                da.decode_attention(q, kc, vc, lens)
-            rounds.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-        row["host_us"] = statistics.median(rounds)
-        row["host_us_rounds"] = rounds
+        row["host_us"] = _host_us(lambda: da.decode_attention(q, kc, vc, lens))
+        row["ops_host_us"] = _host_us(lambda: ops.decode_attention(q, kc, vc, lens))  # the models' entry
         out["decode"][f"B={b} S_max={smax} len={lengths[0]}"] = row
         print(f"decode B={b} S_max={smax}: " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
     rng = np.random.default_rng(0)
@@ -3989,6 +4195,12 @@ def bench_main(argv: list) -> int:
         row = time_gram(ds, c, w, warm=True)
         out["gram"][f"{g}x{n}x{m}"] = row
         print(f"gram G={g} N={n} M={m}: " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    # internlm2-1.8b chat served at full width from bf16 weights: the
+    # decode loop is host-bound, so its tokens/s carries any dispatch cost.
+    api, _, params = build_model(masters=False)
+    chat = {f"{ARCH}/chat": CLASSES[f"{ARCH}/chat"]}
+    served = phase_serving(api, params, chat, [f"{ARCH}/chat"] * BENCH_CHAT_REQUESTS)
+    out["serve_chat"] = report_serving(served, chat)[f"{ARCH}/chat"]
     print(json.dumps(out), flush=True)
     return 0
 

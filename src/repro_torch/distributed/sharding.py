@@ -302,10 +302,77 @@ def tree_shardings(logical_tree: Any, abstract_tree: Any, mesh, rules: Rules) ->
 
 def abstract_with_sharding(abstract_tree: Any, logical_tree: Any, mesh, rules: Rules) -> Any:
     """Attach shardings to a ``TensorSpec`` tree: each spec comes back with
-    its ``sharding`` set (the dry run's input specs).  No caller yet: the
-    dry run (ROADMAP item 9.9) is its first."""
+    its ``sharding`` set -- the dry run's input specs (``launch.dryrun``),
+    which ``empty_placed`` turns into this rank's blocks."""
     return map_logical(lambda axes, a: dataclasses.replace(a, sharding=sharding_for(axes, a.shape, mesh, rules)),
                        logical_tree, abstract_tree)
+
+
+def empty_placed(spec_tree: Any) -> Any:
+    """This rank's uninitialised blocks of a ``TensorSpec`` tree whose specs
+    carry shardings (``abstract_with_sharding``), placed by ``place`` --
+    the rules that place real tensors: a ``DTensor`` per leaf, or a plain
+    tensor on a one-device mesh.  Under ``FakeTensorMode`` every tensor is
+    fake, so the whole tensors cost nothing; each block owns its storage
+    (a clone of its chunk), so its bytes are its own."""
+
+    from torch.distributed.tensor import DTensor
+
+    def one(spec):
+        x = place(torch.empty(spec.shape, dtype=spec.dtype, device=mesh_device(spec.sharding.mesh)), spec.sharding)
+        if isinstance(x, DTensor):
+            x = DTensor.from_local(x.to_local().clone(), x.device_mesh, x.placements, run_check=False)
+        return x
+
+    return _map_specs(one, spec_tree)
+
+
+def _map_specs(fn, tree):
+    """``fn`` over every ``TensorSpec`` leaf (anything with ``.sharding``)
+    of nested dicts, lists and NamedTuples; ``None`` passes through."""
+    if tree is None:
+        return None
+    if hasattr(tree, "sharding"):
+        return fn(tree)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map_specs(fn, x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(fn, x) for x in tree)
+    raise TypeError(f"not a TensorSpec tree: {type(tree).__name__}")
+
+
+#: Mesh axes that split the tokens (the batch); "model" splits the weights.
+TOKEN_AXES = ("pod", "data")
+
+
+def local_view(tree: Any, logical_tree: Any, mesh, *, ep: bool = False) -> Any:
+    """Each placed leaf as this rank's local tensor, gathered where it is
+    read: whole on every mesh axis, except a "batch" dim sharded over a
+    token axis, which stays this rank's block (a decode cache's sequences).
+    The gradient of a gathered leaf comes back as a partial sum over the
+    token axes (FSDP's pattern: reduced and scattered onto its placement).
+    With ``ep`` the expert weights (leading logical axis "expert") stay as
+    they are: the MoE block's expert-parallel path gathers them itself.
+    Plain leaves come back as they are.  The placed train step reads its
+    parameters through it; the dry run's serve programs their parameters
+    and caches."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    names = mesh.mesh_dim_names
+
+    def gather(leaf, axes):
+        if not isinstance(leaf, DTensor) or (ep and axes[:1] == ("expert",)):
+            return leaf
+        keep = [p if isinstance(p, Shard) and n in TOKEN_AXES and axes[p.dim] == "batch" else Replicate()
+                for n, p in zip(names, leaf.placements)]
+        grad = [Partial() if n in TOKEN_AXES and isinstance(p, Replicate) else p for n, p in zip(names, keep)]
+        return leaf.redistribute(mesh, keep).to_local(grad_placements=grad)
+
+    from repro_torch.models.common import map_tree
+
+    return map_tree(gather, tree, logical_tree)
 
 
 def shard_activation(x, logical: Sequence[str | None]):

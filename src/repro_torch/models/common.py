@@ -359,7 +359,11 @@ def maybe_remat(fn: Callable, policy: str) -> Callable:
     recomputes its forward in the backward, ``"dots"`` keeps the outputs of
     the products without batch dimensions (the reference's
     ``dots_with_no_batch_dims_saveable``) and recomputes the rest.  Without
-    a gradient being recorded the block runs as it is."""
+    a gradient being recorded the block runs as it is.  The recompute runs
+    under the logical-axis rule context of the forward
+    (``distributed.sharding.use_rules``): on the card the autograd engine
+    recomputes on a thread of its own, which does not see the forward's
+    thread-local context, and the MoE block would take another path there."""
     if policy == "none":
         return fn
     if policy == "full":
@@ -372,7 +376,17 @@ def maybe_remat(fn: Callable, policy: str) -> Callable:
     def block(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+        from repro_torch.distributed import sharding as shd
+
+        active = shd._active()
+        if active is None:
+            return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+        def under_rules(*a):
+            with shd.use_rules(*active):
+                return fn(*a)
+
+        return torch_checkpoint.checkpoint(under_rules, *args, use_reentrant=False, **kw)
 
     return block
 

@@ -21,20 +21,25 @@ several ranks the parameters and moments become ``DTensor``s (``count``
 stays a plain scalar, equal on every rank), and the step runs as each
 rank's local program:
 
-- each weight is gathered whole where the forward reads it (an all-gather;
-  its gradient comes back as a partial sum over the token axes, reduced
-  and scattered onto the weight's own placement -- FSDP's pattern);
+- each weight is gathered whole where the forward reads it
+  (``distributed.sharding.local_view``, the gather rule the dry run's serve
+  programs share; an all-gather whose gradient comes back as a partial sum
+  over the token axes, reduced and scattered onto the weight's own
+  placement -- FSDP's pattern);
   expert weights on the MoE block's expert-parallel path are gathered by
   that path to the rank's own experts instead;
 - the batch is the rank's block on the token axes ("pod", "data"); the
   "model" ranks of a token shard compute the same values (the port
   places the state by the tensor-parallel rules but does not split the
-  products over "model");
+  products over "model": ROADMAP item 9.10);
 - each rank's loss is weighted by its share of the valid tokens, so the
   sum over token shards is the global mean loss, whose value is reported.
 
-The dry run's ``abstract_state``, ``abstract_batch`` and ``jit_train_step``
-come with the dry-run slice (ROADMAP item 9.9).
+**Dry run.**  ``abstract_state`` and ``abstract_batch`` are the state's
+and a batch's ``TensorSpec`` trees (nothing allocated), and
+``jit_train_step`` binds the step to a mesh's rules for a shape:
+``launch.dryrun`` places fake blocks by those specs and runs the step once
+on them, over a fake world of the production mesh's size.
 """
 
 from __future__ import annotations
@@ -43,13 +48,13 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.common import (
     ComputeView, cast_masters, layer_specs, logical_axes, map_tree, materialize, tree_leaves,
 )
-from repro_torch.models.model_zoo import ModelApi
+from repro_torch.models.model_zoo import ModelApi, TensorSpec
 from repro_torch.models.transformer import compute_dtype
 from repro_torch.training import optimizer as opt
 
@@ -64,6 +69,16 @@ def init_state(api: ModelApi, generator: torch.Generator, config: opt.OptimizerC
     optimizer state."""
     params = materialize(api.params_def, generator, torch.float32, trainable=True)
     return TrainState(params=params, opt=opt.init(params, config))
+
+
+def abstract_state(api: ModelApi, config: opt.OptimizerConfig) -> TrainState:
+    """``TensorSpec`` twin of the train state (the dry run: no allocation):
+    fp32 parameters and moments, the error buffer when compressing
+    gradients, a 0-dim int32 ``count`` -- the reference's leaves, a
+    per-layer list's leaves with the stacked axis dropped."""
+    params = map_tree(lambda p: TensorSpec(p.shape, torch.float32, p.axes), layer_specs(api.params_def))
+    return TrainState(params=params, opt=opt.AdamState(mu=params, nu=params, count=TensorSpec((), torch.int32, ()),
+                                                       err=params if config.compress_grads else None))
 
 
 def state_logical(api: ModelApi, config: opt.OptimizerConfig) -> TrainState:
@@ -90,6 +105,12 @@ def batch_shardings(spec_tree: Any, mesh, rules) -> Any:
     return {k: shd.sharding_for(s.axes, s.shape, mesh, rules) for k, s in spec_tree.items()}
 
 
+def abstract_batch(spec_tree: Any) -> dict:
+    """The abstract tree of a host batch: its ``TensorSpec``s, which are
+    the port's shape-and-dtype structs already."""
+    return dict(spec_tree)
+
+
 def place_state(state: TrainState, shardings: TrainState) -> TrainState:
     """Distribute each leaf of ``state`` onto its sharding (the reference's
     ``device_put(state, shardings)``): plain tensors on a one-device mesh,
@@ -112,22 +133,6 @@ def _token_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     return x
 
 
-def _local_view(params, logical, mesh, ep: bool):
-    """Each placed weight as this rank's whole tensor (gradient: a partial
-    sum over the token axes), except the expert weights that the MoE
-    block's EP path gathers itself."""
-    names = mesh.mesh_dim_names
-    whole = [Replicate()] * len(names)
-    grad = [Partial() if n in ("pod", "data") else Replicate() for n in names]
-
-    def gather(leaf, axes):
-        if ep and axes[:1] == ("expert",):
-            return leaf
-        return leaf.redistribute(mesh, whole).to_local(grad_placements=grad)
-
-    return map_tree(gather, params, logical)
-
-
 def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: int = 1, cast_params: bool = False):
     """(state, batch) -> (state, metrics); the state is updated in place.
 
@@ -142,8 +147,8 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
     the forward, instead of at each use; a weight used at several places
     (a tied embedding, zamba2's shared block) then sums its gradient in the
     compute dtype before the cast back, as the reference's does.  Its one
-    consumer in the reference is the dry run's ``--bf16-params``; no
-    launcher or example of the port sets it until that twin exists.
+    consumer, in the reference and here, is the dry run's
+    ``--bf16-params``.
 
     A state placed on a mesh of several ranks (``place_state``) runs as
     the module docstring says; its batch is the ``batch_iterator(shardings=)``
@@ -155,7 +160,7 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
     def grad_of(params, leaves, batch):
         mesh = _placed_mesh(params)
         if mesh is not None:
-            params = _local_view(params, logical, mesh, ep and shd._active() is not None)
+            params = shd.local_view(params, logical, mesh, ep=ep and shd._active() is not None)
         tree = cast_masters(params, cdt) if cast_params else params
         loss, metrics = api.loss(ComputeView(tree, cdt), batch)
         if mesh is not None:  # this rank's share of the global mean
@@ -190,3 +195,24 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
         return TrainState(params=params, opt=new_opt), {**metrics, **stats, "loss": loss}
 
     return train_step
+
+
+def jit_train_step(api: ModelApi, config: opt.OptimizerConfig, mesh, rules, *, accum_steps: int = 1,
+                   cast_params: bool = False):
+    """The placed train step and the state shardings it runs on -- the
+    reference's ``(compile_for, st_sh)``.  ``compile_for(shape)`` gives
+    ``(step, specs)``: the step bound to ``use_rules(mesh, rules)`` (torch
+    runs eagerly, so binding takes the place of ``jax.jit``'s shardings)
+    and the shape's batch ``TensorSpec``s.  ``accum_steps`` and
+    ``cast_params`` are ``make_train_step``'s."""
+    step = make_train_step(api, config, accum_steps=accum_steps, cast_params=cast_params)
+    st_sh = state_shardings(api, config, mesh, rules)
+
+    def compile_for(shape):
+        def placed_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+            with shd.use_rules(mesh, rules):
+                return step(state, batch)
+
+        return placed_step, api.train_inputs(shape)
+
+    return compile_for, st_sh

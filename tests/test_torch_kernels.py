@@ -860,3 +860,45 @@ def test_cuda_decode_geometry_matches_plan(d, dtype, group, cuda_attention):
     elem = torch.empty((), dtype=dtype).element_size()
     assert da.kernel_geometry(d, elem, group) == (da.tile_keys(d, elem), da.smem_bytes(d, elem, group))
     assert da.smem_bytes(d, elem, group) <= 232448
+
+
+@pytest.mark.cuda
+def test_cuda_custom_ops_launch_the_kernels(cuda_attention):
+    """On CUDA tensors each ``repro_torch::`` custom op launches its hand
+    kernel once (the wrapper's count) and agrees with the plain version;
+    under ``FakeTensorMode`` the same ops launch nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    ds.build()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(2, 128, 4, 64, generator=g, device="cuda").bfloat16()
+    k = torch.randn(2, 128, 2, 64, generator=g, device="cuda").bfloat16()
+    qd = torch.randn(2, 4, 64, generator=g, device="cuda").bfloat16()
+    lens = torch.tensor([7, 128], dtype=torch.int32, device="cuda")
+    x, gamma = torch.randn(16, 256, generator=g, device="cuda"), torch.randn(256, generator=g, device="cuda")
+    c, w = torch.rand(3, 40, 8, generator=g, device="cuda"), torch.rand(3, 40, generator=g, device="cuda")
+    ops_ = torch.ops.repro_torch
+    cases = [
+        (fa.flash_attention, lambda: ops_.flash_attention(q, k, k, True), lambda: ref.flash_attention(q, k, k, True)),
+        (fa.flash_attention, lambda: ops_.flash_attention_lse(q, k, k, False), lambda: ref.flash_fwd(q, k, k, False)),
+        (da.decode_attention, lambda: ops_.decode_attention(qd, k, k, lens), lambda: ref.decode_attention(qd, k, k, lens)),
+        (rn.rmsnorm, lambda: ops_.rmsnorm(x, gamma, 1e-5), lambda: ref.rmsnorm(x, gamma)),
+        (ds.disagg_gram, lambda: ops_.disagg_gram(c, w), lambda: ref.disagg_gram(c, w)),
+    ]
+    for wrapper, op, plain in cases:
+        before = wrapper.launches
+        got, want = op(), plain()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, wrapper
+        for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-4  # one bf16 step; fp32 sums in another order
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    counts = [wrapper.launches for wrapper, _, _ in cases]
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        for _, op, _ in cases:
+            op()
+    assert [wrapper.launches for wrapper, _, _ in cases] == counts

@@ -186,7 +186,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    ``ops``.  No fake trace may launch a kernel, build a library or hand a
    CUDA tensor to a plain version.  The kernel parity of phase 2 and the
    flash VJP of phase 13 call the kernels through their custom ops.
-16. Examples: the five twins in ``examples_torch/`` on the card
+16. Tensor parallelism over "model" (``distributed.tensor_parallel``):
+   two rank processes share the one card over a gloo group on CUDA tensors
+   (NCCL refuses two ranks on one GPU), on the mesh ("data", "model") =
+   (1, 2).  Rank 0 first runs the one-process program alone and frees it:
+   internlm2-1.8b at full width and depth, bf16 on fp32 masters, remat
+   "full", ``TP_STEPS`` steps of ``TP_BATCH`` x ``TP_SEQ`` (cut from 4 x
+   2048: every collective of the split program goes through the host in
+   gloo), then a prefill and ``TP_DECODE`` decode steps of bf16 weights.
+   Then both ranks run the split program on the same seeded weights and
+   batches under ``TRAIN_RULES`` and ``SERVE_RULES``: the losses, the
+   gathered parameters and first moments after the steps, the prefill's and
+   decode steps' logits, against rank 0's, at ``TP_TOL``'s bounds; flash at
+   the ranks' 8 q heads over 4 kv heads, decode on the ranks' kv heads.
+   Then in this process the kv_seq merge alone: a 32,768-row cache cut
+   into 16 blocks (internlm2 decode_32k's block on the pod), each through
+   the ``decode_attention_lse`` op at its clipped lengths, merged by
+   ``models.attention.merge_partials``, against the unsplit kernel.
+17. Examples: the five twins in ``examples_torch/`` on the card
    (``quickstart``, ``stream_energy``, ``capped_cluster`` and
    ``train_energy`` in this process, ``serve_energy`` as its own).
 
@@ -201,20 +218,23 @@ training path, is watched too.
 Output: one line per measurement, a ``combined_control {...}`` JSON line of
 phases 5-6, an ``elastic {...}`` one of phase 7, a ``families {...}``
 one of phase 12, a ``training {...}`` one of phase 13, a
-``distributed {...}`` one of phase 14 and a ``dryrun {...}`` one of phase
-15, then a
+``distributed {...}`` one of phase 14, a ``dryrun {...}`` one of phase
+15 and a ``tensor_parallel {...}`` one of phase 16, then a
 ``{"kernels": [...]}`` JSON line,
 the ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; no network.
 
 ``python3 chip_smoke.py --bench [DIR]`` runs only the flash, decode and gram
 kernel timings (``bench_main``), of this tree or another one.
+``python3 chip_smoke.py --tp-rank RANK WORLD DIR DEVICE SIZE`` is one rank
+of phase 16, which starts them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -2215,6 +2235,7 @@ def phase_attention_parity(ref) -> dict:
         tol, tag = _tol(dtype), str(dtype).split(".")[1]
         flash_cases = FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_RAGGED
         flash_cases += FLASH_ZAMBA + FLASH_ZAMBA_RAGGED + FLASH_SEAMLESS + FLASH_CROSS
+        flash_cases += FLASH_TP if dtype == torch.bfloat16 else []  # the split program's dtype
         for b, s, t, h, hkv, d, causal in flash_cases:
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
             got = torch.ops.repro_torch.flash_attention(q, k, v, causal)
@@ -2241,7 +2262,7 @@ def phase_attention_parity(ref) -> dict:
         decode_cases = [((b, smax, lengths), H, HKV, HD) for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED]
         decode_cases += [((b, smax, lengths, MOE_H, MOE_HKV), MOE_H, MOE_HKV, HD) for b, smax, lengths in DECODE_MOE]
         decode_cases += [(key, *key[3:]) for key in DECODE_ZAMBA + DECODE_ZAMBA_RAGGED + DECODE_SEAMLESS
-                         + DECODE_STATIC]
+                         + DECODE_STATIC + (DECODE_TP if dtype == torch.bfloat16 else [])]
         warm_keys = DECODE_ZAMBA + DECODE_SEAMLESS + DECODE_STATIC  # and the main and MoE ones
         for key, h, hkv, d in decode_cases:
             b, smax, lengths = key[:3]
@@ -2262,6 +2283,35 @@ def phase_attention_parity(ref) -> dict:
             _record(rows, ("decode_attention", key, tag), err, tol, t_kernel, t_plain, t_lib,
                     decode_work(b, h, hkv, d, lengths, dtype), dtype,
                     f"decode {tag} B={b} S_max={smax} H={h} Hkv={hkv} d={d} lengths={list(lengths)}", **more)
+        for key in DECODE_LSE:  # the lse store: out the same bits, lse against the plain version's
+            b, smax, lengths, h, hkv, d = key
+            q = rnd(b, h, d, dtype=dtype)
+            kc, vc = rnd(b, smax, hkv, d, dtype=dtype), rnd(b, smax, hkv, d, dtype=dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            got, lse = torch.ops.repro_torch.decode_attention_lse(q, kc, vc, lens)
+            plain_out = torch.ops.repro_torch.decode_attention(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain_out), f"the lse store changed decode's output at {key}"
+            want_out, want_lse = ref.decode_attention(q, kc, vc, lens, return_lse=True)
+            live = lens > 0
+            assert bool(torch.isneginf(lse[~live]).all()) and bool(torch.isfinite(lse[live]).all()), key
+            err = float((lse[live] - want_lse[live]).abs().max())
+            lse_tol = 1e-5 * max(1.0, float(want_lse[live].abs().max()))
+            assert err <= lse_tol, f"decode lse at {key}: {err:.3e} > {lse_tol:.3e}"
+            sdpa, args = _sdpa_with_lengths(q, kc, vc, lens)
+            more = dict(out_err=float((got[live].float() - want_out[live].float()).abs().max()),
+                        no_lse_ms=device_ms(lambda: torch.ops.repro_torch.decode_attention(q, kc, vc, lens)))
+            nbytes = decode_work(b, h, hkv, d, lengths, dtype)[0] + 4 * b * h
+            more["warm_ms"] = warm_ms(lambda *a: torch.ops.repro_torch.decode_attention_lse(*a), (q, kc, vc, lens),
+                                      nbytes)
+            more["library_warm_ms"] = warm_ms(sdpa, args, nbytes)
+            t_kernel = device_ms(lambda: torch.ops.repro_torch.decode_attention_lse(q, kc, vc, lens))
+            t_plain = device_ms(lambda: ref.decode_attention(q, kc, vc, lens, return_lse=True))
+            t_lib = device_ms(lambda: sdpa(*args))
+            work = decode_work(b, h, hkv, d, lengths, dtype)
+            _record(rows, ("decode_attention_lse", key, tag), err, lse_tol, t_kernel, t_plain, t_lib,
+                    (work[0] + 4 * b * h, work[1]), dtype,
+                    f"decode+lse {tag} B={b} S_max={smax} H={h} Hkv={hkv} d={d} lengths={list(lengths)}", **more)
         for n, d in RMS_MAIN + RMS_RAGGED:
             x, g = rnd(n, d, dtype=dtype), rnd(d, dtype=torch.float32)
             got = torch.ops.repro_torch.rmsnorm(x, g, 1e-5)
@@ -2854,10 +2904,12 @@ class LaunchCounter:
         for fn in self.fns.values():
             fn.launches = 0
         self.fns["flash"].launches_tc = 0
+        self.fns["decode"].launches_lse = 0
 
     def read(self) -> dict:
         out = {k: fn.launches for k, fn in self.fns.items()}
         out["flash_tc"] = self.fns["flash"].launches_tc
+        out["decode_lse"] = self.fns["decode"].launches_lse
         return out
 
 
@@ -3580,7 +3632,9 @@ def phase_distributed(ref, counter, train_full: dict, device="cuda", reduced=Fal
 # cell, olmoe's under the expert-parallel rules, a prefill and a decode.
 DRYRUN_CELLS = [(ARCH, "train_4k", "train"), (OLMOE, "train_4k", "ep"), (ARCH, "prefill_32k", "train"),
                 (ARCH, "decode_32k", "train")]
+POD_MODEL = 16  # the pod's "model" axis
 BENCH_CHAT_REQUESTS = 9  # the --bench run's chat requests (the first is the cold start)
+BENCH_TRAIN_STEPS = 3  # the --bench run's training steps (their losses, to compare trees bitwise)
 DRYRUN_PEAK_RTOL = 0.15  # the trace's peak against the real step's max_memory_allocated
 
 
@@ -3745,8 +3799,11 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
             c = dataclasses.replace(get_config(arch), **cut(arch))
             layers = c.num_layers
             per_step = layers * (1 if c.remat == "none" else 2)  # the forward, then the remat recompute
+            # A decode cache whose kv heads do not divide the pod's 16 "model" ranks lies on kv_seq:
+            # each layer attends the rank's rows with the lse store, then merges across "model".
+            dec = "decode_attention_lse" if c.num_kv_heads % POD_MODEL else "decode_attention"
             want = {"train": {"flash_attention_lse": per_step}, "prefill": {"flash_attention": layers},
-                    "decode": {"decode_attention": layers}}[r["kind"]]
+                    "decode": {dec: layers}}[r["kind"]]
             assert r["kernels"] == want, (arch, shape_name, r["kernels"], want)
             log(f"dryrun (b) {arch} {shape_name} rules {r['rules']} on {r['mesh']}: wall {r['wall_s']:.1f} s; "
                 f"{r['flops_per_device']:.4e} FLOPs/card, peak {r['memory']['peak_bytes_est'] / 2**30:.2f} GiB, "
@@ -3762,6 +3819,361 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
         out["dispatch_us"] = phase_dispatch_cost()
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase dry run: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model" (phase 16)
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2  # two rank processes on the one card: ("data", "model") = (1, 2)
+TP_SEED = 23
+# The training steps' batch, cut from the training phase's 4 x 2048 to 2 x
+# 2048: each of the split program's all-reduces (six per layer and step with
+# remat "full", of a (B, S, 2048) bf16 activation) goes through the host in
+# gloo, the only backend that takes two ranks on one card.
+TP_BATCH, TP_SEQ, TP_STEPS = 2, TRAIN_SEQ, 2
+TP_DECODE = 4  # decode steps after a chat-class prefill (batch 8, prompt 512)
+TP_TIMEOUT_S = 900.0
+# The split program against the one-process one, both bf16 on the card
+# (PERF.md states why): the losses within 2e-2 of their value (a bf16
+# product rounds once, the split one rounds each rank's part and its sum:
+# ~2^-8 a layer over 24 layers); each gathered parameter within 2 lr a step
+# (AdamW's early steps move a weight by ~lr whatever its gradient's size, so
+# a gradient element near 0 whose sign the rounding flips moves it by up
+# to 2 lr), which a misplaced block (weights ~0.02) would exceed 30-fold;
+# each first moment within 5e-2 of its leaf's largest; the logits within
+# 5e-2 of their largest magnitude.
+TP_TOL = dict(loss_rtol=2e-2, param_lr_factor=2.0, mu_rel=5e-2, logits_rel=5e-2)
+# The kv_seq merge: internlm2's decode_32k cache block on the pod's 16
+# "model" ranks (B 8 of the data shard's sequences, 2,048 rows a rank).
+TP_MERGE = dict(b=8, rows=32768, blocks=16)
+# Flash and decode at a rank's heads of internlm2 at "model" 2, 4 and 16 (H
+# 8 / 4 / 1 over Hkv 4 / 2 / 1): the phase's training batch, the chat
+# class's last decode step.
+FLASH_TP = [(TP_BATCH, TP_SEQ, TP_SEQ, H // m, max(HKV // m, 1), HD, True) for m in (2, 4, 16)]
+DECODE_TP = [(8, 576, (575,) * 8, H // m, max(HKV // m, 1), HD) for m in (2, 4, 16)]
+# The lse store at the serving shapes and at the kv_seq block of a rank
+# (2,048 of 32,768 rows; ragged lengths, one block with no live row).
+DECODE_KV_BLOCK = (8, 2048, (2048, 2048, 1500, 0, 2048, 1, 700, 2048), H, HKV, HD)
+DECODE_LSE = [(b, smax, lengths, H, HKV, HD) for b, smax, lengths in DECODE_MAIN] + [DECODE_KV_BLOCK]
+
+
+def _gloo_functional_collectives(lib_holder: list) -> None:
+    """Send DTensor's functional collectives on CUDA tensors to the c10d
+    calls, for a gloo group on one card.  The two ranks of phase 16 share
+    one H100, where NCCL refuses two ranks; gloo takes CUDA tensors in
+    ``dist.all_reduce`` and ``dist.all_gather_into_tensor`` (what
+    ``distributed.tensor_parallel`` issues), but its functional twins,
+    which DTensor's redistributions and reductions call, crash the process
+    in torch 2.11 (``wait_tensor`` on a gloo CUDA work, on an H100; PERF.md).
+    So in the rank processes those ops get CUDA implementations that make
+    the same c10d calls synchronously (a reduce-scatter as an all-reduce and
+    this rank's block).  ``lib_holder`` keeps the library alive."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+    def all_reduce(x, reduce_op, group_name):
+        pg = _resolve_process_group(group_name)
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=ops[reduce_op.lower()], group=pg)
+        return y / dist.get_world_size(pg) if reduce_op.lower() == "avg" else y
+
+    def all_gather(x, group_size, group_name):
+        x = x.contiguous()
+        out = x.new_empty((group_size * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=_resolve_process_group(group_name))
+        return out
+
+    def reduce_scatter(x, reduce_op, group_size, group_name):
+        pg = _resolve_process_group(group_name)
+        return all_reduce(x, reduce_op, group_name).chunk(group_size)[dist.get_rank(pg)].contiguous()
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_reduce", all_reduce, "CUDA")
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    lib.impl("reduce_scatter_tensor", reduce_scatter, "CUDA")
+    lib.impl("wait_tensor", lambda t: t, "CUDA")
+    lib_holder.append(lib)
+
+
+def _tp_leaves(tree) -> list:
+    from repro_torch.models.common import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def tp_rank(argv: list) -> int:
+    """One rank of phase 16 (``--tp-rank RANK WORLD DIR DEVICE SIZE``):
+    rank 0 runs the one-process reference first and frees it, then both
+    ranks run the split program; each writes ``DIR/rank{RANK}.json``."""
+    rank, world, tmp, device, size = int(argv[0]), int(argv[1]), Path(argv[2]), argv[3], argv[4]
+    reduced = size == "reduced"
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops  # noqa: F401  (registers the custom ops)
+    from repro_torch.kernels import ref
+    from repro_torch.models import build
+    from repro_torch.models.common import layer_specs, logical_axes, materialize, split_mask
+    from repro_torch.models.model_zoo import extend_cache
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import TrainState, batch_shardings, make_train_step, state_shardings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank, world_size=world)
+    held: list = []
+    if device == "cuda":
+        _gloo_functional_collectives(held)
+    cfg = get_config(ARCH, reduced=reduced)
+    if reduced:
+        cfg = dataclasses.replace(cfg, remat="full")
+    api = build(cfg)
+    ocfg = opt.OptimizerConfig()
+    batch_n, seq = (2, 32) if reduced else (TP_BATCH, TP_SEQ)
+    serve = dict(batch=2, prompt=16) if reduced else CLASSES[f"{ARCH}/chat"]
+    shape = ShapeConfig("train", seq, batch_n, "train")
+    batches = [{k: v.to(device) for k, v in synthetic_batch(api, shape, i, DataConfig(seed=TP_SEED)).items()}
+               for i in range(TP_STEPS)]
+    rng = np.random.default_rng(TP_SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (serve["batch"], serve["prompt"]))).to(device)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_DECODE, serve["batch"], 1))).to(device)
+    gen = lambda: torch.Generator(device=device).manual_seed(TP_SEED)  # noqa: E731
+    out: dict = {"rank": rank}
+
+    def serve_run(params):
+        logits, cache = api.prefill(params, {"tokens": prompt})
+        cache = extend_cache(api, cache, TP_DECODE)
+        got = [logits]
+        for i, tok in enumerate(steps):
+            logits, cache = api.decode(params, cache, tok, serve["prompt"] + i)
+            got.append(logits)
+        return got
+
+    ref_params = ref_mu = ref_logits = None
+    if rank == 0:  # the one-process program, alone on the card, freed before the split one starts
+        t0 = time.perf_counter()
+        state = TrainState(params=materialize(api.params_def, gen(), torch.float32, trainable=True), opt=None)
+        state = state._replace(opt=opt.init(state.params, ocfg))
+        step = make_train_step(api, ocfg)
+        losses = []
+        for b in batches:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+        out["ref_losses"] = losses
+        ref_params = [p.detach().cpu() for p in _tp_leaves(state.params)]
+        ref_mu = [m.cpu() for m in _tp_leaves(state.opt.mu)]
+        del state, step
+        with torch.no_grad():
+            params = materialize(api.params_def, gen(), torch.bfloat16)
+            ref_logits = [x.float().cpu() for x in serve_run(params)]
+        del params
+        _sync(device)
+        if device == "cuda":
+            out["ref_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out["ref_s"] = time.perf_counter() - t0
+    dist.barrier()
+
+    mesh = init_device_mesh(device, (1, world), mesh_dim_names=("data", "model"))
+    axis_size = mesh.size(1)
+    plain_calls, restore = _watch_plain(ref, PLAIN_NAMES)  # the split program reaches no plain version
+    fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
+    da.decode_attention.launches = da.decode_attention.launches_lse = 0
+    t0 = time.perf_counter()
+    st_sh = state_shardings(api, ocfg, mesh, shd.TRAIN_RULES)
+    params = materialize(api.params_def, gen(), torch.float32, trainable=True)
+    shd.place_tree(params, st_sh.params)
+    state = TrainState(params=params, opt=opt.init(params, ocfg))
+    del params
+    b_sh = batch_shardings(api.train_inputs(shape), mesh, shd.TRAIN_RULES)
+    step = make_train_step(api, ocfg)
+    losses, step_s = [], []
+    for b in batches:
+        placed = {k: shd.place(v, b_sh[k]) for k, v in b.items()}
+        t1 = time.perf_counter()
+        with shd.use_rules(mesh, shd.TRAIN_RULES):
+            state, metrics = step(state, placed)
+        losses.append(float(metrics["loss"]))
+        _sync(device)
+        step_s.append(time.perf_counter() - t1)
+    out.update(losses=losses, step_s=step_s, train_flash=fa.flash_attention.launches,
+               train_flash_tc=fa.flash_attention.launches_tc, train_decode=da.decode_attention.launches)
+    if device == "cuda":
+        out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    blocks = [isinstance(p, DTensor) and any(pl.is_shard() for pl in p.placements) for p in _tp_leaves(state.params)]
+    out["model_blocks"] = sum(blocks)
+    param_err, mu_rel = 0.0, 0.0
+    for i, (p, m) in enumerate(zip(_tp_leaves(state.params), _tp_leaves(state.opt.mu))):
+        p_full = p.full_tensor() if isinstance(p, DTensor) else p
+        m_full = m.full_tensor() if isinstance(m, DTensor) else m
+        if rank == 0:
+            param_err = max(param_err, float((p_full.detach().float() - ref_params[i].to(device)).abs().max()))
+            want = ref_mu[i].to(device)
+            mu_rel = max(mu_rel, float((m_full - want).abs().max()) / max(float(want.abs().max()), 1e-30))
+        del p_full, m_full
+    out.update(param_err=param_err, mu_rel=mu_rel)
+    del state, step, ref_params, ref_mu
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
+    da.decode_attention.launches = da.decode_attention.launches_lse = 0
+    logical = logical_axes(api.params_def)
+    with torch.no_grad():
+        params = materialize(api.params_def, gen(), torch.bfloat16)
+        shd.place_tree(params, shd.tree_shardings(logical, layer_specs(api.params_def), mesh, shd.SERVE_RULES))
+        t1 = time.perf_counter()
+        with shd.use_rules(mesh, shd.SERVE_RULES):
+            local = shd.local_view(params, logical, mesh, split=split_mask(logical))
+            got = serve_run(local)
+            axis = tp.model_axis()
+            out["logits_block"] = got[0].shape[-1]
+            got = [tp.gather_from_model(x, axis, -1).float().cpu() for x in got]
+        _sync(device)
+        out["serve_s"] = time.perf_counter() - t1
+    out.update(vocab=cfg.padded_vocab, layers=cfg.num_layers, serve_flash=fa.flash_attention.launches, serve_flash_tc=fa.flash_attention.launches_tc,
+               serve_decode=da.decode_attention.launches, serve_decode_lse=da.decode_attention.launches_lse,
+               q_heads=cfg.num_heads // axis_size, kv_heads=cfg.num_kv_heads // axis_size)
+    if rank == 0:
+        out["logits_rel"] = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, ref_logits))
+        out["argmax_equal"] = float(sum(float((g.argmax(-1) == w.argmax(-1)).float().mean())
+                                        for g, w in zip(got, ref_logits)) / len(got))
+    restore()
+    assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
+    out["split_s"] = time.perf_counter() - t0
+    out["lr_bound"] = TP_TOL["param_lr_factor"] * ocfg.learning_rate * TP_STEPS
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_kv_seq_merge(counter, device="cuda", reduced=False) -> dict:
+    """internlm2 decode_32k's cache block on the pod, its kv_seq split 16
+    ways, merged: each block's (out, lse) from the ``decode_attention_lse``
+    op at its clipped lengths, ``merge_partials``, against the unsplit
+    kernel on the whole cache.  Counts zeroed just before, read after."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import merge_partials
+
+    b, rows, parts = (2, 256, 16) if reduced else tuple(TP_MERGE.values())
+    gen = torch.Generator(device=device).manual_seed(TP_SEED)
+    q = torch.randn(b, H, HD, generator=gen, device=device).bfloat16()
+    kc, vc = (torch.randn(b, rows, HKV, HD, generator=gen, device=device).bfloat16() for _ in range(2))
+    lens = torch.tensor([rows, rows - 1, rows // 2 + 3, 1] * (b // 4) if b >= 4 else [rows, rows // 3],
+                        dtype=torch.int32, device=device)
+    n = rows // parts
+    blocks = [(kc[:, r * n:(r + 1) * n].contiguous(), vc[:, r * n:(r + 1) * n].contiguous()) for r in range(parts)]
+    local = [(lens - r * n).clamp(0, n).to(torch.int32) for r in range(parts)]
+
+    def merged(parts_out=None):
+        pieces = [ops.decode_attention_lse(q, k, v, ln) for (k, v), ln in zip(blocks, local)]
+        outs = torch.stack([o for o, _ in pieces])
+        if parts_out is not None:
+            parts_out.append(outs)
+        return merge_partials(outs, torch.stack([lse for _, lse in pieces]))
+
+    counter.zero()
+    outs: list = []
+    got = merged(outs)
+    _sync(device)
+    launches = counter.read()
+    lse_launches = launches["decode_lse"]
+    want = ops.decode_attention(q, kc, vc, lens)
+    # Each block's output is rounded to bf16 before the merge (half a step,
+    # 2^-9 of it), the merged and the unsplit outputs once each: a weighted
+    # mean of the blocks' outputs is off by at most 2^-9 of the largest of
+    # them, so |got - want| <= 2^-8 (max_r |out_r| + |want|).
+    bound = 2.0**-8 * (outs[0].float().abs().amax(dim=0) + want.float().abs()) + 1e-6
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bound).all()), f"kv_seq merge: {int((diff > bound).sum())} elements past 2^-8 of their scale"
+    err = float(diff.max())
+    out = dict(b=b, rows=rows, blocks=parts, err=err, err_rms=_row_err(got, want), launches=launches["decode"],
+               lse_launches=lse_launches)
+    if device == "cuda":
+        out["merged_ms"] = device_ms(merged, reps=10)
+        out["unsplit_ms"] = device_ms(lambda: ops.decode_attention(q, kc, vc, lens), reps=10)
+    log(f"tp kv_seq merge: {parts} blocks of {n} rows, B {b}: max_abs_err {err:.3e} vs the unsplit kernel, "
+        f"{out['err_rms']:.3e} of the row RMS; {out['launches']} decode launches ({lse_launches} with the lse store)"
+        + (f"; merged {out['merged_ms']:.4f} ms, unsplit {out['unsplit_ms']:.4f} ms" if device == "cuda" else ""))
+    return out
+
+
+def phase_tp(counter, device="cuda", reduced=False) -> dict:
+    """Phase 16: the two rank processes (``tp_rank``), then the kv_seq
+    merge in this process.  Fails unless the split program agrees with the
+    one-process one at ``TP_TOL`` and ran through the kernels."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = lambda r: [sys.executable, "-X", "faulthandler", str(Path(__file__).resolve()), "--tp-rank",  # noqa: E731
+                         str(r), str(TP_WORLD), tmp, device, "reduced" if reduced else "full"]
+        procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(TP_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"tp rank {r} exited {p.returncode}:\n{text[-6000:]}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    r0 = ranks[0]
+    out = dict(ranks=ranks, world=TP_WORLD)
+    for r in ranks:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], r0["ref_losses"]))
+        assert rel <= TP_TOL["loss_rtol"], ("tp losses", r["losses"], r0["ref_losses"])
+        assert r["losses"] == r0["losses"], "the model ranks report different losses"
+        assert r["model_blocks"] > 0 and r["logits_block"] * TP_WORLD == r["vocab"], r
+        if device == "cuda":  # each layer's forward and its remat recompute, a step
+            assert r["train_flash"] == 2 * r["layers"] * TP_STEPS, r["train_flash"]
+    assert r0["param_err"] <= r0["lr_bound"] + 1e-6, ("tp gathered parameters", r0["param_err"], r0["lr_bound"])
+    assert r0["mu_rel"] <= TP_TOL["mu_rel"], ("tp first moments", r0["mu_rel"])
+    assert r0["logits_rel"] <= TP_TOL["logits_rel"], ("tp logits", r0["logits_rel"])
+    launches = {k: sum(r[k] for r in ranks) for k in ("train_flash", "train_flash_tc", "serve_flash",
+                                                    "serve_flash_tc", "serve_decode", "serve_decode_lse")}
+    if device == "cuda":
+        assert launches["train_flash"] > 0 and launches["serve_flash"] > 0 and launches["serve_decode"] > 0, launches
+        # head_dim 128 in bf16 is the tensor-core kernel's (the reduced config's 16 is the FMA kernel's)
+        assert reduced or (launches["serve_flash_tc"] == launches["serve_flash"]
+                           and launches["train_flash_tc"] == launches["train_flash"]), launches
+    out["launches"] = launches
+    out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"]))
+    log(f"tp (1, {TP_WORLD}) internlm2-1.8b {'reduced' if reduced else 'full'}: losses {r0['losses']} against "
+        f"{r0['ref_losses']} one-process (rel {out['loss_rel']:.3e}); gathered parameters max |diff| "
+        f"{r0['param_err']:.3e} (bound {r0['lr_bound']:.3e}); first moments {r0['mu_rel']:.3e} of their scale; "
+        f"logits {r0['logits_rel']:.3e} of their scale, argmax equal {r0['argmax_equal']:.4f}; step s "
+        f"{r0['step_s']}; rank heads q {r0['q_heads']} kv {r0['kv_heads']}; launches {launches}"
+        + (f"; peaks: one-process {r0.get('ref_peak_gib', 0):.2f} GiB, split rank 0 "
+           f"{r0.get('train_peak_gib', 0):.2f} GiB | {nvidia_smi_line()}" if device == "cuda" else ""))
+    out["merge"] = phase_kv_seq_merge(counter, device, reduced)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase tensor parallel: {out['phase_s']:.1f} s")
     return out
 
 
@@ -4071,6 +4483,8 @@ def main() -> int:
     log("distributed " + json.dumps(distributed, default=str))
     dry = phase_dryrun(ref, counter)
     log("dryrun " + json.dumps({k: v for k, v in dry.items() if k != "pod"}, default=str))
+    tpo = phase_tp(counter)
+    log("tensor_parallel " + json.dumps(tpo, default=str))
     t0 = time.perf_counter()
     examples = phase_examples(ref, counter)
     log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))
@@ -4080,7 +4494,9 @@ def main() -> int:
             "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}) for k in keys]
 
     paths = {"dense": (flash_launches, decode_launches), "train": (train["full"]["launches"], 0),
-             "dryrun_real_step": (dry["local"]["flash_real"], 0)}
+             "dryrun_real_step": (dry["local"]["flash_real"], 0),
+             "tensor_parallel": (tpo["launches"]["train_flash"] + tpo["launches"]["serve_flash"],
+                                 tpo["launches"]["serve_decode"])}
     paths.update({key: (fam[key]["launches"]["flash"], fam[key]["launches"]["decode"])
                   for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "launcher")})
     by_path = {k: dict(zip(("flash", "decode"), v)) for k, v in paths.items()}
@@ -4103,6 +4519,7 @@ def main() -> int:
                  zamba2_shapes=new_rows("flash_attention", FLASH_ZAMBA),
                  seamless_shapes=new_rows("flash_attention", FLASH_SEAMLESS),
                  cross_shapes=new_rows("flash_attention", FLASH_CROSS),
+                 tp_shapes=new_rows("flash_attention", FLASH_TP),
                  training_shapes=[dict(shape=json.loads(json.dumps(k)), **r) for k, r in train["vjp"].items()],
                  training_launches_per_step=train["full"]["launches_per_step"]),
         _summary("decode_attention", "src/repro/kernels/decode_attention.py:119",
@@ -4113,6 +4530,12 @@ def main() -> int:
                  zamba2_shapes=new_rows("decode_attention", DECODE_ZAMBA),
                  seamless_shapes=new_rows("decode_attention", DECODE_SEAMLESS),
                  static_memory_shapes=new_rows("decode_attention", DECODE_STATIC)),
+        _summary("decode_attention_lse", "src/repro/kernels/decode_attention.py:119", tpo["merge"]["lse_launches"],
+                 [arows[("decode_attention_lse", k, "bfloat16")] for k in DECODE_LSE], DECODE_LSE,
+                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                 launches_by_path={"kv_seq_merge": tpo["merge"]["lse_launches"]},
+                 no_lse_ms=sum(arows[("decode_attention_lse", k, "bfloat16")]["no_lse_ms"] for k in DECODE_LSE),
+                 tp_shapes=new_rows("decode_attention", DECODE_TP)),
         _summary("rmsnorm", "src/repro/kernels/rmsnorm.py:52", rms_launches,
                  [arows[("rmsnorm", k, "bfloat16")] for k in RMS_MAIN], RMS_MAIN),
     ]
@@ -4142,7 +4565,11 @@ def bench_main(argv: list) -> int:
     or ``time_gram``'s row (cold and warm, the kernel's and the library
     call's), at decode's main shapes (bf16) and at the gram's main shapes,
     its parity shapes with M >= 64 and those either side of the variants'
-    threshold.  For decode it adds ``len1_ms`` (every length 1: the
+    threshold.  Last, ``BENCH_TRAIN_STEPS`` steps of the training phase's
+    program through the launcher on the (1, 1) mesh, whose losses two trees
+    must repeat bitwise where "model" has size 1.  Decode also runs at a rank's kv_seq block of a 32,768-row
+    cache (``DECODE_KV_BLOCK``), and on a tree whose kernel has the lse
+    store, with it (``lse_ms``, ``lse_warm_ms``).  For decode it adds ``len1_ms`` (every length 1: the
     launch's fixed cost at that grid), ``host_us`` (the wrapper's host
     time per call over 1,000 calls with no synchronisation, the median of
     five rounds) and ``ops_host_us`` (the same through ``ops``, the
@@ -4177,11 +4604,17 @@ def bench_main(argv: list) -> int:
         out["flash"][f"B={b} S={s} T={t}"] = row
         print(f"flash B={b} S={s} T={t} H={h} Hkv={hkv} d={d}: " + " ".join(f"{k}={v}" for k, v in row.items()),
               flush=True)
-    for b, smax, lengths in DECODE_MAIN:
+    has_lse = "lse" in inspect.signature(da.decode_attention).parameters
+    for b, smax, lengths in DECODE_MAIN + [DECODE_KV_BLOCK[:3]]:
         q = torch.randn(b, H, HD, generator=gen, device="cuda").bfloat16()
         kc, vc = (torch.randn(b, smax, HKV, HD, generator=gen, device="cuda").bfloat16() for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         row = time_decode(da, q, kc, vc, lens, warm=True)
+        if has_lse:  # the same launch with the log-sum-exp store
+            lse = torch.empty(b, H, dtype=torch.float32, device="cuda")
+            nbytes = decode_work(b, H, HKV, HD, lengths, torch.bfloat16)[0] + 4 * b * H
+            row["lse_ms"] = device_ms(lambda: da.decode_attention(q, kc, vc, lens, lse=lse))
+            row["lse_warm_ms"] = warm_ms(lambda *a: da.decode_attention(*a, lse=lse), (q, kc, vc, lens), nbytes)
         ones = torch.ones_like(lens)
         row["len1_ms"] = device_ms(lambda: da.decode_attention(q, kc, vc, ones))
         row["host_us"] = _host_us(lambda: da.decode_attention(q, kc, vc, lens))
@@ -4201,9 +4634,22 @@ def bench_main(argv: list) -> int:
     chat = {f"{ARCH}/chat": CLASSES[f"{ARCH}/chat"]}
     served = phase_serving(api, params, chat, [f"{ARCH}/chat"] * BENCH_CHAT_REQUESTS)
     out["serve_chat"] = report_serving(served, chat)[f"{ARCH}/chat"]
+    del api, params, served
+    torch.cuda.empty_cache()
+    # The training phase's program for BENCH_TRAIN_STEPS steps through the
+    # launcher on the (1, 1) mesh: its losses, to hold two trees' bitwise.
+    from repro_torch.launch import train
+
+    report, state = train.main([*TRAIN_ARGS[:2], "--steps", str(BENCH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                                "--seq", str(TRAIN_SEQ), "--device", "cuda"])
+    out["train_losses"] = [float(x) for x in report.losses]
+    print(f"train losses {out['train_losses']!r}", flush=True)
+    del state
     print(json.dumps(out), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(bench_main(sys.argv[2:]) if sys.argv[1:2] == ["--bench"] else main())
+    if sys.argv[1:2] == ["--bench"]:
+        sys.exit(bench_main(sys.argv[2:]))
+    sys.exit(tp_rank(sys.argv[2:]) if sys.argv[1:2] == ["--tp-rank"] else main())

@@ -31,9 +31,12 @@ order only because every rule tuple lists its axes in mesh order, and
 ``threading.local``; inside it ``shard_activation`` redistributes a
 ``DTensor`` activation to its resolved placements, and outside it (or for
 a plain tensor) it is the identity, so model code stays mesh-agnostic.
-The port's placed train step (``training.train_step``) runs the model on
-each rank's local tensors, so there the calls are identities; the rule
-context is what selects the MoE block's expert-parallel path.
+The port's placed train step (``training.train_step``) and the dry run's
+serve programs run the model on each rank's local tensors
+(``local_view``), so there the calls are identities; the rule context
+selects the MoE block's expert-parallel path and gives the "model" group
+to the tensor-parallel products (``distributed.tensor_parallel``), which
+run on the "model" blocks that ``local_view(split=...)`` keeps.
 
 **Fleet-axis sharding** (``FleetMesh``).  The reference shards the
 engines' B-node axis with ``shard_map`` over a 1-D JAX ``Mesh``; here a
@@ -347,7 +350,7 @@ def _map_specs(fn, tree):
 TOKEN_AXES = ("pod", "data")
 
 
-def local_view(tree: Any, logical_tree: Any, mesh, *, ep: bool = False) -> Any:
+def local_view(tree: Any, logical_tree: Any, mesh, *, ep: bool = False, split: Any = None) -> Any:
     """Each placed leaf as this rank's local tensor, gathered where it is
     read: whole on every mesh axis, except a "batch" dim sharded over a
     token axis, which stays this rank's block (a decode cache's sequences).
@@ -355,24 +358,40 @@ def local_view(tree: Any, logical_tree: Any, mesh, *, ep: bool = False) -> Any:
     token axes (FSDP's pattern: reduced and scattered onto its placement).
     With ``ep`` the expert weights (leading logical axis "expert") stay as
     they are: the MoE block's expert-parallel path gathers them itself.
-    Plain leaves come back as they are.  The placed train step reads its
-    parameters through it; the dry run's serve programs their parameters
-    and caches."""
+
+    ``split`` (a tree of bools matching ``tree``, ``models.common.
+    split_mask``) marks the leaves that tensor-parallel consumers read
+    (``distributed.tensor_parallel``): such a leaf keeps its "model" block
+    where the rules shard one of its dims over "model" alone, and is
+    gathered on the token axes only.  A kept block's gradient is local to
+    the rank and needs no reduction over "model".  Plain leaves come back as
+    they are.  The placed train step reads its parameters through it; the
+    dry run's serve programs their parameters and caches."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     names = mesh.mesh_dim_names
 
-    def gather(leaf, axes):
+    def gather(leaf, axes, keep_model=False):
         if not isinstance(leaf, DTensor) or (ep and axes[:1] == ("expert",)):
             return leaf
-        keep = [p if isinstance(p, Shard) and n in TOKEN_AXES and axes[p.dim] == "batch" else Replicate()
-                for n, p in zip(names, leaf.placements)]
+        token_dims = {p.dim for n, p in zip(names, leaf.placements) if n in TOKEN_AXES and isinstance(p, Shard)}
+
+        def kept(n, p):
+            if not isinstance(p, Shard):
+                return False
+            if n in TOKEN_AXES:
+                return axes[p.dim] == "batch"
+            return keep_model and n == "model" and p.dim not in token_dims
+
+        keep = [p if kept(n, p) else Replicate() for n, p in zip(names, leaf.placements)]
         grad = [Partial() if n in TOKEN_AXES and isinstance(p, Replicate) else p for n, p in zip(names, keep)]
         return leaf.redistribute(mesh, keep).to_local(grad_placements=grad)
 
     from repro_torch.models.common import map_tree
 
-    return map_tree(gather, tree, logical_tree)
+    if split is None:
+        return map_tree(gather, tree, logical_tree)
+    return map_tree(gather, tree, logical_tree, split)
 
 
 def shard_activation(x, logical: Sequence[str | None]):

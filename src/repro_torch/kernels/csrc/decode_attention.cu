@@ -1,6 +1,9 @@
 // Decode attention: one query token per sequence against a KV cache, masked
 // at and past each sequence's length. q (B, H, D), caches (B, S, Hkv, D),
-// lengths (B,) int32; fp32 scores and softmax, out (B, H, D) in q's type.
+// lengths (B,) int32; fp32 scores and softmax, out (B, H, D) in q's type,
+// and optionally lse (B, H) fp32, each row's natural log-sum-exp of its
+// scaled scores over the live keys (-inf for a sequence of length 0): what
+// a cache split on its sequence axis needs to merge the slices' outputs.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py::
 // decode_attention (body _dec_kernel). That kernel scalar-prefetches the
@@ -51,6 +54,8 @@
 //
 // Cache rows at or past lengths[b] are never read, so a padded or unfilled
 // cache tail cannot leak into the result. A sequence of length 0 gives 0.
+// The lse store is one extra write per head from the merge's own (max,
+// sum); `out` is computed and stored the same way with or without it.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -71,6 +76,7 @@ constexpr int STAGE_TARGET = 16384;   // bytes of K + V in one stage
 constexpr int MAX_TILE = 128;         // keys per stage, at most
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // The smallest power of two >= n.
 __host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
@@ -151,7 +157,7 @@ __device__ __forceinline__ void lds16(const unsigned char* p, float* f) {
 template <typename T, int D, int GC>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-              const int* __restrict__ lengths, T* __restrict__ out, int s_max, int h, int hkv,
+              const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ lse, int s_max, int h, int hkv,
               int nchunk, int gchunk, int chunk, float qscale) {
   constexpr int ELEM = static_cast<int>(sizeof(T));
   constexpr int VEC = Vec<T>::N;       // elements in a lane's 16-byte piece
@@ -392,6 +398,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       ls = fmaf(peer[GC + gi], wt, ls);
     }
     out[(static_cast<int64_t>(b) * h + head0 + gi) * D + e % D] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+    // The scores were scaled by log2(e): back to natural log. No live key:
+    // mx is the -1e30 sentinel and ls 0, so log2(ls) makes it -inf.
+    if (lse != nullptr && e % D == 0) lse[static_cast<int64_t>(b) * h + head0 + gi] = (mx + log2f(ls)) * LN2;
   }
   cluster.sync();  // no block leaves while a peer may still read its state
 }
@@ -402,6 +411,7 @@ struct Args {
   const void* v;
   const int* lengths;
   void* out;
+  float* lse;
   int b, s_max, h, hkv, splits, chunk, nchunk, gchunk;
   float scale;
 };
@@ -432,7 +442,7 @@ int launch(const Args& a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                           static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.out), a.s_max, a.h,
+                           static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.out), a.lse, a.s_max, a.h,
                            a.hkv, a.nchunk, a.gchunk, a.chunk, a.scale * LOG2E);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -467,18 +477,19 @@ int dispatch(const Args& a, int d, cudaStream_t stream) {
 // (splits, Hkv * nchunk, B) in clusters of `splits` blocks: slices of
 // `chunk` keys (splits * chunk >= S_max), the G = H / Hkv heads in `nchunk`
 // chunks of at most `gchunk` <= 8 (decode_attention.py::decode_plan).
+// lse, when not null: (B, H) fp32 on the same device, written as well.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int decode_attention_f32(const void* q, const void* k, const void* v, const int* lengths, void* out,
+extern "C" int decode_attention_f32(const void* q, const void* k, const void* v, const int* lengths, void* out, float* lse,
                                     int b, int s_max, int h, int hkv, int d, int splits, int chunk, int nchunk,
                                     int gchunk, float scale, cudaStream_t stream) {
-  const Args a{q, k, v, lengths, out, b, s_max, h, hkv, splits, chunk, nchunk, gchunk, scale};
+  const Args a{q, k, v, lengths, out, lse, b, s_max, h, hkv, splits, chunk, nchunk, gchunk, scale};
   return dispatch<float>(a, d, stream);
 }
 
-extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out,
+extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out, float* lse,
                                      int b, int s_max, int h, int hkv, int d, int splits, int chunk, int nchunk,
                                      int gchunk, float scale, cudaStream_t stream) {
-  const Args a{q, k, v, lengths, out, b, s_max, h, hkv, splits, chunk, nchunk, gchunk, scale};
+  const Args a{q, k, v, lengths, out, lse, b, s_max, h, hkv, splits, chunk, nchunk, gchunk, scale};
   return dispatch<__nv_bfloat16>(a, d, stream);
 }
 

@@ -6,7 +6,8 @@ The Hopper twin of the reference's Pallas kernel
 ``kernels/build.py`` and bound through ``ctypes``; nothing is compiled at
 import time.  ``decode_attention`` launches the kernel on CUDA tensors and
 raises on anything else; ``kernels.ops.decode_attention`` sends CPU tensors
-to the plain version.  Its ``launches`` attribute counts kernel launches.
+to the plain version.  Its ``launches`` attribute counts kernel launches,
+``launches_lse`` those with the log-sum-exp store.
 
 One call is one launch.  The kernel streams each sequence's cache through a
 4-stage ``cp.async`` ring of K/V tiles in their stored type, up to the
@@ -110,7 +111,7 @@ def build() -> str:
     fns = {}
     for dtype, sym in ((torch.float32, "decode_attention_f32"), (torch.bfloat16, "decode_attention_bf16")):
         fn = getattr(lib, sym)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[dtype] = fn
     for key, sym, nargs in (("smem_bytes", "decode_attention_smem_bytes", 3),
@@ -130,13 +131,18 @@ def kernel_geometry(d: int, elem: int, group: int) -> tuple[int, int]:
 
 
 def decode_attention(
-    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
+    lse: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """CUDA kernel: q (B, H, d), caches (B, S, Hkv, d), lengths (B,) int32
     -> (B, H, d), attending to cache rows ``[0, lengths[b])`` only.
 
     One element type for q and the caches (float32 or bfloat16), d in
-    ``HEAD_DIMS``, H a multiple of Hkv, all on one CUDA device.
+    ``HEAD_DIMS``, H a multiple of Hkv, all on one CUDA device.  ``lse``,
+    if given, is a contiguous (B, H) float32 tensor on that device that the
+    same launch fills with each row's natural log-sum-exp of its scaled
+    scores (-inf for a sequence of length 0); the output is the same with
+    or without it.
     """
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"need q (B,H,d) and caches (B,S,Hkv,d); got {tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -159,6 +165,10 @@ def decode_attention(
             f"CUDA device, got {q.device}, {k_cache.device}, {v_cache.device}, {lengths.device} "
             "(the CPU path is kernels.ops.decode_attention)"
         )
+    if lse is not None and (tuple(lse.shape) != (b, h) or lse.dtype != torch.float32 or lse.device != dev
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(b, h)} tensor on {dev}; "
+                         f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
     q, k_cache, v_cache, lengths = (
         kernel_input(x, "decode_attention") for x in (q, k_cache, v_cache, lengths)
     )
@@ -168,7 +178,7 @@ def decode_attention(
         build()
         args = (
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, s_max, h, hkv, d, plan["cluster"], plan["chunk"], plan["head_chunks"],
+            None if lse is None else lse.data_ptr(), b, s_max, h, hkv, d, plan["cluster"], plan["chunk"], plan["head_chunks"],
             plan["heads_per_block"], 1.0 / float(d) ** 0.5, stream_of(q),
         )
         if dev.index == torch.cuda.current_device():
@@ -178,7 +188,9 @@ def decode_attention(
                 err = _fns[q.dtype](*args)
         check_launch("decode_attention", err)
         decode_attention.launches += 1
+        decode_attention.launches_lse += lse is not None
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_lse = 0  # the launches that stored lse (counted in ``launches`` too)

@@ -9,7 +9,8 @@ Signatures are the reference's (``repro/kernels/ops.py``).
 
 **Custom ops.**  Each kernel is an operator of the ``repro_torch``
 namespace -- ``flash_attention``, ``flash_attention_lse``,
-``decode_attention``, ``rmsnorm``, ``disagg_gram`` -- whose CUDA
+``decode_attention``, ``decode_attention_lse``, ``rmsnorm``,
+``disagg_gram`` -- whose CUDA
 implementation is its wrapper's launch (``flash_attention.py``,
 ``decode_attention.py``, ``rmsnorm.py``, ``disagg_solve.py``) and whose fake
 implementation gives the output shapes and dtypes alone, touching no
@@ -49,6 +50,7 @@ _lib = torch.library.Library("repro_torch", "DEF")
 _lib.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
 _lib.define("flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal) -> (Tensor, Tensor)")
 _lib.define("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths) -> Tensor")
+_lib.define("decode_attention_lse(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths) -> (Tensor, Tensor)")
 _lib.define("rmsnorm(Tensor x, Tensor gamma, float eps) -> Tensor")
 _lib.define("disagg_gram(Tensor c, Tensor w) -> (Tensor, Tensor)")
 
@@ -60,10 +62,16 @@ def _flash_lse(q, k, v, causal):
     return fa.flash_attention(q, k, v, causal=causal, lse=lse), lse
 
 
+def _decode_lse(q, k_cache, v_cache, lengths):
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return da.decode_attention(q, k_cache, v_cache, lengths, lse=lse), lse
+
+
 # Each CUDA implementation looks its wrapper up at call time.
 _lib.impl("flash_attention", lambda q, k, v, causal: fa.flash_attention(q, k, v, causal=causal), "CUDA")
 _lib.impl("flash_attention_lse", _flash_lse, "CUDA")
 _lib.impl("decode_attention", lambda q, kc, vc, lengths: da.decode_attention(q, kc, vc, lengths), "CUDA")
+_lib.impl("decode_attention_lse", _decode_lse, "CUDA")
 _lib.impl("rmsnorm", lambda x, gamma, eps: rn.rmsnorm(x, gamma, eps), "CUDA")
 _lib.impl("disagg_gram", lambda c, w: ds.disagg_gram(c, w), "CUDA")
 
@@ -83,6 +91,11 @@ def _flash_lse_fake(q, k, v, causal):
 @torch.library.register_fake("repro_torch::decode_attention", lib=_lib)
 def _decode_fake(q, k_cache, v_cache, lengths):
     return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::decode_attention_lse", lib=_lib)
+def _decode_lse_fake(q, k_cache, v_cache, lengths):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
 
 
 @torch.library.register_fake("repro_torch::rmsnorm", lib=_lib)
@@ -109,7 +122,7 @@ def _flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwa
     return attention_flops(b, s, k_shape[1], h, d, causal)
 
 
-@register_flop_formula(torch.ops.repro_torch.decode_attention)
+@register_flop_formula([torch.ops.repro_torch.decode_attention, torch.ops.repro_torch.decode_attention_lse])
 def _decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     b, h, d = q_shape
     return attention_flops(b, 1, k_shape[1], h, d, False)
@@ -189,6 +202,17 @@ def decode_attention(
     if _kernel_path("decode_attention", q):
         return torch.ops.repro_torch.decode_attention(q, k_cache, v_cache, lengths.to(torch.int32))
     return ref.decode_attention(q, k_cache, v_cache, lengths)
+
+
+def decode_attention_lse(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention`` and each row's log-sum-exp (B, H) fp32 (-inf
+    for a sequence of length 0): what a cache split on its sequence axis
+    merges its slices by (``models.attention.merge_partials``)."""
+    if _kernel_path("decode_attention_lse", q):
+        return torch.ops.repro_torch.decode_attention_lse(q, k_cache, v_cache, lengths.to(torch.int32))
+    return ref.decode_attention(q, k_cache, v_cache, lengths, return_lse=True)
 
 
 def disagg_gram(c: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -205,13 +205,16 @@ def flash_bwd(
     return dq, torch.cat(dks, dim=1)[:, :t].to(k.dtype), torch.cat(dvs, dim=1)[:, :t].to(v.dtype)
 
 def decode_attention(
-    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor
-) -> torch.Tensor:
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
+    return_lse: bool = False,
+):
     """Single-token GQA attention against a KV cache, masked at and beyond
     each sequence's ``lengths``.
 
     q (B, H, d), caches (B, S, Hkv, d), lengths (B,) int -> (B, H, d) in
-    q's dtype; fp32 scores and softmax.
+    q's dtype; fp32 scores and softmax.  With ``return_lse``, (out, lse):
+    lse (B, H) fp32, each row's natural log-sum-exp of its scaled scores
+    over the live keys, -inf at length 0, as the kernel's store gives it.
     """
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -223,7 +226,11 @@ def decode_attention(
     scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(torch.float32))
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, h)
+    return out, torch.where(lengths.to(q.device)[:, None] > 0, lse, torch.full_like(lse, float("-inf")))
 
 
 def decode_attention_quant(

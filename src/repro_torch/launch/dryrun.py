@@ -18,9 +18,12 @@ that exchange nothing), and counts what the program does while it runs:
   blocks of the state and batch (``sharding.empty_placed`` of
   ``abstract_with_sharding`` specs); prefill and decode cells run this
   rank's local program under ``SERVE_RULES``: the parameters and the decode
-  cache read through ``sharding.local_view``, which gathers every axis
-  sharded over "model" where it is read and keeps the batch blocks (the
-  cache's gather is a departure, ROADMAP Queue 3);
+  cache read through ``sharding.local_view(split=...)``, which keeps the
+  batch blocks and the "model" blocks of the split leaves
+  (``models.common.split_mask``: the attention, MLP, embedding and
+  unembedding weights and the attention caches, read where they lie) and
+  gathers the rest; the products split over "model"
+  (``distributed.tensor_parallel``), as the train cells' do;
 - ``flops_per_device``: ``torch.utils.flop_counter.FlopCounterMode`` over
   the whole step, every layer and the recompute of remat included.  It is
   not XLA's "body-once" figure: the trace is unrolled;
@@ -77,7 +80,7 @@ from repro_torch.distributed.collectives import CollectiveCounter
 from repro_torch.kernels import ops  # noqa: F401  (registers the custom ops and their FLOP formulas)
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import build
-from repro_torch.models.common import ParamTree, keeps_fp32, layer_specs, logical_axes, tree_map
+from repro_torch.models.common import ParamTree, keeps_fp32, layer_specs, logical_axes, split_mask, tree_map
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.model_zoo import TensorSpec, model_flops
 from repro_torch.models.transformer import compute_dtype
@@ -198,6 +201,7 @@ def _train_program(api, shape, mesh, rules_name, opt_config, accum_steps, cast_p
 def _serve_program(api, shape, mesh, dev):
     rules = shd.SERVE_RULES
     logical = logical_axes(api.params_def)
+    split = split_mask(logical)
     p_specs = _serve_param_specs(api)
     params = ParamTree(shd.empty_placed(shd.abstract_with_sharding(p_specs, logical, mesh, rules)))
     ep = api.cfg.family == "moe" and api.cfg.router_impl != "ragged"
@@ -208,20 +212,21 @@ def _serve_program(api, shape, mesh, dev):
 
         def prefill(params, batch):
             with torch.no_grad(), shd.use_rules(mesh, rules):
-                local = shd.local_view(params, logical, mesh, ep=ep)
+                local = shd.local_view(params, logical, mesh, ep=ep, split=split)
                 return api.prefill(local, shd.local_view(batch, {k: s.axes for k, s in specs.items()}, mesh))
 
         return prefill, (params, batch)
     c_specs = api.cache_spec(shape)
     t_spec = api.decode_inputs(shape)["token"]
+    c_axes = {k: s.axes for k, s in c_specs.items()}
     cache = shd.empty_placed(_with_sharding(c_specs, mesh, rules))
     token = shd.empty_placed(_with_sharding({"token": t_spec}, mesh, rules))
     pos = shape.seq_len - 1  # the last slot of a cache of seq_len
 
     def decode(params, cache, token):
         with torch.no_grad(), shd.use_rules(mesh, rules):
-            local = shd.local_view(params, logical, mesh, ep=ep)
-            c = shd.local_view(cache, {k: s.axes for k, s in c_specs.items()}, mesh)
+            local = shd.local_view(params, logical, mesh, ep=ep, split=split)
+            c = shd.local_view(cache, c_axes, mesh, split=split_mask(c_axes))
             t = shd.local_view(token, {"token": t_spec.axes}, mesh)["token"]
             return api.decode(local, c, t, pos)
 

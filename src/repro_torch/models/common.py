@@ -42,6 +42,8 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch.distributed import tensor_parallel as tp
+
 Tensor = torch.Tensor
 
 
@@ -97,6 +99,32 @@ def logical_axes(tree: dict) -> dict:
     leading "layers"-like axis, which every rule table replicates, so a
     per-layer leaf's spec is the reference's with that first entry dropped."""
     return map_tree(lambda p: p.axes, layer_specs(tree))
+
+
+#: Leaves the tensor-parallel consumers read as this rank's "model" block
+#: (``distributed.tensor_parallel``): the attention projections and biases,
+#: the dense MLP's products (not the MoE experts', whose leading axis is
+#: "expert"), the embedding and unembedding, and the attention KV caches
+#: (``k``/``v``, deepseek's ``k0``/``v0``, zamba2's ``attn_k``/``attn_v``,
+#: seamless's ``cross_k``/``cross_v``).  The Mamba2, mLSTM and sLSTM leaves,
+#: the router and the recurrent caches are read whole.
+SPLIT_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up", "w_down", "embed", "unembed",
+                          "k", "v", "k0", "v0", "attn_k", "attn_v", "cross_k", "cross_v"})
+
+
+def split_mask(logical_tree) -> Any:
+    """A tree of bools matching a logical-axis tree (``logical_axes``, or a
+    cache's ``{name: axes}``): True for the ``SPLIT_LEAVES`` -- the
+    ``split`` argument of ``distributed.sharding.local_view``."""
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        return name in SPLIT_LEAVES and tuple(node[:1]) != ("expert",)
+
+    return walk(logical_tree, "")
 
 
 def stack_params(tree: dict, n: int) -> dict:
@@ -434,16 +462,58 @@ def softcap(logits: Tensor, cap: float) -> Tensor:
     return torch.tanh(logits / cap) * cap
 
 
-def _ce_sums(logits: Tensor, labels: Tensor, vocab_size: int, z_loss: float):
-    """Masked CE partial sums: (nll_sum, z_sum, valid_count), fp32."""
+def embed_rows(table: Tensor, tokens: Tensor, rows: int) -> Tensor:
+    """``table[tokens]``.  A table of fewer than ``rows`` rows is this rank's
+    vocabulary block (``distributed.tensor_parallel``): the lookup is masked
+    to its rows and summed over "model" (one rank holds each token's row,
+    so the sum is exact)."""
+    axis = tp.split_of(table.shape[0], rows)
+    if axis is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens.to(torch.int64) - axis.rank * n
+    mine = (local >= 0) & (local < n)
+    return tp.reduce_from_model(torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0.0), axis)
+
+
+def vocab_logits(h: Tensor, w: Tensor, cols: int) -> Tensor:
+    """``h @ w`` for an unembedding ``w`` (d, V).  A ``w`` of fewer than
+    ``cols`` columns is this rank's vocabulary block: the product gives its
+    block of the logits, which the vocab-parallel CE (``_ce_sums``) reads
+    as it lies."""
+    axis = tp.split_of(w.shape[1], cols)
+    if axis is not None:
+        h = tp.copy_to_model(h, axis)
+    return h @ w
+
+
+def _ce_sums(logits: Tensor, labels: Tensor, vocab_size: int, z_loss: float, padded_vocab: int | None = None):
+    """Masked CE partial sums: (nll_sum, z_sum, valid_count), fp32.
+
+    Logits narrower than ``padded_vocab`` are this rank's vocabulary block
+    of a vocab-parallel product (``distributed.tensor_parallel``): the max,
+    the sum of exponentials and the gold logit are reduced over "model",
+    the padded tail is masked at global column indices, and the z-loss
+    takes the global log-sum-exp."""
     logits = logits.to(torch.float32)
     v_pad = logits.shape[-1]
-    if v_pad > vocab_size:
-        logits = torch.where(torch.arange(v_pad, device=logits.device) < vocab_size, logits, -1e30)
+    axis = tp.split_of(v_pad, padded_vocab) if padded_vocab else None
+    first = 0 if axis is None else axis.rank * v_pad  # the block's first global column
+    if (padded_vocab or v_pad) > vocab_size:
+        logits = torch.where(first + torch.arange(v_pad, device=logits.device) < vocab_size, logits, -1e30)
     valid = labels >= 0
     labels_c = torch.clamp(labels, 0, vocab_size - 1).to(torch.int64)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    if axis is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    else:
+        local = labels_c - first
+        mine = (local >= 0) & (local < v_pad)
+        shift = tp.max_over_model(logits.amax(dim=-1), axis)
+        sumexp = tp.reduce_from_model(torch.exp(logits - shift[..., None]).sum(dim=-1), axis)
+        logz = shift + torch.log(sumexp)
+        gold = torch.gather(logits, -1, local.clamp(0, v_pad - 1)[..., None])[..., 0]
+        gold = tp.reduce_from_model(torch.where(mine, gold, 0.0), axis)
     nll = torch.where(valid, logz - gold, 0.0)
     zl = torch.where(valid, z_loss * torch.square(logz), 0.0)
     return torch.sum(nll), torch.sum(zl), torch.sum(valid)
@@ -455,32 +525,40 @@ def _loss_metrics(nll_sum: Tensor, z_sum: Tensor, n_valid: Tensor) -> tuple[Tens
     return loss, {"loss": loss, "nll": nll_sum / denom, "tokens": denom.to(torch.float32)}
 
 
-def cross_entropy_loss(logits: Tensor, labels: Tensor, vocab_size: int, z_loss: float = 1e-4):
+def cross_entropy_loss(logits: Tensor, labels: Tensor, vocab_size: int, z_loss: float = 1e-4, *,
+                       padded_vocab: int | None = None):
     """Masked softmax cross-entropy with z-loss, fp32 accumulation.
 
     logits (B, S, V_padded) in the compute dtype, labels (B, S) int (< 0
     ignored), ``vocab_size`` the true vocabulary: the padded tail is masked
     to -1e30, so pad entries get no probability mass whatever their
-    weights.  Returns (loss, {"loss", "nll", "tokens"})."""
-    return _loss_metrics(*_ce_sums(logits, labels, vocab_size, z_loss))
+    weights.  Given the model's ``padded_vocab``, narrower logits are a
+    vocab-parallel block (``_ce_sums``).  Returns (loss, {"loss", "nll",
+    "tokens"}), the same numbers on every "model" rank."""
+    return _loss_metrics(*_ce_sums(logits, labels, vocab_size, z_loss, padded_vocab))
 
 
 def chunked_lm_loss(h: Tensor, unembed: Tensor, labels: Tensor, vocab_size: int, chunk: int,
-                    z_loss: float = 1e-4, logit_softcap: float = 0.0):
+                    z_loss: float = 1e-4, logit_softcap: float = 0.0, *, padded_vocab: int | None = None):
     """Sequence-chunked CE over final hidden states h (B, S, d) (ln_f
     applied) and the unembedding (d, V_padded): the logits are formed one
     (B, chunk, V) slice at a time, the partial sums added in the
-    reference's order.  Returns what ``cross_entropy_loss`` does."""
+    reference's order.  An unembedding narrower than ``padded_vocab`` is
+    this rank's vocabulary block (a vocab-parallel product and CE).
+    Returns what ``cross_entropy_loss`` does."""
     b, s, d = h.shape
     pad = (-s) % chunk
     if pad:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    axis = tp.split_of(unembed.shape[1], padded_vocab) if padded_vocab else None
+    if axis is not None:
+        h = tp.copy_to_model(h, axis)
     w = unembed.to(h.dtype)
     nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     n_valid = torch.zeros((), dtype=torch.int64, device=h.device)
     for i in range(0, h.shape[1], chunk):
         logits = softcap(h[:, i:i + chunk] @ w, logit_softcap)
-        nll, zl, cnt = _ce_sums(logits, labels[:, i:i + chunk], vocab_size, z_loss)
+        nll, zl, cnt = _ce_sums(logits, labels[:, i:i + chunk], vocab_size, z_loss, padded_vocab)
         nll_sum, z_sum, n_valid = nll_sum + nll, z_sum + zl, n_valid + cnt
     return _loss_metrics(nll_sum, z_sum, n_valid)

@@ -1,7 +1,11 @@
 """Channel mixers: SwiGLU (llama-family) and squared-ReLU (nemotron-4).
 
 The twin of the reference's ``repro/models/mlp.py``.  The three products
-are plain ``torch.matmul``, as the reference leaves them to XLA.
+are plain ``torch.matmul``, as the reference leaves them to XLA.  Given
+this rank's "model" blocks of the weights (``sharding.local_view(split=
+...)``), ``w_gate`` and ``w_up`` are column-parallel and ``w_down``
+row-parallel, ending in a reduce over "model"
+(``distributed.tensor_parallel``), as GSPMD splits them for the reference.
 """
 
 from __future__ import annotations
@@ -9,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.common import Param
 
 
@@ -30,11 +35,17 @@ def mlp_params(cfg: ArchConfig, d_ff: int | None = None) -> dict:
     raise ValueError(f"unknown mlp kind {cfg.mlp!r}")
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Apply the MLP block matching the ``mlp_params`` layout; x (B, S, d)."""
+def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig, d_ff: int | None = None) -> torch.Tensor:
+    """Apply the MLP block matching the ``mlp_params(cfg, d_ff)`` layout;
+    x (B, S, d).  Weights narrower than ``d_ff`` are this rank's "model"
+    blocks: the hidden width is split and the output summed over "model"."""
+    axis = tp.split_of(p["w_down"].shape[0], d_ff if d_ff is not None else cfg.d_ff)
+    if axis is not None:
+        x = tp.copy_to_model(x, axis)
     if "w_gate" in p:
         h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         r = torch.relu(x @ p["w_up"])
         h = r * r  # squared ReLU (nemotron-4)
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    return y if axis is None else tp.reduce_from_model(y, axis)

@@ -80,7 +80,7 @@ def _lm_loss(forward: Callable, cfg: ArchConfig) -> Callable:
     """loss for a family whose ``forward(params, batch)`` gives (logits, aux)."""
     def loss(params, batch):
         logits, _ = forward(params, batch)
-        return cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
+        return cross_entropy_loss(logits, batch["labels"], cfg.vocab_size, padded_vocab=cfg.padded_vocab)
     return loss
 
 
@@ -100,10 +100,11 @@ def _build_decoder(cfg: ArchConfig) -> ModelApi:
             h, aux = tf.decoder_hidden_states(params, batch["tokens"], cfg, prefix_embeds=prefix)
             h = rms_norm(h, params["ln_f"], cfg.norm_eps)
             w = params["unembed"] if "unembed" in params else params["embed"].T
-            l, metrics = chunked_lm_loss(h, w, labels, cfg.vocab_size, cfg.ce_chunk, logit_softcap=cfg.logit_softcap)
+            l, metrics = chunked_lm_loss(h, w, labels, cfg.vocab_size, cfg.ce_chunk, logit_softcap=cfg.logit_softcap,
+                                         padded_vocab=cfg.padded_vocab)
         else:
             logits, aux = tf.decoder_train(params, batch["tokens"], cfg, prefix_embeds=prefix)
-            l, metrics = cross_entropy_loss(logits, labels, cfg.vocab_size)
+            l, metrics = cross_entropy_loss(logits, labels, cfg.vocab_size, padded_vocab=cfg.padded_vocab)
         if cfg.family == "moe":
             l = l + MOE_AUX_WEIGHT * aux
             metrics["moe_aux"] = aux

@@ -51,7 +51,12 @@ over the token axes, sharded over "model").  Within a token shard the
 "model" ranks hold the same tokens, so each expert sees every token
 ``model_size`` times over the ranks' copies; the expert weights' gradient
 is scaled by ``1 / model_size`` so that it is the gradient of one copy
-(forward values are untouched).
+(forward values are untouched).  The "model" ranks still hold the same
+tokens when the attention and the dense MLPs around the block are split
+over "model" (``distributed.tensor_parallel``): those end in a reduce over
+"model", so the block's input is replicated there.  deepseek's shared
+experts are a dense MLP (``mlp_apply``) and run split on their "model"
+blocks, which the placed step keeps (``sharding.local_view(split=...)``).
 
 The Switch-style auxiliary load-balancing loss is returned alongside.
 Counts of entries per expert are taken with ``scatter_add_`` on the device
@@ -382,7 +387,7 @@ def moe_apply(p, x: Tensor, cfg: ArchConfig):
         if "shared" in p:
             shared = {k: _gathered(w, mesh, token_axes) for k, w in
                       ((k, p["shared"][k]) for k in ("w_gate", "w_up", "w_down") if k in p["shared"])}
-            out = out + mlp_apply(shared, x, cfg)
+            out = out + mlp_apply(shared, x, cfg, cfg.num_shared_experts * cfg.expert_d_ff)
         if placed is not None:
             out = DTensor.from_local(out, placed.device_mesh, placed.placements, run_check=False)
         return out, aux
@@ -391,5 +396,5 @@ def moe_apply(p, x: Tensor, cfg: ArchConfig):
     routed, aux = dispatch(p, x.reshape(b * s, d), cfg)
     out = routed.reshape(b, s, d)
     if "shared" in p:
-        out = out + mlp_apply(p["shared"], x, cfg)
+        out = out + mlp_apply(p["shared"], x, cfg, cfg.num_shared_experts * cfg.expert_d_ff)
     return out, aux

@@ -39,7 +39,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import shard_activation
 from repro_torch.kernels import ref
 from repro_torch.models.attention import attention_apply, attention_decode, attention_params
-from repro_torch.models.common import Param, maybe_remat, rms_norm, softcap, stack_params
+from repro_torch.models.common import Param, embed_rows, maybe_remat, rms_norm, softcap, stack_params, vocab_logits
 from repro_torch.models.mlp import mlp_apply, mlp_params
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.ssm import mamba_apply, mamba_decode, mamba_params
@@ -116,15 +116,21 @@ def decoder_params(cfg: ArchConfig) -> dict:
 
 
 def embed_tokens(params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
-    """Token-embedding lookup in the compute dtype, activation-sharded."""
-    return shard_activation(params["embed"][tokens].to(compute_dtype(cfg)), ("batch", "seq", "act_embed"))
+    """Token-embedding lookup in the compute dtype, activation-sharded; a
+    vocab-parallel lookup on this rank's block of the table
+    (``common.embed_rows``)."""
+    table = embed_rows(params["embed"], tokens, cfg.padded_vocab)
+    return shard_activation(table.to(compute_dtype(cfg)), ("batch", "seq", "act_embed"))
 
 
 def lm_logits(params, h: Tensor, cfg: ArchConfig) -> Tensor:
-    """Final norm + (tied) unembedding + logit softcap."""
+    """Final norm + (tied) unembedding + logit softcap.  On this rank's
+    vocabulary block of the unembedding (or of the tied table), the logits
+    are its block too (``common.vocab_logits``)."""
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     w = params["unembed"] if "unembed" in params else params["embed"].T
-    return shard_activation(softcap(h @ w.to(h.dtype), cfg.logit_softcap), ("batch", "seq", "vocab"))
+    logits = vocab_logits(h, w.to(h.dtype), cfg.padded_vocab)
+    return shard_activation(softcap(logits, cfg.logit_softcap), ("batch", "seq", "vocab"))
 
 
 def project_frontend(params, embeds: Tensor, cfg: ArchConfig) -> Tensor:

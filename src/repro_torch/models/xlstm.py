@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import shard_activation
-from repro_torch.models.common import Param, maybe_remat, rms_norm, softcap, stack_params
+from repro_torch.models.common import Param, embed_rows, maybe_remat, rms_norm, softcap, stack_params, vocab_logits
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models.transformer import compute_dtype
 
@@ -224,11 +224,13 @@ def xlstm_params(cfg: ArchConfig) -> dict:
 
 
 def _embed(params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
-    return shard_activation(params["embed"][tokens].to(compute_dtype(cfg)), ("batch", "seq", "act_embed"))
+    table = embed_rows(params["embed"], tokens, cfg.padded_vocab)
+    return shard_activation(table.to(compute_dtype(cfg)), ("batch", "seq", "act_embed"))
 
 
 def _logits(params, h: Tensor, cfg: ArchConfig) -> Tensor:
-    logits = softcap(rms_norm(h, params["ln_f"], cfg.norm_eps) @ params["unembed"], cfg.logit_softcap)
+    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+    logits = softcap(vocab_logits(h, params["unembed"], cfg.padded_vocab), cfg.logit_softcap)
     return shard_activation(logits, ("batch", "seq", "vocab"))
 
 

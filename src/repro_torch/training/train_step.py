@@ -21,17 +21,26 @@ several ranks the parameters and moments become ``DTensor``s (``count``
 stays a plain scalar, equal on every rank), and the step runs as each
 rank's local program:
 
-- each weight is gathered whole where the forward reads it
+- each weight is gathered on the token axes where the forward reads it
   (``distributed.sharding.local_view``, the gather rule the dry run's serve
   programs share; an all-gather whose gradient comes back as a partial sum
   over the token axes, reduced and scattered onto the weight's own
   placement -- FSDP's pattern);
+- the products split over "model" as the rules place their weights
+  (``distributed.tensor_parallel``): the leaves of ``models.common.
+  split_mask`` -- the attention projections, the dense MLP, the embedding
+  and the unembedding -- are read as this rank's "model" block, whose
+  gradient is that block's and needs no reduction over "model"; attention
+  runs on the rank's heads, the MLP column then row parallel, the logits
+  and the CE on the rank's vocabulary block.  Every other leaf (the Mamba2,
+  mLSTM and sLSTM weights, the router) is gathered whole over "model" too,
+  and its products are the same on every "model" rank (ROADMAP item 9.11);
   expert weights on the MoE block's expert-parallel path are gathered by
-  that path to the rank's own experts instead;
-- the batch is the rank's block on the token axes ("pod", "data"); the
-  "model" ranks of a token shard compute the same values (the port
-  places the state by the tensor-parallel rules but does not split the
-  products over "model": ROADMAP item 9.10);
+  that path to the rank's own experts.  Under rules that shard the batch
+  over "model" (``ZERO3_RULES``) "model" is a token axis and nothing is
+  split;
+- the batch is the rank's block on the token axes ("pod", "data"), the
+  same on every "model" rank;
 - each rank's loss is weighted by its share of the valid tokens, so the
   sum over token shards is the global mean loss, whose value is reported.
 
@@ -48,11 +57,11 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.common import (
-    ComputeView, cast_masters, layer_specs, logical_axes, map_tree, materialize, tree_leaves,
+    ComputeView, cast_masters, layer_specs, logical_axes, map_tree, materialize, split_mask, tree_leaves,
 )
 from repro_torch.models.model_zoo import ModelApi, TensorSpec
 from repro_torch.models.transformer import compute_dtype
@@ -124,6 +133,14 @@ def _placed_mesh(params):
     return first.device_mesh if isinstance(first, DTensor) else None
 
 
+def _tokens_on_model(batch: dict) -> bool:
+    """True when a placed batch is split over "model": the axis then
+    carries tokens (``ZERO3_RULES``), not a tensor-parallel split."""
+    return any(isinstance(v, DTensor) and any(
+        n == "model" and isinstance(p, Shard) for n, p in zip(v.device_mesh.mesh_dim_names, v.placements))
+        for v in batch.values())
+
+
 def _token_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` summed over the mesh's token axes ("pod", "data")."""
     x = x.clone()
@@ -156,11 +173,13 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
     cdt = compute_dtype(api.cfg)
     logical = logical_axes(api.params_def)
     ep = api.cfg.family == "moe" and api.cfg.router_impl != "ragged"
+    split = split_mask(logical)
 
-    def grad_of(params, leaves, batch):
+    def grad_of(params, leaves, batch, tp_split):
         mesh = _placed_mesh(params)
         if mesh is not None:
-            params = shd.local_view(params, logical, mesh, ep=ep and shd._active() is not None)
+            params = shd.local_view(params, logical, mesh, ep=ep and shd._active() is not None,
+                                    split=split if tp_split else None)
         tree = cast_masters(params, cdt) if cast_params else params
         loss, metrics = api.loss(ComputeView(tree, cdt), batch)
         if mesh is not None:  # this rank's share of the global mean
@@ -172,15 +191,16 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         leaves = tree_leaves(state.params)
+        tp_split = shd._active() is not None and not _tokens_on_model(batch)
         batch = {k: v.to_local() if isinstance(v, DTensor) else v for k, v in batch.items()}  # this rank's block
         if accum_steps <= 1:
-            loss, metrics, grads = grad_of(state.params, leaves, batch)
+            loss, metrics, grads = grad_of(state.params, leaves, batch, tp_split)
         else:
             micro = {k: torch.chunk(x, accum_steps, dim=0) for k, x in batch.items()}
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             losses = []
             for i in range(accum_steps):
-                loss_i, _, grads = grad_of(state.params, leaves, {k: x[i] for k, x in micro.items()})
+                loss_i, _, grads = grad_of(state.params, leaves, {k: x[i] for k, x in micro.items()}, tp_split)
                 for a, g in zip(acc, grads):
                     a.add_(g.to(torch.float32))
                 losses.append(loss_i)

@@ -177,7 +177,7 @@ def test_pod_cell_counts(pod_records, cell):
     assert rec["param_count"] == r_cfg.param_count()
     layers = get_config(arch).num_layers
     want = {"train": {"flash_attention_lse": 2 * layers}, "ep": {"flash_attention_lse": 2 * layers},
-            "prefill": {"flash_attention": layers}, "decode": {"decode_attention": layers}}[cell]
+            "prefill": {"flash_attention": layers}, "decode": {"decode_attention_lse": layers}}[cell]
     assert rec["kernels"] == want
     assert rec["mesh"] == "16x16" and rec["devices"] == 256 and rec["flops_per_device"] > 0
     coll = rec["collective_bytes"]
@@ -190,6 +190,38 @@ def test_pod_cell_counts(pod_records, cell):
         "alias_bytes"]
     if rec["kind"] == "train":  # the parameters and moments are updated in place
         assert 0 < mem["alias_bytes"] <= mem["argument_bytes"]
+
+
+CARD_GIB = 79.18  # an H100 80GB's memory as torch reports it
+UNSPLIT_DECODE_GIB = 53.3  # internlm2 decode_32k on the pod with the cache gathered over "model" (PERF.md)
+
+
+def test_pod_cells_run_split_over_model(pod_records):
+    """internlm2's train_4k fits a card on the pod once the logits and the
+    products are split 16 ways; decode_32k reads its cache where it lies:
+    this rank's block of 8 sequences x 2,048 rows (kv_seq over "model",
+    since Hkv 8 does not divide 16), at least 3x below the gathered cache's
+    peak."""
+    cfg = get_config(ARCH)
+    assert pod_records["train"]["memory"]["peak_bytes_est"] < CARD_GIB * 2**30
+    dec = pod_records["decode"]["memory"]
+    block = 2 * cfg.num_layers * (128 // 16) * (32768 // 16) * cfg.num_kv_heads * cfg.head_dim * 2  # k + v, bf16
+    assert block <= dec["argument_bytes"] and dec["peak_bytes_est"] < UNSPLIT_DECODE_GIB / 3 * 2**30
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_split_flops_are_the_unsplit_flops_over_model_size(kind):
+    """Reduced internlm2 (H 4, Hkv 2) traced on ("data", "model") = (1, 4)
+    against the (1, 1) mesh: every product is split 4 ways -- the rank's
+    one q head and the kv head it reads, a quarter of the MLP and of the
+    vocabulary, a quarter of the decode cache's rows -- so no work is
+    repeated across "model"."""
+    shape = ShapeConfig("t", 16, 4, kind)
+    overrides = _reduced_overrides(ARCH)
+    split = dryrun.lower_cell(ARCH, shape, cfg_overrides=overrides, mesh=(1, 4))
+    whole = dryrun.lower_cell(ARCH, shape, cfg_overrides=overrides, mesh="local")
+    assert split["flops_per_device"] * 4 == whole["flops_per_device"] > 0
+    assert split["kernels"] == ({"decode_attention_lse": 2} if kind == "decode" else whole["kernels"])
 
 
 def _reference_record_keys() -> tuple[set, set]:

@@ -604,6 +604,72 @@ def test_cuda_decode_vs_plain(b, s, h, hkv, d, lengths, dtype, cuda_attention):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
+    "b,s,h,hkv,d,lengths",
+    [(8, 576, 16, 8, 128, [575] * 8), (2, 4112, 16, 8, 128, [4111, 0]),  # the serving shapes, a length 0
+     (8, 2048, 16, 8, 128, [2048, 0, 1, 700, 2048, 5, 1999, 0]),       # a 16-way kv_seq block of 32k rows
+     (8, 576, 32, 32, 112, [575, 1, 64, 65, 576, 2, 300, 129]), (2, 129, 12, 4, 64, [129, 64]),
+     (1, 257, 16, 1, 32, [257])],
+)
+def test_cuda_decode_lse_store(b, s, h, hkv, d, lengths, dtype, cuda_attention):
+    """The lse store leaves ``out`` the same bits; lse within 1e-5 of the
+    plain version's (of max(1, |lse|)) and -inf at length 0; both through
+    the ``decode_attention_lse`` custom op."""
+    from repro_torch.kernels import ops
+
+    da = cuda_attention[1]
+    rng = np.random.default_rng(s + h)
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32)).to("cuda", dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(np.float32)).to("cuda", dtype)
+            for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before, before_lse = da.decode_attention.launches, da.decode_attention.launches_lse
+    out, lse = ops.decode_attention_lse(q, k, v, lens)
+    plain = da.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (da.decode_attention.launches, da.decode_attention.launches_lse) == (before + 2, before_lse + 1)
+    assert torch.equal(out, plain)
+    want = ref.decode_attention(q, k, v, lens, return_lse=True)[1]
+    live = lens > 0
+    assert bool(torch.isneginf(lse[~live]).all()) and bool(torch.isfinite(lse[live]).all())
+    err = float((lse[live] - want[live]).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want[live].abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kv_seq_merge_matches_unsplit_decode(dtype, cuda_attention):
+    """A 32,768-row cache split 16 ways (internlm2's decode_32k block on
+    "model"): each block through the lse op at its clipped lengths, merged
+    (``models.attention.merge_partials``), against the unsplit kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import merge_partials
+
+    b, s, h, hkv, d, parts = 4, 32768, 16, 8, 128, 16
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32)).to("cuda", dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(np.float32)).to("cuda", dtype)
+            for _ in range(2))
+    lens = torch.tensor([32768, 30000, 2049, 1], dtype=torch.int32, device="cuda")
+    rows = s // parts
+    pieces = [ops.decode_attention_lse(q, k[:, r * rows:(r + 1) * rows], v[:, r * rows:(r + 1) * rows],
+                                       (lens - r * rows).clamp(0, rows)) for r in range(parts)]
+    outs = torch.stack([o for o, _ in pieces])
+    got = merge_partials(outs, torch.stack([lse for _, lse in pieces]))
+    want = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        _assert_attention_close(got, want, dtype)
+        return
+    # Each block's bf16 output rounds once before the merge (2^-9 of it),
+    # the merged and the unsplit outputs once each: a weighted mean of the
+    # blocks is off by at most 2^-9 of the largest, so 2^-8 of both bounds it.
+    bound = 2.0**-8 * (outs.float().abs().amax(dim=0) + want.float().abs()) + 1e-6
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
     "shape",
     # d 2048 and 4096 take the row-in-registers loop (bf16; fp32 at 2048);
     # 4097 and 1001 rows are not multiples of a block's 8 rows.
@@ -699,6 +765,46 @@ def test_decode_head_chunks(g):
     assert nchunk == -(-g // da.MAX_GROUP)
     plan = da.decode_plan(2, g * 8, 8, 4112, 64, 2, 132)
     assert plan["grid"][1] == 8 * nchunk and plan["heads_per_block"] == gchunk and plan["group"] == group
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,lengths", [(3, 40, 4, 2, 16, [40, 0, 7]), (2, 33, 6, 1, 32, [1, 33])])
+def test_plain_decode_lse_is_the_masked_log_sum_exp(b, s, h, hkv, d, lengths):
+    """``ref.decode_attention(return_lse=True)``: the output unchanged, and
+    per (sequence, head) the log-sum-exp of the scaled scores over the live
+    keys, computed here one row at a time in float64; -inf at length 0."""
+    rng = np.random.default_rng(s)
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(np.float32)) for _ in range(2))
+    lens = torch.tensor(lengths)
+    out, lse = ref.decode_attention(q, k, v, lens, return_lse=True)
+    assert torch.equal(out, ref.decode_attention(q, k, v, lens)) and lse.dtype == torch.float32
+    for i in range(b):
+        for j in range(h):
+            n = lengths[i]
+            scores = k[i, :n, j // (h // hkv)].double() @ q[i, j].double() / d ** 0.5
+            want = torch.logsumexp(scores, 0) if n else torch.tensor(float("-inf"), dtype=torch.float64)
+            assert abs(float(lse[i, j]) - float(want)) <= 1e-5 * max(1.0, abs(float(want))) or n == 0
+            assert n or torch.isneginf(lse[i, j])
+
+
+@pytest.mark.parametrize("parts", [2, 4, 16])
+def test_plain_kv_seq_merge_matches_unsplit_decode(parts):
+    """The cache's rows in ``parts`` blocks, each block's (out, lse) from
+    ``ops.decode_attention_lse`` at its clipped lengths (some blocks empty),
+    merged by ``models.attention.merge_partials``: the unsplit plain decode
+    at 1e-5."""
+    from repro_torch.models.attention import merge_partials
+
+    b, s, h, hkv, d = 4, 64, 8, 2, 16
+    rng = np.random.default_rng(parts)
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(np.float32)) for _ in range(2))
+    lens = torch.tensor([64, 33, 5, 1])
+    rows = s // parts
+    pieces = [ops.decode_attention_lse(q, k[:, r * rows:(r + 1) * rows], v[:, r * rows:(r + 1) * rows],
+                                       (lens - r * rows).clamp(0, rows)) for r in range(parts)]
+    got = merge_partials(torch.stack([o for o, _ in pieces]), torch.stack([lse for _, lse in pieces]))
+    torch.testing.assert_close(got, ref.decode_attention(q, k, v, lens), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("b,h,hkv,s_max,lengths", [(2, 16, 8, 4112, [4111, 0]), (8, 4, 2, 576, [575, 1, 64, 65, 300, 2, 576, 129]),

@@ -38,6 +38,7 @@ LAYERS = {
     "repro_torch.core.pricing": 1,
     "repro_torch.core.baselines": 1,
     "repro_torch.distributed": 1,
+    "repro_torch.distributed.tensor_parallel": 1,  # the "model" collectives beside the sharding rules
     "repro_torch.models": 1,
     "repro_torch.core.sessions": 2,
     "repro_torch.training": 2,
@@ -179,6 +180,22 @@ def test_layer_map_places_the_training_slice():
         "repro_torch.models.model_zoo": 1,
         "repro_torch.kernels.ops": 0,
         "repro_torch.launch.train": None,
+    }
+    assert {mod: _layer(mod) for mod in expected} == expected
+    assert all(mod in MODULES for mod in expected)
+
+
+def test_layer_map_places_the_tensor_parallel_slice():
+    """The "model" collectives sit in layer 1 beside the sharding rules, with
+    the models whose products they split; the train step that reads the
+    split leaves above them."""
+    expected = {
+        "repro_torch.distributed.tensor_parallel": 1,
+        "repro_torch.distributed.sharding": 1,
+        "repro_torch.models.attention": 1,
+        "repro_torch.models.mlp": 1,
+        "repro_torch.models.common": 1,
+        "repro_torch.training.train_step": 2,
     }
     assert {mod: _layer(mod) for mod in expected} == expected
     assert all(mod in MODULES for mod in expected)

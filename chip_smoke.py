@@ -179,9 +179,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    (48), its FLOPs the real step's exactly, and its ``peak_bytes_est`` the
    real step's ``max_memory_allocated`` above what was allocated before,
    within 15 %; (b) internlm2-1.8b train_4k, olmoe-1b-7b train_4k under the
-   EP rules, internlm2-1.8b prefill_32k and decode_32k on the (16, 16) pod
-   of a fake 256-rank world, each with its custom ops counted and its
-   roofline row printed; (c) host µs per call of the decode and flash
+   EP rules, internlm2-1.8b prefill_32k and decode_32k, and zamba2-7b
+   train_4k and prefill_32k (each ``peak_bytes_est`` within a card's 79.18
+   GiB, its Mamba2 blocks split over "model") on the (16, 16) pod of a
+   fake 256-rank world, each with its custom ops counted and its roofline
+   row printed; (c) host µs per call of the decode and flash
    kernels through the wrapper, the ``repro_torch::`` custom op and
    ``ops``.  No fake trace may launch a kernel, build a library or hand a
    CUDA tensor to a plain version.  The kernel parity of phase 2 and the
@@ -189,16 +191,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
 16. Tensor parallelism over "model" (``distributed.tensor_parallel``):
    two rank processes share the one card over a gloo group on CUDA tensors
    (NCCL refuses two ranks on one GPU), on the mesh ("data", "model") =
-   (1, 2).  Rank 0 first runs the one-process program alone and frees it:
-   internlm2-1.8b at full width and depth, bf16 on fp32 masters, remat
-   "full", ``TP_STEPS`` steps of ``TP_BATCH`` x ``TP_SEQ`` (cut from 4 x
-   2048: every collective of the split program goes through the host in
-   gloo), then a prefill and ``TP_DECODE`` decode steps of bf16 weights.
-   Then both ranks run the split program on the same seeded weights and
-   batches under ``TRAIN_RULES`` and ``SERVE_RULES``: the losses, the
-   gathered parameters and first moments after the steps, the prefill's and
-   decode steps' logits, against rank 0's, at ``TP_TOL``'s bounds; flash at
-   the ranks' 8 q heads over 4 kv heads, decode on the ranks' kv heads.
+   (1, 2), for each of ``TP_ARCHS``: internlm2-1.8b at full width and
+   depth, then zamba2-7b at full width, trained cut to 12 of its 81 layers
+   and served at full depth, its Mamba2 blocks on the ranks' 56 of 112
+   heads.  Rank 0 first runs the one-process program alone and frees it:
+   bf16 on fp32 masters, remat "full", ``TP_STEPS`` steps of ``TP_BATCH``
+   x ``TP_SEQ`` (cut from 4 x 2048: every collective of the split program
+   goes through the host in gloo), then a prefill and ``TP_DECODE`` decode
+   steps of bf16 weights.  Then both ranks run the split program on the
+   same seeded weights and batches under ``TRAIN_RULES`` and
+   ``SERVE_RULES``: the losses, the gathered parameters and first moments
+   after the steps, the prefill's and decode steps' logits, against rank
+   0's, at ``TP_TOL``'s bounds (zamba2's first moments and logits from a
+   step and a serve in fp32 cut to 4 layers, ``TP_FP32_CHECKS``);
+   tensor-core flash at the ranks' heads (d 128 and 112), decode on the
+   ranks' kv heads.  Phase 15 (b)'s worker processes trace beside it.
    Then in this process the kv_seq merge alone: a 32,768-row cache cut
    into 16 blocks (internlm2 decode_32k's block on the pod), each through
    the ``decode_attention_lse`` op at its clipped lengths, merged by
@@ -226,24 +233,27 @@ the ``nvidia-smi`` name/power-limit line, and as the last line
 
 ``python3 chip_smoke.py --bench [DIR]`` runs only the flash, decode and gram
 kernel timings (``bench_main``), of this tree or another one.
-``python3 chip_smoke.py --tp-rank RANK WORLD DIR DEVICE SIZE`` is one rank
-of phase 16, which starts them.
+``python3 chip_smoke.py --tp-rank RANK WORLD DIR DEVICE SIZE ARCHS`` is one
+rank of phase 16, which starts them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import inspect
 import json
 import math
 import os
 import re
 import shutil
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -355,6 +365,10 @@ MOE_H = MOE_HKV = 16
 # to 13 layers (application points 0, 6 and 12), full width.
 ZAMBA = "zamba2-7b"
 ZAMBA_CHECK_LAYERS = 13
+# The families phase serves zamba2-7b cut to 27 of its 81 layers (five
+# shared-attention points), for the run's time limit: phase 16 serves it at
+# full depth (one process and split over two ranks).
+ZAMBA_SERVE_LAYERS = 27
 ZAMBA_CLASSES = {f"{ZAMBA}/chat": CLASSES[f"{ARCH}/chat"], f"{ZAMBA}/summarize": CLASSES[f"{ARCH}/summarize"]}
 ZAMBA_SCHEDULE = [f"{ZAMBA}/chat", f"{ZAMBA}/chat", f"{ZAMBA}/summarize"] * 2
 SEAMLESS = "seamless-m4t-large-v2"
@@ -2637,7 +2651,7 @@ def attention_launches(cfg) -> tuple[int, int]:
     per attention layer (xLSTM none); zamba2's shared block once per
     application point; an encoder-decoder's encoder layers at prefill, and
     each decoder layer's self- and cross-attention at both."""
-    from repro_torch.models.transformer import n_attn_points
+    from repro_torch.models.transformer import compute_dtype, n_attn_points
 
     if cfg.family == "ssm":
         return 0, 0
@@ -2734,20 +2748,21 @@ def phase_int8(api, params, counter, ref, device="cuda") -> dict:
 
 
 def phase_family(arch, classes, schedule, counter, ref, device="cuda", reduced=False,
-                 gate=False, vs_plain=False, trace=False, check_layers=None) -> dict:
+                 gate=False, vs_plain=False, trace=False, check_layers=None, layers=None) -> dict:
     """Build ``arch`` at full width (fp32 masters and the bf16 copy), serve
     ``schedule`` through ``MeteredServer``, meter and price it; with
     ``trace``, trace one warm request per class (device busy per request);
     check the fp32 invariants (and, with ``vs_plain``, kernels against
     plain versions); with ``gate``, one decode step under the sync gate;
-    then free the weights.  With ``check_layers`` the served model is bf16
-    alone at full depth, and the fp32 checks run on a copy cut to that
-    depth (fp32 masters and its own bf16 copy), full width."""
+    then free the weights.  ``layers`` cuts the served model's depth.  With
+    ``check_layers`` the served model is bf16 alone, and the fp32 checks
+    run on a copy cut to that depth (fp32 masters and its own bf16 copy),
+    full width."""
     from repro_torch.launch.serve import random_batch
     from repro_torch.configs.shapes import ShapeConfig
 
     t0 = time.perf_counter()
-    api, masters, params = build_model(device, reduced, arch, masters=check_layers is None)
+    api, masters, params = build_model(device, reduced, arch, layers=layers, masters=check_layers is None)
     cuda = torch.device(device).type == "cuda"
     serve_out, stats, launches = serve_path(api, params, classes, schedule, counter, ref, device)
     log(f"family {arch}: built and served in {time.perf_counter() - t0:.1f} s")
@@ -2921,7 +2936,8 @@ def phase_families(ref, counter, device="cuda", reduced=False) -> dict:
     fam: dict = {}
     fam["zamba2"] = phase_family(ZAMBA, ZAMBA_CLASSES, ZAMBA_SCHEDULE, counter, ref, device, reduced,
                                  gate=True, vs_plain=True, trace=True,
-                                 check_layers=None if reduced else ZAMBA_CHECK_LAYERS)
+                                 check_layers=None if reduced else ZAMBA_CHECK_LAYERS,
+                                 layers=None if reduced else ZAMBA_SERVE_LAYERS)
     fam["seamless"] = phase_family(SEAMLESS, SEAMLESS_CLASSES, SEAMLESS_SCHEDULE, counter, ref, device, reduced,
                                    gate=True, vs_plain=True, trace=True)
     fam["olmoe"] = phase_family(OLMOE, OLMOE_CLASSES, OLMOE_SCHEDULE, counter, ref, device, reduced,
@@ -3629,9 +3645,12 @@ def phase_distributed(ref, counter, train_full: dict, device="cuda", reduced=Fal
 
 
 # The dry run's cells on the (16, 16) pod (phase 15 (b)): a dense train
-# cell, olmoe's under the expert-parallel rules, a prefill and a decode.
+# cell, olmoe's under the expert-parallel rules, a prefill and a decode, and
+# zamba2's train_4k and prefill_32k, whose Mamba2 blocks split over "model"
+# (each must fit a card: ``launch.mesh.HBM_BYTES``).
 DRYRUN_CELLS = [(ARCH, "train_4k", "train"), (OLMOE, "train_4k", "ep"), (ARCH, "prefill_32k", "train"),
-                (ARCH, "decode_32k", "train")]
+                (ARCH, "decode_32k", "train"), (ZAMBA, "train_4k", "train"), (ZAMBA, "prefill_32k", "train")]
+DRYRUN_FIT = (ZAMBA,)  # the archs whose pod cells phase 15 (b) holds to a card's memory
 POD_MODEL = 16  # the pod's "model" axis
 BENCH_CHAT_REQUESTS = 9  # the --bench run's chat requests (the first is the cold start)
 BENCH_TRAIN_STEPS = 3  # the --bench run's training steps (their losses, to compare trees bitwise)
@@ -3728,7 +3747,28 @@ def _real_step(cfg, shape, ocfg, counter, device):
     return out
 
 
-def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
+def _pod_cell(arch: str, shape_name: str, rules: str, overrides: dict):
+    """One pod cell of phase 15 (b), in a worker process: (its record, the
+    hand-kernel launches its trace made, the libraries it built)."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import disagg_solve as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import dryrun
+
+    counter = LaunchCounter(fa, da, rn, ds)
+    counter.zero()
+    t0 = time.perf_counter()
+    with main_path(ref):
+        rec = dryrun.lower_cell(arch, shape_name, rules_name=rules, cfg_overrides=overrides)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec, counter.read(), list(kbuild.built)
+
+
+def phase_dryrun(ref, counter, device="cuda", reduced=False, during=None) -> dict:
     """Phase 15, the dry run (``launch.dryrun``): (a) the training phase's
     cell -- internlm2-1.8b, batch 4 x 2048, remat "full", bf16 on fp32
     masters -- traced on fake tensors on the local mesh (1, 1), then run for
@@ -3737,7 +3777,9 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
     step's, and its ``peak_bytes_est`` the real step's peak within 15 %;
     (b) one cell of each kind on the (16, 16) pod (a fake 256-rank world),
     each with its roofline row and the custom ops its trace reached; (c)
-    the dispatch cost of the custom ops against the direct call.  No trace
+    the dispatch cost of the custom ops against the direct call.  ``during``
+    (phase 16) runs after (a) while (b)'s workers trace; its result comes
+    back as ``out["during"]``.  No trace
     may launch a kernel, build a library, or hand a CUDA tensor to a plain
     version.  ``device="cpu", reduced=True`` rehearses the control flow on
     the reduced configs (as overrides of the full ones) at 1 x 256 for (a)
@@ -3746,6 +3788,8 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.kernels import build as kbuild
     from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.transformer import n_attn_points
     from repro_torch.training import optimizer as opt
 
     def cut(arch):  # the reduced config's fields as overrides of the full one (its experts split over 16)
@@ -3756,6 +3800,9 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
 
     t0 = time.perf_counter()
     out: dict = {}
+    # (b)'s pod cells start first, each traced in a worker process of its own, all at once, beside (a)
+    pool = ProcessPoolExecutor(len(DRYRUN_CELLS), mp_context=multiprocessing.get_context("spawn"))
+    jobs = [pool.submit(_pod_cell, arch, shape_name, rules, cut(arch)) for arch, shape_name, rules in DRYRUN_CELLS]
     overrides = cut(ARCH)
     cfg = dataclasses.replace(get_config(ARCH), **overrides)
     shape = ShapeConfig("train", 256 if reduced else TRAIN_SEQ, 1 if reduced else TRAIN_BATCH, "train")
@@ -3786,39 +3833,45 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False) -> dict:
         assert rec["flops_per_device"] == real["flops"], (rec["flops_per_device"], real["flops"])
         assert abs(out["local"]["peak_rel"]) <= DRYRUN_PEAK_RTOL, out["local"]["peak_rel"]
 
+    t_during = time.perf_counter()
+    if during is not None:
+        out["during"] = during()
+    t_during = time.perf_counter() - t_during
+
     # (b) the production cells on the pod.
     rows, records = [], {}
-    counter.zero()
-    with main_path(ref):
-        for arch, shape_name, rules in DRYRUN_CELLS:
-            c0 = time.perf_counter()
-            r = dryrun.lower_cell(arch, shape_name, rules_name=rules, cfg_overrides=cut(arch))
-            r["wall_s"] = time.perf_counter() - c0
-            records[f"{arch}_{shape_name}_{rules}"] = r
-            rows.append(roofline.analyze_record(r))
-            c = dataclasses.replace(get_config(arch), **cut(arch))
-            layers = c.num_layers
-            per_step = layers * (1 if c.remat == "none" else 2)  # the forward, then the remat recompute
-            # A decode cache whose kv heads do not divide the pod's 16 "model" ranks lies on kv_seq:
-            # each layer attends the rank's rows with the lse store, then merges across "model".
-            dec = "decode_attention_lse" if c.num_kv_heads % POD_MODEL else "decode_attention"
-            want = {"train": {"flash_attention_lse": per_step}, "prefill": {"flash_attention": layers},
-                    "decode": {dec: layers}}[r["kind"]]
-            assert r["kernels"] == want, (arch, shape_name, r["kernels"], want)
-            log(f"dryrun (b) {arch} {shape_name} rules {r['rules']} on {r['mesh']}: wall {r['wall_s']:.1f} s; "
-                f"{r['flops_per_device']:.4e} FLOPs/card, peak {r['memory']['peak_bytes_est'] / 2**30:.2f} GiB, "
-                f"collectives {json.dumps(r['collective_bytes'])}, by axis {json.dumps(r['collective_bytes_by_axis'])}, "
-                f"kernels {r['kernels']}")
-    pod_launches = counter.read()
-    assert not any(pod_launches.values()), f"a fake trace launched a kernel: {pod_launches}"
+    try:
+        results = [job.result() for job in jobs]
+    finally:
+        pool.shutdown()
+    for (arch, shape_name, rules), (r, launches, built) in zip(DRYRUN_CELLS, results):
+        assert not any(launches.values()), f"a fake trace launched a kernel: {arch} {shape_name} {launches}"
+        assert not built, f"a fake trace built a library: {arch} {shape_name} {built}"
+        records[f"{arch}_{shape_name}_{rules}"] = r
+        rows.append(roofline.analyze_record(r))
+        c = dataclasses.replace(get_config(arch), **cut(arch))
+        layers = n_attn_points(c) if c.family == "hybrid" else c.num_layers  # its attention layers
+        per_step = layers * (1 if c.remat == "none" else 2)  # the forward, then the remat recompute
+        # A decode cache whose kv heads do not divide the pod's 16 "model" ranks lies on kv_seq:
+        # each layer attends the rank's rows with the lse store, then merges across "model".
+        dec = "decode_attention_lse" if c.num_kv_heads % POD_MODEL else "decode_attention"
+        want = {"train": {"flash_attention_lse": per_step}, "prefill": {"flash_attention": layers},
+                "decode": {dec: layers}}[r["kind"]]
+        assert r["kernels"] == want, (arch, shape_name, r["kernels"], want)
+        if arch in DRYRUN_FIT and not reduced:
+            assert r["memory"]["peak_bytes_est"] <= meshlib.HBM_BYTES, (arch, shape_name, r["memory"])
+        log(f"dryrun (b) {arch} {shape_name} rules {r['rules']} on {r['mesh']}: wall {r['wall_s']:.1f} s; "
+            f"{r['flops_per_device']:.4e} FLOPs/card, peak {r['memory']['peak_bytes_est'] / 2**30:.2f} GiB, "
+            f"collectives {json.dumps(r['collective_bytes'])}, by axis {json.dumps(r['collective_bytes_by_axis'])}, "
+            f"kernels {r['kernels']}")
     assert kbuild.built == built_before, f"a fake trace built a library: {kbuild.built[len(built_before):]}"
     for line in roofline.to_markdown(rows).strip().splitlines():
         log(f"dryrun roofline | {line}")
     out["pod"] = dict(records=records, rows=rows)
     if device == "cuda":
         out["dispatch_us"] = phase_dispatch_cost()
-    out["phase_s"] = time.perf_counter() - t0
-    log(f"phase dry run: {out['phase_s']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t0 - t_during
+    log(f"phase dry run: {out['phase_s']:.1f} s" + (f" beside the {t_during:.1f} s of phase 16" if during else ""))
     return out
 
 
@@ -3833,6 +3886,25 @@ TP_SEED = 23
 # remat "full", of a (B, S, 2048) bf16 activation) goes through the host in
 # gloo, the only backend that takes two ranks on one card.
 TP_BATCH, TP_SEQ, TP_STEPS = 2, TRAIN_SEQ, 2
+# The architectures of phase 16, in order: internlm2-1.8b at full width and
+# depth, and zamba2-7b at full width, its Mamba2 blocks split on their heads
+# (56 of 112 a rank): trained cut to 12 of its 81 layers (two shared-attention
+# points, ~2.0e9 parameters, as many as internlm2's; fp32 masters and moments
+# of all 81 would not fit a card beside the one-process reference) and served
+# at full depth from bf16 weights.
+TP_ARCHS = (ARCH, ZAMBA)
+TP_TRAIN_LAYERS = {ZAMBA: 12}
+# The archs whose first moments and logits are held in fp32: a step with fp32
+# compute and a serve from fp32 weights, both cut to ``TP_FP32_LAYERS``,
+# split against one process.  zamba2's bf16 steps are held by their
+# losses and parameters, its full-depth bf16 serve by finite logits: the
+# one-process bf16 step's own first moments lie O(1) of their scale from the
+# fp32 step's in its Mamba2 leaves (dt_bias, a_log, w_dt, the norms; PERF.md
+# section 6), and so do its full-depth bf16 logits from fp32 weights', so no
+# split program can be held to them in bf16; both are recorded.
+TP_FP32_CHECKS = (ZAMBA,)
+TP_FP32_STEPS = 1  # the fp32 steps (after one, the first moment is the gradient itself)
+TP_FP32_LAYERS = 4  # the fp32 checks' depth: one shared-attention point and four Mamba2 layers
 TP_DECODE = 4  # decode steps after a chat-class prefill (batch 8, prompt 512)
 TP_TIMEOUT_S = 900.0
 # The split program against the one-process one, both bf16 on the card
@@ -3844,7 +3916,12 @@ TP_TIMEOUT_S = 900.0
 # to 2 lr), which a misplaced block (weights ~0.02) would exceed 30-fold;
 # each first moment within 5e-2 of its leaf's largest; the logits within
 # 5e-2 of their largest magnitude.
-TP_TOL = dict(loss_rtol=2e-2, param_lr_factor=2.0, mu_rel=5e-2, logits_rel=5e-2)
+# The fp32 steps and serve (``TP_FP32_CHECKS``): losses, first moments and
+# logits within 1e-3 of scale.  A rounding of 2^-8 a product moved zamba2's bf16 moments by ~1
+# of scale, so fp32's 2^-24 should move them by ~1e-5: the bound leaves 100x,
+# and a gradient missing its sum over "model" or read from the wrong columns
+# is off by ~1.
+TP_TOL = dict(loss_rtol=2e-2, param_lr_factor=2.0, mu_rel=5e-2, logits_rel=5e-2, fp32_rel=1e-3)
 # The kv_seq merge: internlm2's decode_32k cache block on the pod's 16
 # "model" ranks (B 8 of the data shard's sequences, 2,048 rows a rank).
 TP_MERGE = dict(b=8, rows=32768, blocks=16)
@@ -3907,12 +3984,33 @@ def _tp_leaves(tree) -> list:
 
 
 def tp_rank(argv: list) -> int:
-    """One rank of phase 16 (``--tp-rank RANK WORLD DIR DEVICE SIZE``):
-    rank 0 runs the one-process reference first and frees it, then both
-    ranks run the split program; each writes ``DIR/rank{RANK}.json``."""
+    """One rank of phase 16 (``--tp-rank RANK WORLD DIR DEVICE SIZE
+    ARCH[,ARCH...]``): for each architecture in turn, rank 0 runs the
+    one-process reference first and frees it, then both ranks run the split
+    program (``_tp_arch``); each rank writes ``DIR/rank{RANK}.json``, one
+    record per architecture."""
     rank, world, tmp, device, size = int(argv[0]), int(argv[1]), Path(argv[2]), argv[3], argv[4]
-    reduced = size == "reduced"
+    archs = argv[5].split(",")
     sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank, world_size=world)
+    held: list = []
+    if device == "cuda":
+        _gloo_functional_collectives(held)
+    out = {arch: _tp_arch(arch, rank, world, device, size == "reduced") for arch in archs}
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def _tp_arch(arch: str, rank: int, world: int, device: str, reduced: bool) -> dict:
+    """Phase 16 for one architecture on this rank: the training steps at
+    ``TP_TRAIN_LAYERS``' depth (full where it names none), then the serving
+    run at full depth; rank 0 first runs both as the one-process program."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -3929,63 +4027,181 @@ def tp_rank(argv: list) -> int:
     from repro_torch.models import build
     from repro_torch.models.common import layer_specs, logical_axes, materialize, split_mask
     from repro_torch.models.model_zoo import extend_cache
+    from repro_torch.models.transformer import compute_dtype, n_attn_points
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_step import TrainState, batch_shardings, make_train_step, state_shardings
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank, world_size=world)
-    held: list = []
-    if device == "cuda":
-        _gloo_functional_collectives(held)
-    cfg = get_config(ARCH, reduced=reduced)
-    if reduced:
-        cfg = dataclasses.replace(cfg, remat="full")
-    api = build(cfg)
+    cfg = get_config(arch, reduced=reduced)
+    if reduced:  # the CPU rehearsal holds the control flow in fp32 (bf16 rounding swamps a reduced zamba2)
+        cfg = dataclasses.replace(cfg, remat="full", compute_dtype="float32")
+    cut = None if reduced else TP_TRAIN_LAYERS.get(arch)
+    train_cfg = cfg if cut is None else dataclasses.replace(cfg, num_layers=cut)
+    api, train_api = build(cfg), build(train_cfg)
+    if arch in TP_FP32_CHECKS:  # the fp32 checks' depth, and the same depth in bf16 for its own rounding's moments
+        small = dataclasses.replace(train_cfg, num_layers=min(TP_FP32_LAYERS, train_cfg.num_layers))
+        fp32_api, small_api = build(dataclasses.replace(small, compute_dtype="float32")), build(small)
+    else:
+        fp32_api = small_api = None
+    attn_layers = n_attn_points(train_cfg) if train_cfg.family == "hybrid" else train_cfg.num_layers
     ocfg = opt.OptimizerConfig()
     batch_n, seq = (2, 32) if reduced else (TP_BATCH, TP_SEQ)
     serve = dict(batch=2, prompt=16) if reduced else CLASSES[f"{ARCH}/chat"]
     shape = ShapeConfig("train", seq, batch_n, "train")
-    batches = [{k: v.to(device) for k, v in synthetic_batch(api, shape, i, DataConfig(seed=TP_SEED)).items()}
+    batches = [{k: v.to(device) for k, v in synthetic_batch(train_api, shape, i, DataConfig(seed=TP_SEED)).items()}
                for i in range(TP_STEPS)]
     rng = np.random.default_rng(TP_SEED)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (serve["batch"], serve["prompt"]))).to(device)
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_DECODE, serve["batch"], 1))).to(device)
     gen = lambda: torch.Generator(device=device).manual_seed(TP_SEED)  # noqa: E731
-    out: dict = {"rank": rank}
+    out: dict = {"rank": rank, "train_layers": train_cfg.num_layers, "layers": cfg.num_layers,
+                 "attn_layers": attn_layers}
 
-    def serve_run(params):
-        logits, cache = api.prefill(params, {"tokens": prompt})
-        cache = extend_cache(api, cache, TP_DECODE)
+    def placed(spec_api, dtype, shardings, trainable=False, one_at_a_time=False):
+        """The seeded weights placed by ``shardings``; ``one_at_a_time``
+        draws them one rank after the other: a stacked leaf is drawn whole in
+        fp32 first (zamba2's 81 ``w_zx`` 15.5 GiB), which two ranks at once
+        would not fit beside the other's blocks."""
+        params = None
+        for r in range(world):
+            if r == rank or not one_at_a_time:
+                params = materialize(spec_api.params_def, gen(), dtype, trainable=trainable)
+                shd.place_tree(params, shardings)
+                _sync(device)
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        return params
+
+    def serve_run(s_api, params):
+        logits, cache = s_api.prefill(params, {"tokens": prompt})
+        cache = extend_cache(s_api, cache, TP_DECODE)
         got = [logits]
         for i, tok in enumerate(steps):
-            logits, cache = api.decode(params, cache, tok, serve["prompt"] + i)
+            logits, cache = s_api.decode(params, cache, tok, serve["prompt"] + i)
             got.append(logits)
         return got
 
-    ref_params = ref_mu = ref_logits = None
-    if rank == 0:  # the one-process program, alone on the card, freed before the split one starts
-        t0 = time.perf_counter()
-        state = TrainState(params=materialize(api.params_def, gen(), torch.float32, trainable=True), opt=None)
-        state = state._replace(opt=opt.init(state.params, ocfg))
-        step = make_train_step(api, ocfg)
-        losses = []
-        for b in batches:
-            state, metrics = step(state, b)
-            losses.append(float(metrics["loss"]))
-        out["ref_losses"] = losses
-        ref_params = [p.detach().cpu() for p in _tp_leaves(state.params)]
-        ref_mu = [m.cpu() for m in _tp_leaves(state.opt.mu)]
-        del state, step
+    def one_process_serve(s_api, dtype):
+        """Rank 0's one-process prefill and decode steps: logits on the host."""
         with torch.no_grad():
-            params = materialize(api.params_def, gen(), torch.bfloat16)
-            ref_logits = [x.float().cpu() for x in serve_run(params)]
+            params = materialize(s_api.params_def, gen(), dtype)
+            got = [x.float().cpu() for x in serve_run(s_api, params)]
         del params
         _sync(device)
         if device == "cuda":
-            out["ref_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             torch.cuda.empty_cache()
+        return got
+
+    def split_serve(s_api, dtype, want, tag):
+        """Both ranks serve from their "model" blocks; the logits (gathered)
+        against ``want`` on rank 0: ``{tag}logits_rel`` and
+        ``{tag}argmax_equal``."""
+        logical = logical_axes(s_api.params_def)
+        with torch.no_grad():
+            params = placed(s_api, dtype, shd.tree_shardings(logical, layer_specs(s_api.params_def), mesh,
+                                                              shd.SERVE_RULES), one_at_a_time=s_api is api)
+            t1 = time.perf_counter()
+            with shd.use_rules(mesh, shd.SERVE_RULES):
+                local = shd.local_view(params, logical, mesh, split=split_mask(logical))
+                if s_api.cfg.family == "hybrid":  # the Mamba2 heads and channels each rank runs
+                    out["ssm_heads"] = local["layers"][0]["mamba"]["a_log"].shape[0]
+                    out["ssm_channels"] = local["layers"][0]["mamba"]["w_out"].shape[0]
+                got = serve_run(s_api, local)
+                axis = tp.model_axis()
+                out["logits_block"] = got[0].shape[-1]
+                got = [tp.gather_from_model(x, axis, -1).float().cpu() for x in got]
+            _sync(device)
+            out[f"{tag}serve_s"] = time.perf_counter() - t1
+        out[f"{tag}logits_finite"] = all(bool(torch.isfinite(x).all()) for x in got)
+        if rank == 0:
+            out[f"{tag}logits_rel"] = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want))
+            out[f"{tag}argmax_equal"] = float(sum(float((g.argmax(-1) == w.argmax(-1)).float().mean())
+                                                  for g, w in zip(got, want)) / len(got))
+        del params, local, got
+        _sync(device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    def one_process(t_api, steps, moments=True):
+        """Rank 0's one-process steps: (losses, parameters, first moments or
+        None), the last two on the host."""
+        state = TrainState(params=materialize(t_api.params_def, gen(), torch.float32, trainable=True), opt=None)
+        state = state._replace(opt=opt.init(state.params, ocfg))
+        step = make_train_step(t_api, ocfg)
+        losses = []
+        for b in batches[:steps]:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+        return (losses, [p.detach().cpu() for p in _tp_leaves(state.params)],
+                [m.cpu() for m in _tp_leaves(state.opt.mu)] if moments else None)
+
+    def split_train(t_api, steps, want, moments=True):
+        """The split steps on both ranks; rank 0 holds the gathered
+        parameters (and with ``moments`` the first moments) against ``want``
+        (``one_process``'s)."""
+        st_sh = state_shardings(t_api, ocfg, mesh, shd.TRAIN_RULES)
+        params = placed(t_api, torch.float32, st_sh.params, trainable=True)
+        state = TrainState(params=params, opt=opt.init(params, ocfg))
+        del params
+        b_sh = batch_shardings(t_api.train_inputs(shape), mesh, shd.TRAIN_RULES)
+        step = make_train_step(t_api, ocfg)
+        res = dict(losses=[], step_s=[])
+        for b in batches[:steps]:
+            placed_batch = {k: shd.place(v, b_sh[k]) for k, v in b.items()}
+            t1 = time.perf_counter()
+            with shd.use_rules(mesh, shd.TRAIN_RULES):
+                state, metrics = step(state, placed_batch)
+            res["losses"].append(float(metrics["loss"]))
+            _sync(device)
+            res["step_s"].append(time.perf_counter() - t1)
+        leaves = list(zip(_tp_leaves(state.params), _tp_leaves(state.opt.mu)))
+        res["model_blocks"] = sum(isinstance(p, DTensor) and any(pl.is_shard() for pl in p.placements)
+                                  for p, _ in leaves)
+        res["param_err"] = res["mu_rel"] = 0.0
+        for i, (p, m) in enumerate(leaves):
+            p_full = p.full_tensor() if isinstance(p, DTensor) else p
+            m_full = m.full_tensor() if isinstance(m, DTensor) and moments else m
+            if rank == 0:
+                res["param_err"] = max(res["param_err"], float((p_full.detach().float() - want[1][i].to(device)).abs().max()))
+                if moments:
+                    m_want = want[2][i].to(device)
+                    res["mu_rel"] = max(res["mu_rel"], float((m_full - m_want).abs().max())
+                                        / max(float(m_want.abs().max()), 1e-30))
+                    del m_want
+            del p_full, m_full
+        del state, step, metrics, placed_batch, leaves, p, m
+        gc.collect()
+        _sync(device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return res
+
+    ref_train = ref_fp32 = ref_logits = ref_fp32_logits = None
+    if rank == 0:  # the one-process program, alone on the card, freed before the split one starts
+        t0 = time.perf_counter()
+        ref_train = one_process(train_api, TP_STEPS, moments=fp32_api is None)
+        out["ref_losses"] = ref_train[0]
+        if fp32_api is not None:
+            ref_fp32 = one_process(fp32_api, TP_FP32_STEPS)
+            out["ref_fp32_losses"] = ref_fp32[0]
+            # the one-process bf16 step's own first moments against the fp32 step's
+            out["ref_bf16_mu_rel"] = max(float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                                         for a, w in zip(one_process(small_api, TP_FP32_STEPS)[2], ref_fp32[2]))
+        _sync(device)
+        if device == "cuda":
+            out["ref_train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.empty_cache()
+        ref_logits = one_process_serve(api, compute_dtype(cfg))
+        if fp32_api is not None:
+            # the one-process bf16 serve's own logits against fp32 weights' at full depth, then the
+            # fp32 serve that the split one is held to
+            whole32 = one_process_serve(build(dataclasses.replace(cfg, compute_dtype="float32")), torch.float32)
+            out["ref_bf16_logits_rel"] = max(float((g - w).abs().max()) / float(w.abs().max())
+                                             for g, w in zip(ref_logits, whole32))
+            del whole32
+            ref_fp32_logits = one_process_serve(fp32_api, torch.float32)
+        if device == "cuda":
+            out["ref_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             torch.cuda.reset_peak_memory_stats()
         out["ref_s"] = time.perf_counter() - t0
     dist.barrier()
@@ -3996,72 +4212,40 @@ def tp_rank(argv: list) -> int:
     fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
     da.decode_attention.launches = da.decode_attention.launches_lse = 0
     t0 = time.perf_counter()
-    st_sh = state_shardings(api, ocfg, mesh, shd.TRAIN_RULES)
-    params = materialize(api.params_def, gen(), torch.float32, trainable=True)
-    shd.place_tree(params, st_sh.params)
-    state = TrainState(params=params, opt=opt.init(params, ocfg))
-    del params
-    b_sh = batch_shardings(api.train_inputs(shape), mesh, shd.TRAIN_RULES)
-    step = make_train_step(api, ocfg)
-    losses, step_s = [], []
-    for b in batches:
-        placed = {k: shd.place(v, b_sh[k]) for k, v in b.items()}
-        t1 = time.perf_counter()
-        with shd.use_rules(mesh, shd.TRAIN_RULES):
-            state, metrics = step(state, placed)
-        losses.append(float(metrics["loss"]))
-        _sync(device)
-        step_s.append(time.perf_counter() - t1)
-    out.update(losses=losses, step_s=step_s, train_flash=fa.flash_attention.launches,
-               train_flash_tc=fa.flash_attention.launches_tc, train_decode=da.decode_attention.launches)
+    out.update(split_train(train_api, TP_STEPS, ref_train, moments=fp32_api is None))
+    out.update(train_flash=fa.flash_attention.launches, train_flash_tc=fa.flash_attention.launches_tc,
+               train_decode=da.decode_attention.launches)
     if device == "cuda":
         out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    blocks = [isinstance(p, DTensor) and any(pl.is_shard() for pl in p.placements) for p in _tp_leaves(state.params)]
-    out["model_blocks"] = sum(blocks)
-    param_err, mu_rel = 0.0, 0.0
-    for i, (p, m) in enumerate(zip(_tp_leaves(state.params), _tp_leaves(state.opt.mu))):
-        p_full = p.full_tensor() if isinstance(p, DTensor) else p
-        m_full = m.full_tensor() if isinstance(m, DTensor) else m
-        if rank == 0:
-            param_err = max(param_err, float((p_full.detach().float() - ref_params[i].to(device)).abs().max()))
-            want = ref_mu[i].to(device)
-            mu_rel = max(mu_rel, float((m_full - want).abs().max()) / max(float(want.abs().max()), 1e-30))
-        del p_full, m_full
-    out.update(param_err=param_err, mu_rel=mu_rel)
-    del state, step, ref_params, ref_mu
-    _sync(device)
+    del ref_train
+    if fp32_api is not None:  # the first moments, in fp32 (``TP_FP32_CHECKS``)
+        fa.flash_attention.launches = 0
+        out["fp32"] = split_train(fp32_api, TP_FP32_STEPS, ref_fp32)
+        out["fp32"]["flash"] = fa.flash_attention.launches
+        del ref_fp32
     if device == "cuda":
-        torch.cuda.empty_cache()
+        out["before_serve_gib"] = torch.cuda.memory_allocated() / 2**30
 
+    if fp32_api is not None:  # in fp32 (``TP_FP32_CHECKS``)
+        split_serve(fp32_api, torch.float32, ref_fp32_logits, "fp32_")
     fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
     da.decode_attention.launches = da.decode_attention.launches_lse = 0
-    logical = logical_axes(api.params_def)
-    with torch.no_grad():
-        params = materialize(api.params_def, gen(), torch.bfloat16)
-        shd.place_tree(params, shd.tree_shardings(logical, layer_specs(api.params_def), mesh, shd.SERVE_RULES))
-        t1 = time.perf_counter()
-        with shd.use_rules(mesh, shd.SERVE_RULES):
-            local = shd.local_view(params, logical, mesh, split=split_mask(logical))
-            got = serve_run(local)
-            axis = tp.model_axis()
-            out["logits_block"] = got[0].shape[-1]
-            got = [tp.gather_from_model(x, axis, -1).float().cpu() for x in got]
-        _sync(device)
-        out["serve_s"] = time.perf_counter() - t1
-    out.update(vocab=cfg.padded_vocab, layers=cfg.num_layers, serve_flash=fa.flash_attention.launches, serve_flash_tc=fa.flash_attention.launches_tc,
-               serve_decode=da.decode_attention.launches, serve_decode_lse=da.decode_attention.launches_lse,
-               q_heads=cfg.num_heads // axis_size, kv_heads=cfg.num_kv_heads // axis_size)
-    if rank == 0:
-        out["logits_rel"] = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, ref_logits))
-        out["argmax_equal"] = float(sum(float((g.argmax(-1) == w.argmax(-1)).float().mean())
-                                        for g, w in zip(got, ref_logits)) / len(got))
+    split_serve(api, compute_dtype(cfg), ref_logits, "")
+    out.update(vocab=cfg.padded_vocab, serve_flash=fa.flash_attention.launches,
+               serve_flash_tc=fa.flash_attention.launches_tc, serve_decode=da.decode_attention.launches,
+               serve_decode_lse=da.decode_attention.launches_lse, q_heads=cfg.num_heads // axis_size,
+               kv_heads=cfg.num_kv_heads // axis_size, head_dim=cfg.head_dim)
     restore()
     assert not [c for c in plain_calls if c[1] == "cuda"], plain_calls
     out["split_s"] = time.perf_counter() - t0
     out["lr_bound"] = TP_TOL["param_lr_factor"] * ocfg.learning_rate * TP_STEPS
-    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
-    dist.destroy_process_group()
-    return 0
+    _sync(device)
+    if device == "cuda":
+        out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    return out
 
 
 def phase_kv_seq_merge(counter, device="cuda", reduced=False) -> dict:
@@ -4116,10 +4300,13 @@ def phase_kv_seq_merge(counter, device="cuda", reduced=False) -> dict:
 
 
 def phase_tp(counter, device="cuda", reduced=False) -> dict:
-    """Phase 16: the two rank processes (``tp_rank``), then the kv_seq
-    merge in this process.  Fails unless the split program agrees with the
-    one-process one at ``TP_TOL`` and ran through the kernels."""
+    """Phase 16: the two rank processes (``tp_rank``) over ``TP_ARCHS``,
+    then the kv_seq merge in this process.  Fails unless each split program
+    agrees with the one-process one at ``TP_TOL`` and ran through the
+    kernels (tensor-core flash at every bf16 launch of the full configs)."""
     import tempfile
+
+    from repro_torch.configs.registry import get_config
 
     t0 = time.perf_counter()
     _sync(device)
@@ -4127,8 +4314,9 @@ def phase_tp(counter, device="cuda", reduced=False) -> dict:
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cmd = lambda r: [sys.executable, "-X", "faulthandler", str(Path(__file__).resolve()), "--tp-rank",  # noqa: E731
-                         str(r), str(TP_WORLD), tmp, device, "reduced" if reduced else "full"]
-        procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                         str(r), str(TP_WORLD), tmp, device, "reduced" if reduced else "full", ",".join(TP_ARCHS)]
+        env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}  # two ranks share the card
+        procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
                  for r in range(TP_WORLD)]
         logs = []
         try:
@@ -4139,38 +4327,71 @@ def phase_tp(counter, device="cuda", reduced=False) -> dict:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        for r, (p, text) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise RuntimeError(f"tp rank {r} exited {p.returncode}:\n{text[-6000:]}")
+        failed = [f"tp rank {r} exited {p.returncode}:\n{text[-6000:]}"
+                  for r, (p, text) in enumerate(zip(procs, logs)) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
-    r0 = ranks[0]
-    out = dict(ranks=ranks, world=TP_WORLD)
-    for r in ranks:
-        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], r0["ref_losses"]))
-        assert rel <= TP_TOL["loss_rtol"], ("tp losses", r["losses"], r0["ref_losses"])
-        assert r["losses"] == r0["losses"], "the model ranks report different losses"
-        assert r["model_blocks"] > 0 and r["logits_block"] * TP_WORLD == r["vocab"], r
-        if device == "cuda":  # each layer's forward and its remat recompute, a step
-            assert r["train_flash"] == 2 * r["layers"] * TP_STEPS, r["train_flash"]
-    assert r0["param_err"] <= r0["lr_bound"] + 1e-6, ("tp gathered parameters", r0["param_err"], r0["lr_bound"])
-    assert r0["mu_rel"] <= TP_TOL["mu_rel"], ("tp first moments", r0["mu_rel"])
-    assert r0["logits_rel"] <= TP_TOL["logits_rel"], ("tp logits", r0["logits_rel"])
-    launches = {k: sum(r[k] for r in ranks) for k in ("train_flash", "train_flash_tc", "serve_flash",
-                                                    "serve_flash_tc", "serve_decode", "serve_decode_lse")}
-    if device == "cuda":
-        assert launches["train_flash"] > 0 and launches["serve_flash"] > 0 and launches["serve_decode"] > 0, launches
-        # head_dim 128 in bf16 is the tensor-core kernel's (the reduced config's 16 is the FMA kernel's)
-        assert reduced or (launches["serve_flash_tc"] == launches["serve_flash"]
-                           and launches["train_flash_tc"] == launches["train_flash"]), launches
-    out["launches"] = launches
-    out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"]))
-    log(f"tp (1, {TP_WORLD}) internlm2-1.8b {'reduced' if reduced else 'full'}: losses {r0['losses']} against "
-        f"{r0['ref_losses']} one-process (rel {out['loss_rel']:.3e}); gathered parameters max |diff| "
-        f"{r0['param_err']:.3e} (bound {r0['lr_bound']:.3e}); first moments {r0['mu_rel']:.3e} of their scale; "
-        f"logits {r0['logits_rel']:.3e} of their scale, argmax equal {r0['argmax_equal']:.4f}; step s "
-        f"{r0['step_s']}; rank heads q {r0['q_heads']} kv {r0['kv_heads']}; launches {launches}"
-        + (f"; peaks: one-process {r0.get('ref_peak_gib', 0):.2f} GiB, split rank 0 "
-           f"{r0.get('train_peak_gib', 0):.2f} GiB | {nvidia_smi_line()}" if device == "cuda" else ""))
+    out: dict = dict(world=TP_WORLD, archs={})
+    keys = ("train_flash", "train_flash_tc", "serve_flash", "serve_flash_tc", "serve_decode", "serve_decode_lse")
+    for arch in TP_ARCHS:
+        per = [r[arch] for r in ranks]
+        r0 = per[0]
+        launches = {k: sum(r[k] for r in per) for k in keys}
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"]))
+        out["archs"][arch] = dict(ranks=per, launches=launches, loss_rel=loss_rel)
+        depth = (f"training cut to {r0['train_layers']} of {r0['layers']} layers, serving at full depth"
+                 if r0["train_layers"] != r0["layers"] else f"{r0['layers']} layers")
+        f32 = r0.get("fp32")
+        log(f"tp (1, {TP_WORLD}) {arch} {'reduced' if reduced else 'full width'}, {depth}: losses {r0['losses']} "
+            f"against {r0['ref_losses']} one-process (rel {loss_rel:.3e}); gathered parameters max |diff| "
+            f"{r0['param_err']:.3e} (bound {r0['lr_bound']:.3e}); first moments "
+            + (f"held in fp32 (the one-process bf16 step's own against its fp32 step's {r0['ref_bf16_mu_rel']:.3e}); "
+               f"fp32 steps at {TP_FP32_LAYERS} layers: "
+               f"losses {f32['losses']} against {r0['ref_fp32_losses']}, parameters {f32['param_err']:.3e}, first "
+               f"moments {f32['mu_rel']:.3e} of their scale, step s {f32['step_s']}" if f32 else
+               f"{r0['mu_rel']:.3e} of their scale")
+            + (f"; fp32 serve at {TP_FP32_LAYERS} layers: logits {r0['fp32_logits_rel']:.3e} of their scale, argmax equal "
+               f"{r0['fp32_argmax_equal']:.4f}" if f32 else "")
+            + f"; logits {r0['logits_rel']:.3e} of their scale, argmax equal {r0['argmax_equal']:.4f}"
+            + (f" (the one-process bf16 serve's own against fp32 weights' {r0['ref_bf16_logits_rel']:.3e})"
+               if f32 else "") + "; step s "
+            f"{r0['step_s']}; serve s {r0['serve_s']:.2f}; rank heads q {r0['q_heads']} kv {r0['kv_heads']} d "
+            f"{r0['head_dim']}" + (f", Mamba2 {r0['ssm_heads']} heads / {r0['ssm_channels']} channels"
+                                   if "ssm_heads" in r0 else "") + f"; launches {launches}"
+            + (f"; peaks: one-process {r0.get('ref_peak_gib', 0):.2f} GiB, split rank 0 train "
+               f"{r0.get('train_peak_gib', 0):.2f} / serve {r0.get('serve_peak_gib', 0):.2f} GiB | "
+               f"{nvidia_smi_line()}" if device == "cuda" else ""))
+        for r in per:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], r0["ref_losses"]))
+            assert rel <= TP_TOL["loss_rtol"], ("tp losses", arch, r["losses"], r0["ref_losses"])
+            assert r["losses"] == r0["losses"], f"the model ranks report different {arch} losses"
+            assert r["model_blocks"] > 0 and r["logits_block"] * TP_WORLD == r["vocab"], r
+            if device == "cuda":  # each attention layer's forward and its remat recompute, a step
+                assert r["train_flash"] == 2 * r["attn_layers"] * TP_STEPS, (arch, r["train_flash"])
+            if "ssm_heads" in r:  # the Mamba2 block runs on the rank's heads
+                c = get_config(arch, reduced=reduced)
+                assert (r["ssm_heads"], r["ssm_channels"]) == (c.ssm_heads // TP_WORLD, c.d_inner // TP_WORLD), r
+        assert r0["param_err"] <= r0["lr_bound"] + 1e-6, ("tp gathered parameters", arch, r0["param_err"],
+                                                          r0["lr_bound"])
+        assert all(r["logits_finite"] for r in per), (arch, "non-finite split logits")
+        if arch in TP_FP32_CHECKS:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(f32["losses"], r0["ref_fp32_losses"]))
+            assert rel <= TP_TOL["fp32_rel"] and f32["mu_rel"] <= TP_TOL["fp32_rel"], ("tp fp32 steps", arch, f32)
+            bound = r0["lr_bound"] * TP_FP32_STEPS / TP_STEPS
+            assert f32["param_err"] <= bound + 1e-6, ("tp fp32 parameters", arch, f32["param_err"], bound)
+            assert all(r["fp32_logits_finite"] for r in per), (arch, "non-finite fp32 split logits")
+            assert r0["fp32_logits_rel"] <= TP_TOL["fp32_rel"], ("tp fp32 logits", arch, r0["fp32_logits_rel"])
+        else:
+            assert r0["mu_rel"] <= TP_TOL["mu_rel"], ("tp first moments", arch, r0["mu_rel"])
+            assert r0["logits_rel"] <= TP_TOL["logits_rel"], ("tp logits", arch, r0["logits_rel"])
+        if device == "cuda":
+            assert launches["train_flash"] > 0 and launches["serve_flash"] > 0 and launches["serve_decode"] > 0, (
+                arch, launches)
+            # head_dim 128 and 112 in bf16 are the tensor-core kernel's (the reduced configs' 16 the FMA kernel's)
+            assert reduced or (launches["serve_flash_tc"] == launches["serve_flash"]
+                               and launches["train_flash_tc"] == launches["train_flash"]), (arch, launches)
+    out["launches"] = {k: sum(a["launches"][k] for a in out["archs"].values()) for k in keys}
     out["merge"] = phase_kv_seq_merge(counter, device, reduced)
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase tensor parallel: {out['phase_s']:.1f} s")
@@ -4481,10 +4702,10 @@ def main() -> int:
     log("training " + json.dumps({**train, "vjp": {str(k): r for k, r in train["vjp"].items()}}, default=str))
     distributed = phase_distributed(ref, counter, train["full"])
     log("distributed " + json.dumps(distributed, default=str))
-    dry = phase_dryrun(ref, counter)
-    log("dryrun " + json.dumps({k: v for k, v in dry.items() if k != "pod"}, default=str))
-    tpo = phase_tp(counter)
+    dry = phase_dryrun(ref, counter, during=lambda: phase_tp(counter))  # phase 16 while (b) traces
+    tpo = dry.pop("during")
     log("tensor_parallel " + json.dumps(tpo, default=str))
+    log("dryrun " + json.dumps({k: v for k, v in dry.items() if k != "pod"}, default=str))
     t0 = time.perf_counter()
     examples = phase_examples(ref, counter)
     log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))

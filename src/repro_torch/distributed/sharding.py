@@ -359,33 +359,50 @@ def local_view(tree: Any, logical_tree: Any, mesh, *, ep: bool = False, split: A
     With ``ep`` the expert weights (leading logical axis "expert") stay as
     they are: the MoE block's expert-parallel path gathers them itself.
 
-    ``split`` (a tree of bools matching ``tree``, ``models.common.
+    ``split`` (a tree of ints matching ``tree``, ``models.common.
     split_mask``) marks the leaves that tensor-parallel consumers read
-    (``distributed.tensor_parallel``): such a leaf keeps its "model" block
-    where the rules shard one of its dims over "model" alone, and is
-    gathered on the token axes only.  A kept block's gradient is local to
-    the rank and needs no reduction over "model".  Plain leaves come back as
+    (``distributed.tensor_parallel``).  A leaf marked 1 keeps its "model"
+    block where the rules shard one of its dims over "model" alone, and is
+    gathered on the token axes only; the kept block's gradient is local to
+    the rank and needs no reduction over "model".  A fused leaf marked
+    ``g`` > 1, whose dim on "model" is ``g`` equal groups (Mamba2's ``[z |
+    xin]``), is gathered whole over "model" as well and read as this rank's
+    block of each group, joined (``[z_r | xin_r]``): the columns of the
+    rank's own heads or channels.  Each rank reads a different part of it,
+    so its gradient comes back as a partial sum over "model" too, reduced
+    and scattered onto its placement.  Where a group does not divide by the
+    "model" size the leaf is read whole.  Plain leaves (0) come back as
     they are.  The placed train step reads its parameters through it; the
     dry run's serve programs their parameters and caches."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     names = mesh.mesh_dim_names
 
-    def gather(leaf, axes, keep_model=False):
+    def gather(leaf, axes, groups=0):
         if not isinstance(leaf, DTensor) or (ep and axes[:1] == ("expert",)):
             return leaf
         token_dims = {p.dim for n, p in zip(names, leaf.placements) if n in TOKEN_AXES and isinstance(p, Shard)}
+        model_dim = next((p.dim for n, p in zip(names, leaf.placements)
+                          if n == "model" and isinstance(p, Shard) and p.dim not in token_dims), None)
+        size = mesh.size(names.index("model")) if model_dim is not None else 1
+        regroup = groups > 1 and model_dim is not None and (leaf.shape[model_dim] // groups) % size == 0
 
         def kept(n, p):
             if not isinstance(p, Shard):
                 return False
             if n in TOKEN_AXES:
                 return axes[p.dim] == "batch"
-            return keep_model and n == "model" and p.dim not in token_dims
+            return groups == 1 and n == "model" and p.dim == model_dim
 
         keep = [p if kept(n, p) else Replicate() for n, p in zip(names, leaf.placements)]
-        grad = [Partial() if n in TOKEN_AXES and isinstance(p, Replicate) else p for n, p in zip(names, keep)]
-        return leaf.redistribute(mesh, keep).to_local(grad_placements=grad)
+        grad = [Partial() if isinstance(p, Replicate) and (n in TOKEN_AXES or (regroup and n == "model")) else p
+                for n, p in zip(names, keep)]
+        local = leaf.redistribute(mesh, keep).to_local(grad_placements=grad)
+        if not regroup:
+            return local
+        rank = mesh.get_local_rank("model")
+        blocks = local.unflatten(model_dim, (groups, size, -1)).select(model_dim + 1, rank)
+        return blocks.flatten(model_dim, model_dim + 1).contiguous()
 
     from repro_torch.models.common import map_tree
 
@@ -434,7 +451,9 @@ def local_block(x: torch.Tensor, mesh, placements) -> torch.Tensor:
 def place(x: torch.Tensor, sharding: NamedSharding):
     """``x`` (the whole tensor, equal on every rank) placed by ``sharding``:
     on a mesh of one device the whole tensor on that device; otherwise a
-    ``DTensor`` built from this rank's block, with no communication."""
+    ``DTensor`` built from this rank's block, with no communication.  The
+    block owns its storage: a view into ``x`` (a block of rows, or a
+    per-layer leaf of a stacked tensor) would keep all of ``x`` alive."""
     from torch.distributed.tensor import DTensor
 
     dev = mesh_device(sharding.mesh)
@@ -444,7 +463,9 @@ def place(x: torch.Tensor, sharding: NamedSharding):
         x = x.full_tensor()
     if sharding.num_devices == 1:
         return x.to(dev)
-    block = local_block(x, sharding.mesh, sharding.placements).to(dev).contiguous()
+    block = local_block(x, sharding.mesh, sharding.placements).to(dev)
+    if not block.is_contiguous() or block.untyped_storage().nbytes() != block.numel() * block.element_size():
+        block = block.clone(memory_format=torch.contiguous_format)
     return DTensor.from_local(block, sharding.mesh, sharding.placements, run_check=False)
 
 

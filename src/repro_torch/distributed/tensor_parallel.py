@@ -8,8 +8,9 @@ reference.  The placed train step and the dry run's serve programs read
 the split consumers' weights as this rank's "model" block
 (``sharding.local_view(split=...)``), and the model code runs the products
 on those blocks (``models/attention.py``, ``mlp.py``, ``transformer.py``,
-``common.py``'s CE), joining them with the four operations below, as
-autograd Functions after Megatron-LM's f/g pairs:
+``ssm.py``, ``xlstm.py``, ``common.py``'s CE and split RMSNorm), joining
+them with the four operations below, as
+autograd Functions after Megatron-LM's f/g pairs, and a fifth:
 
 - ``copy_to_model``: identity forward, all-reduce backward (the input of a
   column-parallel product, whose gradient each rank holds a part of);
@@ -17,7 +18,10 @@ autograd Functions after Megatron-LM's f/g pairs:
   of a row-parallel product);
 - ``gather_from_model``: all-gather along a dim forward, this rank's slice
   backward;
-- ``scatter_to_model``: this rank's slice forward, all-gather backward.
+- ``scatter_to_model``: this rank's slice forward, all-gather backward;
+- ``sum_over_model``: all-reduce forward and backward (a sum every rank
+  reads only in part: a split RMSNorm's sum of squares, whose gradient
+  each rank holds a part of; the mLSTM's gates of a rank's heads).
 
 The group, rank and size are the "model" dimension's of the mesh that
 ``sharding.use_rules`` made active; only ``all_reduce`` and
@@ -118,6 +122,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis), None
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
@@ -148,6 +163,12 @@ def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     """Summed over "model" forward; the gradient passes as it is."""
     return _ReduceFromModel.apply(x, axis)
+
+
+def sum_over_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Summed over "model" forward, and the gradient too: for a sum of
+    parts that each rank then reads in a part of its own."""
+    return _SumOverModel.apply(x, axis)
 
 
 def gather_from_model(x: torch.Tensor, axis: ModelAxis, dim: int) -> torch.Tensor:

@@ -240,12 +240,16 @@ def decode_attention_quant(
     k_scale: torch.Tensor,   # (B, S, Hkv) per-row scales
     v_scale: torch.Tensor,
     lengths: torch.Tensor,   # (B,)
-) -> torch.Tensor:
+    *,
+    return_lse: bool = False,
+):
     """Decode attention over an int8-quantized KV cache, masked at and
     beyond each sequence's ``lengths``: (B, H, d) in q's dtype.
 
     Dequantization is folded around the contractions, as the reference has
-    it: scores = (q . k_q) * k_scale, out = (p * v_scale) . v_q.
+    it: scores = (q . k_q) * k_scale, out = (p * v_scale) . v_q.  With
+    ``return_lse``, (out, lse) as ``decode_attention`` gives them: a block
+    of a cache split on kv_seq, for ``models.attention.merge_partials``.
     """
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -258,8 +262,11 @@ def decode_attention_quant(
     scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
     pv = p * v_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, :]
-    out = torch.einsum("bkgt,btkd->bkgd", pv, v_cache.to(torch.float32))
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", pv, v_cache.to(torch.float32)).reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, h)
+    return out, torch.where(lengths.to(q.device)[:, None] > 0, lse, torch.full_like(lse, float("-inf")))
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

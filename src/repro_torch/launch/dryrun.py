@@ -21,7 +21,9 @@ that exchange nothing), and counts what the program does while it runs:
   cache read through ``sharding.local_view(split=...)``, which keeps the
   batch blocks and the "model" blocks of the split leaves
   (``models.common.split_mask``: the attention, MLP, embedding and
-  unembedding weights and the attention caches, read where they lie) and
+  unembedding weights, the Mamba2 and mLSTM blocks and the sLSTM's input
+  product, the attention caches, the int8 cache's scales and the
+  recurrent states on heads or channels, read where they lie) and
   gathers the rest; the products split over "model"
   (``distributed.tensor_parallel``), as the train cells' do;
 - ``flops_per_device``: ``torch.utils.flop_counter.FlopCounterMode`` over

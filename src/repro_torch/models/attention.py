@@ -32,7 +32,9 @@ heads in the first case, else the rank's block of the sequence ("kv_seq").
 A split decode reads it there: on the kv_seq block the rank gathers q's
 heads, attends over its own rows with the decode kernel's log-sum-exp store
 (``ops.decode_attention_lse``), and the (out, lse) pairs of the ranks are
-merged (``merge_partials``); only the owner of row ``pos`` writes it.
+merged (``merge_partials``); only the owner of row ``pos`` writes it.  An
+int8 cache splits the same ways, its row scales with its rows, and attends
+through the plain ``ref.decode_attention_quant`` (its lse on kv_seq).
 """
 
 from __future__ import annotations
@@ -183,21 +185,27 @@ def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
     return out.to(outs.dtype)
 
 
-def _decode_rows(q, k_cache, v_cache, lengths, axis):
+def _decode_rows(q, k_cache, v_cache, lengths, axis, scales=None):
     """Attention of q (B, H, d) over the "model" ranks' blocks of a cache
     split on kv_seq: each rank attends its own rows (``lengths`` global,
-    clipped to the block), and the ranks' (out, lse) are merged."""
+    clipped to the block), and the ranks' (out, lse) are merged.  An int8
+    block (its row ``scales`` given) attends through the plain
+    ``ref.decode_attention_quant``."""
     rows = k_cache.shape[1]
     local = torch.clamp(lengths - axis.rank * rows, 0, rows).to(torch.int32)
-    out, lse = ops.decode_attention_lse(q, k_cache, v_cache, local)
+    if scales is None:
+        out, lse = ops.decode_attention_lse(q, k_cache, v_cache, local)
+    else:
+        out, lse = ref.decode_attention_quant(q, k_cache, v_cache, *scales, local, return_lse=True)
     outs = tp.gather_from_model(out[None], axis, 0)
     lses = tp.gather_from_model(lse[None], axis, 0)
     return merge_partials(outs, lses)
 
 
-def _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis):
+def _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis, kv_scales=None):
     """``attention_decode`` on this rank's "model" blocks of the weights and
-    of the cache (module docstring)."""
+    of the cache (module docstring); an int8 cache's row scales are split
+    as its rows are."""
     b, hd = x.shape[0], cfg.head_dim
     cache_k = k_cache if memory_kv is None else memory_kv[0]
     on_rows = cache_k.shape[2] == cfg.num_kv_heads  # the cache split on kv_seq, not on kv_heads
@@ -230,13 +238,21 @@ def _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis):
     lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
     row = pos - axis.rank * k_cache.shape[1] if on_rows else pos
     if 0 <= row < k_cache.shape[1]:  # this rank holds row ``pos``
-        k_cache[:, row] = k.to(k_cache.dtype)
-        v_cache[:, row] = v.to(v_cache.dtype)
+        if kv_scales is None:
+            k_cache[:, row] = k.to(k_cache.dtype)
+            v_cache[:, row] = v.to(v_cache.dtype)
+        else:
+            for cache, scales, new in ((k_cache, kv_scales[0], k), (v_cache, kv_scales[1], v)):
+                cache[:, row], row_s = ref.quantize_kv(new)
+                scales[:, row] = row_s.to(scales.dtype)
     if on_rows:
-        out = _decode_rows(q, k_cache, v_cache, lengths, axis)
-    else:
+        out = _decode_rows(q, k_cache, v_cache, lengths, axis, kv_scales)
+    elif kv_scales is None:
         out = ops.decode_attention(q, k_cache, v_cache, lengths)
-    return _out_proj(p, out.reshape(b, -1), cfg)[:, None, :], k_cache, v_cache
+    else:
+        out = ref.decode_attention_quant(q, k_cache, v_cache, *kv_scales, lengths)
+    y = _out_proj(p, out.reshape(b, -1), cfg)[:, None, :]
+    return (y, k_cache, v_cache) if kv_scales is None else (y, k_cache, v_cache, kv_scales)
 
 
 def attention_decode(
@@ -263,13 +279,13 @@ def attention_decode(
     encoder memory: no cache write, no rotary positions, the decode kernel
     at ``lengths = T`` for every sequence; the caches come back untouched.
     On this rank's "model" blocks of the weights and the cache, the split
-    step (module docstring); the int8 cache has none.
+    step (module docstring), the int8 cache's through the plain
+    ``ref.decode_attention_quant`` on the rank's kv heads, or on its rows
+    with that function's log-sum-exp merged.
     """
     axis = tp.split_of(p["wq"].shape[1], cfg.q_dim) or tp.split_of(p["wk"].shape[1], cfg.kv_dim)
     if axis is not None:
-        if kv_scales is not None:
-            raise ValueError("the int8 KV cache has no decode split over 'model' (ROADMAP item 9.11)")
-        return _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis)
+        return _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis, kv_scales)
     b = x.shape[0]
     if memory_kv is not None:
         k_mem, v_mem = memory_kv

@@ -102,29 +102,53 @@ def logical_axes(tree: dict) -> dict:
 
 
 #: Leaves the tensor-parallel consumers read as this rank's "model" block
-#: (``distributed.tensor_parallel``): the attention projections and biases,
-#: the dense MLP's products (not the MoE experts', whose leading axis is
-#: "expert"), the embedding and unembedding, and the attention KV caches
+#: (``distributed.tensor_parallel``), wherever they stand outside the
+#: blocks of ``BLOCK_SPLITS``: the attention projections and biases, the
+#: dense MLP's products (not the MoE experts', whose leading axis is
+#: "expert"), the embedding and unembedding, the attention KV caches
 #: (``k``/``v``, deepseek's ``k0``/``v0``, zamba2's ``attn_k``/``attn_v``,
-#: seamless's ``cross_k``/``cross_v``).  The Mamba2, mLSTM and sLSTM leaves,
-#: the router and the recurrent caches are read whole.
+#: seamless's ``cross_k``/``cross_v``) and the int8 cache's row scales, and
+#: the recurrent caches on the rank's heads or channels: zamba2's ``ssm_h``
+#: and ``conv``, the mLSTM's ``m``.  The MoE router and the sLSTM's state
+#: are read whole.
 SPLIT_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up", "w_down", "embed", "unembed",
-                          "k", "v", "k0", "v0", "attn_k", "attn_v", "cross_k", "cross_v"})
+                          "k", "v", "k0", "v0", "attn_k", "attn_v", "cross_k", "cross_v", "k_scale", "v_scale",
+                          "ssm_h", "conv", "m"})
+
+#: The recurrent blocks' leaves, keyed by their block (the parent key in
+#: the tree): 1 for a leaf read as its "model" block, ``g`` > 1 for a fused
+#: leaf whose split dim is ``g`` equal groups (``[z | xin]``, B then C,
+#: ``[xin | z]``, the i then f gate biases), read as this rank's block of
+#: each group, so that a rank's columns are its own heads' or channels'.
+#: The Mamba2 block's leaves all split; the mLSTM's but its ``ln``; the
+#: sLSTM's input product ``w_x`` alone (its recurrence ``r``, ``b``, norm
+#: and ``w_out`` on ("embed", "embed2") stay whole).
+BLOCK_SPLITS = {
+    "mamba": {"w_zx": 2, "w_bc": 2, "w_dt": 1, "dt_bias": 1, "a_log": 1, "d_skip": 1, "conv_w": 1, "conv_b": 1,
+              "gamma_gate": 1, "w_out": 1},
+    "m": {"w_in": 2, "w_qkv": 1, "w_if": 1, "b_if": 2, "gamma": 1, "w_out": 1},
+    "s": {"w_x": 1},
+}
 
 
 def split_mask(logical_tree) -> Any:
-    """A tree of bools matching a logical-axis tree (``logical_axes``, or a
-    cache's ``{name: axes}``): True for the ``SPLIT_LEAVES`` -- the
-    ``split`` argument of ``distributed.sharding.local_view``."""
+    """A tree of ints matching a logical-axis tree (``logical_axes``, or a
+    cache's ``{name: axes}``) -- the ``split`` argument of
+    ``distributed.sharding.local_view``: 0 for a leaf read whole, 1 for one
+    read as its "model" block, ``g`` for a fused leaf of ``g`` groups.  A
+    leaf of a ``BLOCK_SPLITS`` block is keyed by its block and name, any
+    other by its name (``SPLIT_LEAVES``), experts excepted."""
 
-    def walk(node, name):
+    def walk(node, parent, name):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, name, k) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        return name in SPLIT_LEAVES and tuple(node[:1]) != ("expert",)
+            return [walk(v, parent, name) for v in node]
+        if parent in BLOCK_SPLITS:
+            return BLOCK_SPLITS[parent].get(name, 0)
+        return int(name in SPLIT_LEAVES and tuple(node[:1]) != ("expert",))
 
-    return walk(logical_tree, "")
+    return walk(logical_tree, "", "")
 
 
 def stack_params(tree: dict, n: int) -> dict:
@@ -428,6 +452,19 @@ def rms_norm(x: Tensor, gamma: Tensor, eps: float = 1e-5) -> Tensor:
     """RMSNorm in fp32 accumulation, cast back to input dtype."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def split_rms_norm(x: Tensor, gamma: Tensor, eps: float, axis: "tp.ModelAxis | None") -> Tensor:
+    """``rms_norm`` over a last dim split over "model": ``x`` and ``gamma``
+    are this rank's blocks, and the fp32 sum of squares is summed over the
+    ranks, forward and backward (``tensor_parallel.sum_over_model``).
+    Whole when ``axis`` is None."""
+    if axis is None:
+        return rms_norm(x, gamma, eps)
+    xf = x.to(torch.float32)
+    var = tp.sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True), axis) / (x.shape[-1] * axis.size)
     out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
     return out.to(x.dtype)
 

@@ -102,7 +102,10 @@ def _counts(flat_idx: Tensor, e: int) -> Tensor:
 
 def _router(p, x: Tensor, cfg: ArchConfig):
     """Top-k routing in fp32.  Returns (idx (T,k) int64, weight (T,k) in x's
-    dtype, aux_loss)."""
+    dtype, aux_loss).  The router (d, E) is read whole on every "model" rank
+    where the rules put its experts on "model" (olmoe's 0.5 MiB a layer):
+    the top-k needs every expert's probability, which a split product would
+    gather back (ROADMAP Queue 3)."""
     t = x.shape[0]
     probs = torch.softmax(x.to(torch.float32) @ p["router"].to(torch.float32), dim=-1)
     weight, idx = torch.topk(probs, cfg.top_k, dim=-1)

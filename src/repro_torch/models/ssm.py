@@ -13,6 +13,28 @@ State carried for decode: ``h`` (B, H, P, N) fp32 and the depthwise-conv
 tail (B, ssm_conv - 1, d_inner).  ``mamba_decode`` is the single-token
 recurrence in fp32; it updates both in place (the reference returns new
 copies).
+
+**Split over "model"** (``distributed.tensor_parallel``), as the rules
+place the block's leaves and GSPMD splits the reference's products.  Given
+this rank's "model" blocks (``sharding.local_view(split=...)``, with
+``models.common.BLOCK_SPLITS``), the block runs on the rank's heads: the
+SSD is per head, and the conv is depthwise over ``d_inner``, whose heads
+are contiguous blocks of ``ssm_head_dim`` channels, so with H / M heads a
+rank the "mlp" blocks of ``conv_w``, ``conv_b``, ``gamma_gate`` and
+``w_out``'s rows are exactly its heads' channels.  The fused ``w_zx`` and
+``w_bc`` come regrouped to ``[z_r | xin_r]`` and ``[B_r | C_r]`` (the
+rank's block of each part), so their column-parallel products give the
+rank's own channels and heads; ``w_dt`` and the per-head vectors are its
+heads' blocks.  The gated RMSNorm over the whole ``d_inner`` sums its
+squares over "model" (``common.split_rms_norm``), and the row-parallel
+``w_out`` ends in a reduce over "model".  Where the head count does not
+divide the "model" size the rules replicate "heads" but may still split
+``d_inner``: the rank then gathers the conv's output (and B, C when they
+are split) to all heads, runs the SSD on all of them, and scatters its
+output back to its channels before the norm, as attention does for heads
+that do not divide.  The decode state lies where the serve rules put it:
+``h`` on the rank's heads (whole when they do not divide) and the conv
+tail on its channels.
 """
 
 from __future__ import annotations
@@ -21,8 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import shard_activation
-from repro_torch.models.common import Param, rms_norm
+from repro_torch.models.common import Param, split_rms_norm
 
 Tensor = torch.Tensor
 
@@ -44,14 +67,44 @@ def mamba_params(cfg: ArchConfig) -> dict:
     }
 
 
-def _project(p, x: Tensor, cfg: ArchConfig):
-    """x (B,S,d) -> z (B,S,di), xin (B,S,di), b/c (B,S,H,N), dt (B,S,H) fp32."""
+def _splits(p, cfg: ArchConfig):
+    """The block's split over "model", from its leaves' widths: (axis of
+    the channels -- ``w_zx``, the conv, the norm, ``w_out`` --, axis of the
+    heads -- ``w_dt`` and the per-head vectors --, axis of ``w_bc``), each
+    None where the rank holds the whole dim."""
+    cs = tp.split_of(p["w_zx"].shape[1], 2 * cfg.d_inner)
+    hs = tp.split_of(p["w_dt"].shape[1], cfg.ssm_heads)
+    bs = tp.split_of(p["w_bc"].shape[1], 2 * cfg.ssm_heads * cfg.ssm_state)
+    if (hs is not None and (cs is None or bs is None)) or (cs is None) != (
+            tp.split_of(p["w_out"].shape[0], cfg.d_inner) is None):
+        raise ValueError("a Mamba2 block split on its heads needs its channels and B/C split too")
+    return cs, hs, bs
+
+
+def _project(p, x: Tensor, cfg: ArchConfig, split):
+    """x (B,S,d) -> z, xin (B,S,di), b/c (B,S,H,N), dt (B,S,H) fp32: the
+    rank's channels of z and xin and its heads of b, c and dt when the
+    block is split (``_splits``); b and c of all heads when its heads do
+    not divide."""
     b, s, _ = x.shape
-    h, n = cfg.ssm_heads, cfg.ssm_state
-    z, xin = torch.chunk(x @ p["w_zx"], 2, dim=-1)
-    bc = (x @ p["w_bc"]).reshape(b, s, 2, h, n)
-    dt = F.softplus((x @ p["w_dt"]).to(torch.float32) + p["dt_bias"].to(torch.float32))
+    cs, hs, bs = split
+    axis = cs or bs
+    xm = x if axis is None else tp.copy_to_model(x, axis)   # the split products' input
+    z, xin = torch.chunk((x if cs is None else xm) @ p["w_zx"], 2, dim=-1)
+    bc = ((x if bs is None else xm) @ p["w_bc"]).reshape(b, s, 2, -1)
+    if bs is not None and hs is None:
+        bc = tp.gather_from_model(bc, bs, -1)
+    bc = bc.reshape(b, s, 2, -1, cfg.ssm_state)
+    dt = F.softplus(((x if hs is None else xm) @ p["w_dt"]).to(torch.float32) + p["dt_bias"].to(torch.float32))
     return z, xin, bc[:, :, 0], bc[:, :, 1], dt
+
+
+def _heads_in(xc: Tensor, split) -> Tensor:
+    """The conv's output over the heads the SSD runs on: the rank's
+    channels as they are, or gathered to all heads when the heads do not
+    divide."""
+    cs, hs, _ = split
+    return xc if cs is None or hs is not None else tp.gather_from_model(xc, cs, -1)
 
 
 def _conv1d(xin: Tensor, conv_w: Tensor, conv_b: Tensor, tail: Tensor | None):
@@ -70,9 +123,16 @@ def _conv1d(xin: Tensor, conv_w: Tensor, conv_b: Tensor, tail: Tensor | None):
     return y, (padded[:, -(k - 1):] if k > 1 else tail)
 
 
-def _gate_out(p, y: Tensor, z: Tensor, cfg: ArchConfig) -> Tensor:
-    """Gated RMSNorm of the mixer's (B, S, di) output, then the down-projection."""
-    return rms_norm(y * F.silu(z), p["gamma_gate"], cfg.norm_eps) @ p["w_out"]
+def gated_down(y: Tensor, z: Tensor, gamma: Tensor, w_out: Tensor, eps: float, cs, hs) -> Tensor:
+    """Gated RMSNorm of a mixer's (B, S, di) output, then the
+    down-projection (the Mamba2 block's and the mLSTM's).  On the rank's
+    channels (``cs``) the norm's sum of squares and the row-parallel
+    product are summed over "model"; an output of all heads (``hs`` None:
+    they do not divide) is scattered to the rank's channels first."""
+    if cs is not None and hs is None:
+        y = tp.scatter_to_model(y, cs, -1)
+    out = split_rms_norm(y * F.silu(z), gamma, eps, cs) @ w_out
+    return out if cs is None else tp.reduce_from_model(out, cs)
 
 
 def ssd_chunked(
@@ -134,32 +194,38 @@ def ssd_chunked(
 
 def mamba_apply(p, x: Tensor, cfg: ArchConfig, *, state: tuple | None = None, return_state: bool = False):
     """Full-sequence Mamba2 mixer over x (B, S, d).  ``state`` = (h, conv
-    tail) continues a sequence.  Returns y, or (y, (h_final, conv_tail))."""
+    tail) continues a sequence.  Returns y, or (y, (h_final, conv_tail)):
+    on this rank's "model" blocks, the split program (module docstring),
+    whose state is the rank's heads and channels."""
     b, s, _ = x.shape
-    z, xin, bmat, cmat, dt = _project(p, x, cfg)
+    split = _splits(p, cfg)
+    z, xin, bmat, cmat, dt = _project(p, x, cfg, split)
     h0, tail = state if state is not None else (None, None)
     xc, new_tail = _conv1d(xin, p["conv_w"], p["conv_b"], tail)
-    xh = shard_activation(xc.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim), ("batch", None, "heads", None))
+    xh = shard_activation(_heads_in(xc, split).reshape(b, s, -1, cfg.ssm_head_dim), ("batch", None, "heads", None))
     a = -torch.exp(p["a_log"].to(torch.float32))
     y, h_final = ssd_chunked(xh, dt, dt * a, bmat, cmat, cfg.ssm_chunk, h0)
     y = y + p["d_skip"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    out = _gate_out(p, y.reshape(b, s, cfg.d_inner).to(x.dtype), z, cfg)
+    out = gated_down(y.reshape(b, s, -1).to(x.dtype), z, p["gamma_gate"], p["w_out"], cfg.norm_eps, *split[:2])
     return (out, (h_final, new_tail)) if return_state else out
 
 
 def mamba_decode(p, x: Tensor, h: Tensor, conv_tail: Tensor, cfg: ArchConfig):
     """Single-token recurrent step: x (B, 1, d); ``h`` (B, H, P, N) fp32 and
-    ``conv_tail`` (B, K-1, di) are updated in place.  Returns (y (B,1,d), h,
-    conv_tail)."""
+    ``conv_tail`` (B, K-1, di) are updated in place -- on this rank's
+    "model" blocks, its heads' state and its channels' tail.  Returns
+    (y (B,1,d), h, conv_tail)."""
     b = x.shape[0]
-    z, xin, bmat, cmat, dt = _project(p, x, cfg)
+    split = _splits(p, cfg)
+    z, xin, bmat, cmat, dt = _project(p, x, cfg, split)
     xc, new_tail = _conv1d(xin, p["conv_w"], p["conv_b"], conv_tail)
     conv_tail.copy_(new_tail)
-    xh = xc.reshape(b, cfg.ssm_heads, cfg.ssm_head_dim).to(torch.float32)
+    xh = _heads_in(xc, split).reshape(b, -1, cfg.ssm_head_dim).to(torch.float32)
     dt1 = dt[:, 0]                                               # (B, H)
     decay = torch.exp(dt1 * -torch.exp(p["a_log"].to(torch.float32)))
     b1, c1 = bmat[:, 0].to(torch.float32), cmat[:, 0].to(torch.float32)  # (B, H, N)
     h.mul_(decay[:, :, None, None]).add_((dt1[:, :, None] * xh)[..., None] * b1[:, :, None, :])
     y = torch.einsum("bhn,bhpn->bhp", c1, h)
     y = y + p["d_skip"].to(torch.float32)[None, :, None] * xh
-    return _gate_out(p, y.reshape(b, 1, cfg.d_inner).to(x.dtype), z, cfg), h, conv_tail
+    y = gated_down(y.reshape(b, 1, -1).to(x.dtype), z, p["gamma_gate"], p["w_out"], cfg.norm_eps, *split[:2])
+    return y, h, conv_tail

@@ -28,7 +28,11 @@ The hybrid stack (zamba2) is a Mamba2 backbone (``params["layers"]``, each
 ``ssm_h`` (fp32) and conv tail ``conv``.  ``hybrid_train`` (remat'd per
 layer, shared block included, as the reference's scan body),
 ``hybrid_prefill`` and ``hybrid_decode`` mirror the three entry points
-above.
+above.  On this rank's "model" blocks (``sharding.local_view(split=...)``)
+the Mamba2 layers run on the rank's heads (``models/ssm.py``), the shared
+block on its attention heads and MLP columns, and the cache holds the
+rank's blocks: its kv heads (or rows), and each layer's SSM state on its
+heads and conv tail on its channels.
 """
 
 from __future__ import annotations

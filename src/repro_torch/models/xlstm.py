@@ -14,6 +14,22 @@ the reference's ``repro/models/xlstm.py``.
 
 Pairs are stacked under ``params["pairs"]`` (a list of {"m", "s"} trees
 once loaded).  Decode updates the cache's recurrent state in place.
+
+**Split over "model"** (``distributed.tensor_parallel``), as the rules
+place the leaves (``models.common.BLOCK_SPLITS``).  The mLSTM runs on the
+rank's heads as the Mamba2 block does (``models/ssm.py``): the fused
+``w_in`` comes regrouped to ``[xin_r | z_r]``, ``w_qkv`` is per head,
+``w_if``'s rows are split ("mlp" outranks "heads"), so the gates are a
+row-parallel partial sum over "model" of which each rank keeps its heads'
+(summed both ways, since each rank reads only its part), ``b_if`` comes
+regrouped to its heads' i and f biases, the gated norm sums its squares
+over "model" and ``w_out`` is row-parallel; where the heads do not divide
+(xlstm-350m's 4 at "model" 16) the rank gathers ``xin`` to all heads, runs
+the matrix memory on all of them and scatters its output to its channels.
+The sLSTM's input product ``w_x`` is column-parallel, its pre-activations
+gathered once per block over the whole sequence; the per-token recurrence
+then runs whole on every rank, with no collective inside its loop (its
+recurrence and state stay whole: ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -23,9 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.common import Param, embed_rows, maybe_remat, rms_norm, softcap, stack_params, vocab_logits
-from repro_torch.models.ssm import ssd_chunked
+from repro_torch.models.ssm import gated_down, ssd_chunked
 from repro_torch.models.transformer import compute_dtype
 
 Tensor = torch.Tensor
@@ -60,37 +77,62 @@ def mlstm_params(cfg: ArchConfig) -> dict:
     }
 
 
-def _mlstm_gates_qkv(blk, x: Tensor, cfg: ArchConfig):
-    """x (B,S,d) -> q,k,v (B,S,H,P), log_f (B,S,H), i_w (B,S,H), z (B,S,di)."""
+def _mlstm_splits(blk, cfg: ArchConfig):
+    """(axis of the channels -- ``w_in``, ``w_if``'s rows, ``gamma``,
+    ``w_out`` --, axis of the heads -- ``w_qkv``, ``b_if`` --), each None
+    where the rank holds the whole dim."""
+    di, hh = 2 * cfg.d_model, cfg.num_heads
+    cs = tp.split_of(blk["w_in"].shape[1], 2 * di)
+    hs = tp.split_of(blk["w_qkv"].shape[0], hh)
+    rows = tp.split_of(blk["w_if"].shape[0], di)
+    if (cs is None) != (rows is None) or (hs is not None and (cs is None or blk["b_if"].shape[0] == 2 * hh)):
+        raise ValueError("an mLSTM block split on its heads needs its channels and gate biases split too")
+    return cs, hs
+
+
+def _mlstm_gates_qkv(blk, x: Tensor, cfg: ArchConfig, split):
+    """x (B,S,d) -> q,k,v (B,S,H,P), log_f (B,S,H), i_w (B,S,H), z (B,S,di):
+    the rank's heads and channels when the block is split
+    (``_mlstm_splits``); all heads when its heads do not divide."""
     b, s, _ = x.shape
     hh = cfg.num_heads
     pp = 2 * cfg.d_model // hh
-    xin, z = torch.chunk(x @ blk["w_in"], 2, dim=-1)
-    qkv = torch.einsum("bshp,hpq->bshq", xin.reshape(b, s, hh, pp), blk["w_qkv"])
+    cs, hs = split
+    xin, z = torch.chunk((x if cs is None else tp.copy_to_model(x, cs)) @ blk["w_in"], 2, dim=-1)
+    heads_in = xin if cs is None or hs is not None else tp.gather_from_model(xin, cs, -1)
+    qkv = torch.einsum("bshp,hpq->bshq", heads_in.reshape(b, s, -1, pp), blk["w_qkv"])
     q, k, v = torch.chunk(qkv, 3, dim=-1)
-    gates = (xin @ blk["w_if"]).to(torch.float32) + blk["b_if"].to(torch.float32)
-    i_pre, f_pre = torch.chunk(gates, 2, dim=-1)          # (B,S,H) each
+    gates = xin @ blk["w_if"]
+    if cs is not None:  # a row-parallel partial sum; a rank on its heads reads only theirs
+        gates = tp.reduce_from_model(gates, cs) if hs is None else tp.sum_over_model(gates, cs)
+    i_pre, f_pre = torch.chunk(gates.to(torch.float32), 2, dim=-1)   # (B,S,H) each
+    if hs is not None:
+        mine = slice(hs.rank * hh // hs.size, (hs.rank + 1) * hh // hs.size)
+        i_pre, f_pre = i_pre[..., mine], f_pre[..., mine]
+    b_i, b_f = torch.chunk(blk["b_if"].to(torch.float32), 2)
+    i_pre, f_pre = i_pre + b_i, f_pre + b_f
     log_f = -F.softplus(-f_pre)                           # log sigmoid(f_pre)
     i_w = torch.exp(torch.clamp(i_pre, -_IGATE_CLIP, _IGATE_CLIP))
     return q, k, v, log_f, i_w, z
 
 
-def _mlstm_out(blk, num: Tensor, den: Tensor, z: Tensor, cfg: ArchConfig, x: Tensor) -> Tensor:
-    """Normalize, gate, per-block norm, down-project."""
+def _mlstm_out(blk, num: Tensor, den: Tensor, z: Tensor, cfg: ArchConfig, x: Tensor, split) -> Tensor:
+    """Normalize, gate, per-block norm, down-project; on the rank's
+    channels the norm and the row-parallel product are summed over "model"
+    (an output of all heads is scattered to its channels first)."""
     b, s = num.shape[0], num.shape[1]
     y = num / torch.clamp(den.abs(), min=1.0)[..., None]
-    y = y.reshape(b, s, 2 * cfg.d_model).to(x.dtype)
-    y = rms_norm(y * F.silu(z), blk["gamma"], cfg.norm_eps)
-    return y @ blk["w_out"]
+    return gated_down(y.reshape(b, s, -1).to(x.dtype), z, blk["gamma"], blk["w_out"], cfg.norm_eps, *split)
 
 
 def mlstm_apply(blk, x: Tensor, cfg: ArchConfig, *, state: Tensor | None = None, return_state: bool = False):
     """Apply an mLSTM block to (B, S, d), optionally threading the
-    (B, H, P+1, P) matrix memory."""
+    (B, H, P+1, P) matrix memory (the rank's heads when split)."""
     b, s, _ = x.shape
-    q, k, v, log_f, i_w, z = _mlstm_gates_qkv(blk, rms_norm(x, blk["ln"], cfg.norm_eps), cfg)
+    split = _mlstm_splits(blk, cfg)
+    q, k, v, log_f, i_w, z = _mlstm_gates_qkv(blk, rms_norm(x, blk["ln"], cfg.norm_eps), cfg, split)
     pp = v.shape[-1]
-    v_aug = torch.cat([v.to(torch.float32), v.new_ones((b, s, cfg.num_heads, 1), dtype=torch.float32)], dim=-1)
+    v_aug = torch.cat([v.to(torch.float32), v.new_ones((*v.shape[:3], 1), dtype=torch.float32)], dim=-1)
     y_aug, h_final = ssd_chunked(
         v_aug,                                           # values (P+1)
         i_w,                                             # write strengths
@@ -100,23 +142,24 @@ def mlstm_apply(blk, x: Tensor, cfg: ArchConfig, *, state: Tensor | None = None,
         cfg.ssm_chunk if cfg.ssm_chunk > 0 else 256,
         state,
     )
-    out = x + _mlstm_out(blk, y_aug[..., :pp], y_aug[..., pp], z, cfg, x)
+    out = x + _mlstm_out(blk, y_aug[..., :pp], y_aug[..., pp], z, cfg, x, split)
     out = shard_activation(out, ("batch", "seq", "act_embed"))
     return (out, h_final) if return_state else out
 
 
 def mlstm_decode(blk, x: Tensor, state: Tensor, cfg: ArchConfig):
-    """Single-token step: x (B,1,d); ``state`` (B,H,P+1,P) is updated in
-    place.  Returns (y, state)."""
-    q, k, v, log_f, i_w, z = _mlstm_gates_qkv(blk, rms_norm(x, blk["ln"], cfg.norm_eps), cfg)
-    b = x.shape[0]
+    """Single-token step: x (B,1,d); ``state`` (B,H,P+1,P), the rank's
+    heads when split, is updated in place.  Returns (y, state)."""
+    split = _mlstm_splits(blk, cfg)
+    q, k, v, log_f, i_w, z = _mlstm_gates_qkv(blk, rms_norm(x, blk["ln"], cfg.norm_eps), cfg, split)
     pp = v.shape[-1]
-    v1 = torch.cat([v[:, 0].to(torch.float32), v.new_ones((b, cfg.num_heads, 1), dtype=torch.float32)], dim=-1)
+    v1 = torch.cat([v[:, 0].to(torch.float32), v.new_ones((*v.shape[:1], v.shape[2], 1), dtype=torch.float32)],
+                   dim=-1)
     k1 = k[:, 0].to(torch.float32) * _inv_sqrt(pp)       # (B,H,P)
     f1, i1 = torch.exp(log_f[:, 0]), i_w[:, 0]            # (B,H)
     state.mul_(f1[..., None, None]).add_(i1[..., None, None] * (v1[..., :, None] * k1[..., None, :]))
     y_aug = torch.einsum("bhn,bhpn->bhp", q[:, 0].to(torch.float32), state)  # (B,H,P+1)
-    out = x + _mlstm_out(blk, y_aug[:, None, :, :pp], y_aug[:, None, :, pp], z, cfg, x)
+    out = x + _mlstm_out(blk, y_aug[:, None, :, :pp], y_aug[:, None, :, pp], z, cfg, x, split)
     return out, state
 
 
@@ -172,8 +215,17 @@ def _slstm_init(b: int, cfg: ArchConfig, device) -> tuple:
 
 
 def _slstm_pre(blk, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """The four gates' input pre-activations (B,S,4,H,P) fp32.  A ``w_x``
+    of the rank's "model" block of columns is column-parallel, and its
+    block of the pre-activations is gathered over "model" once, here,
+    before the per-token loop."""
     b, s, d = x.shape
-    pre = rms_norm(x, blk["ln"], cfg.norm_eps) @ blk["w_x"]
+    xn = rms_norm(x, blk["ln"], cfg.norm_eps)
+    axis = tp.split_of(blk["w_x"].shape[1], 4 * d)
+    if axis is None:
+        pre = xn @ blk["w_x"]
+    else:
+        pre = tp.gather_from_model(tp.copy_to_model(xn, axis) @ blk["w_x"], axis, -1)
     return pre.reshape(b, s, 4, cfg.num_heads, d // cfg.num_heads).to(torch.float32)
 
 

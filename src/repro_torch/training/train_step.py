@@ -29,16 +29,20 @@ rank's local program:
 - the products split over "model" as the rules place their weights
   (``distributed.tensor_parallel``): the leaves of ``models.common.
   split_mask`` -- the attention projections, the dense MLP, the embedding
-  and the unembedding -- are read as this rank's "model" block, whose
-  gradient is that block's and needs no reduction over "model"; attention
-  runs on the rank's heads, the MLP column then row parallel, the logits
-  and the CE on the rank's vocabulary block.  Every other leaf (the Mamba2,
-  mLSTM and sLSTM weights, the router) is gathered whole over "model" too,
-  and its products are the same on every "model" rank (ROADMAP item 9.11);
-  expert weights on the MoE block's expert-parallel path are gathered by
-  that path to the rank's own experts.  Under rules that shard the batch
-  over "model" (``ZERO3_RULES``) "model" is a token axis and nothing is
-  split;
+  and the unembedding, the Mamba2 and mLSTM blocks' leaves and the sLSTM's
+  input product -- are read as this rank's "model" block, whose gradient
+  is that block's and needs no reduction over "model"; the fused ones
+  (Mamba2's ``w_zx`` and ``w_bc``, the mLSTM's ``w_in`` and ``b_if``) are
+  gathered and read as the rank's block of each part, their gradient summed
+  over "model".  Attention and the Mamba2 and mLSTM blocks run on the
+  rank's heads, the MLP column then row parallel, the sLSTM's input
+  product column parallel, the logits and the CE on the rank's vocabulary
+  block.  The other leaves (the router, the sLSTM's recurrence, the norm
+  gains) are gathered whole over "model" too, and their products are the
+  same on every "model" rank; expert weights on the MoE block's
+  expert-parallel path are gathered by that path to the rank's own
+  experts.  Under rules that shard the batch over "model"
+  (``ZERO3_RULES``) "model" is a token axis and nothing is split;
 - the batch is the rank's block on the token axes ("pod", "data"), the
   same on every "model" rank;
 - each rank's loss is weighted by its share of the valid tokens, so the

@@ -91,7 +91,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    gram kernel against its plain version at every shape that phase
    launched, on the inputs it launched them with.
 8. Serving path: internlm2-1.8b at its full published width (random
-   weights from a seeded generator, bf16 compute) serves 24 requests of two
+   weights from a seeded generator, bf16 compute) serves 12 requests of two
    function classes (chat: batch 8, prompt 512, 64 tokens; summarize: batch
    2, prompt 4096, 16 tokens; 2:1) through ``MeteredServer`` and the flash
    and decode attention kernels; the measured trace is metered by the
@@ -109,9 +109,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    ``decode_attention`` call must be one kernel on the device.
 12. Model families, at full width from seeded random weights:
    zamba2-7b (hybrid: 81 Mamba2 layers and one shared attention block at
-   14 of them, d 112) and seamless-m4t-large-v2 (24 + 24 layers, source
-   frames as many as the prompt's tokens) at full depth, 6 requests each of
-   the two classes, traced, with their fp32 invariants, kernels against
+   14 of them, d 112; served cut to 27 layers, five application points)
+   and seamless-m4t-large-v2 (24 + 24 layers, source frames as many as
+   the prompt's tokens; full depth), 3 requests each of the two classes,
+   one summarize request traced, with their fp32 invariants, kernels against
    plain versions (zamba2's on a copy cut to 13 layers: its fp32 masters
    do not fit beside the served bf16 weights) and one decode step under
    the sync gate; the int8
@@ -119,8 +120,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    logits against the bf16 cache's, cosine > 0.999 and argmax equal;
    greedy tokens against it; cache bytes; 3 chat requests served, no
    decode kernel launched: the reference runs int8 decode as plain code);
-   olmoe-1b-7b at full depth serving 6 requests of the two classes
-   (traced: device busy per request), its fp32 invariants, kernels
+   olmoe-1b-7b at full depth serving 3 requests of the two classes
+   (a summarize request traced: device busy per request), its fp32 invariants, kernels
    against plain versions and the share of routing choices bf16 and fp32
    make alike; deepseek-moe-16b cut to 4 layers (dense layer 0 + 3 MoE
    layers with shared experts), one prefill and 16 decode steps;
@@ -150,9 +151,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    8-11 and final parameters bitwise (the step is deterministic on the
    card); two 21.19 GiB states written in all, under the machine's
    45 GiB of disk writes a call; finite and falling losses; exactly 2 x
-   24 flash launches a step, all tensor-core; one warm step traced (busy,
-   idle share, the flash forward's and ``flash_bwd``'s shares), step
-   time, tokens/s, 6ND against 989 TFLOP/s, peak memory.
+   24 flash launches a step, all tensor-core; one warm step traced on the
+   straight run's final state (busy, idle share, the flash forward's and
+   ``flash_bwd``'s shares), step time, tokens/s, 6ND against 989 TFLOP/s,
+   peak memory; the relaunch's final state is kept for phase 14 (e).
    The launcher places the state on the local mesh (1, 1) ("data",
    "model") under ``TRAIN_RULES``; on one device every leaf stays a plain
    tensor (checked).
@@ -166,7 +168,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    bitwise against their plain versions, µs and device operations per
    call; (f) ``--mesh pod`` raising with the 256 ranks it needs; (e) the
    training phase's last checkpoint restored with ``state_shardings`` on
-   the local mesh, bitwise against the unplaced restore; (d)
+   the local mesh, bitwise against the unplaced state it was written from
+   (the relaunch's final state; the checkpoint is read once); (d)
    ``compressed_pod_mean`` on a one-rank "pod" mesh over the restored
    1.896e9-element parameter tree, each leaf within amax/127 + 1e-6; (g)
    ``launch.costs.step_cost`` of the training cell beside its measured
@@ -193,8 +196,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    (NCCL refuses two ranks on one GPU), on the mesh ("data", "model") =
    (1, 2), for each of ``TP_ARCHS``: internlm2-1.8b at full width and
    depth, then zamba2-7b at full width, trained cut to 12 of its 81 layers
-   and served at full depth, its Mamba2 blocks on the ranks' 56 of 112
-   heads.  Rank 0 first runs the one-process program alone and frees it:
+   and served cut to 27 (the families phase's depth), its Mamba2 blocks on
+   the ranks' 56 of 112 heads.  Rank 0 first runs the one-process program alone and frees it:
    bf16 on fp32 masters, remat "full", ``TP_STEPS`` steps of ``TP_BATCH``
    x ``TP_SEQ`` (cut from 4 x 2048: every collective of the split program
    goes through the host in gloo), then a prefill and ``TP_DECODE`` decode
@@ -303,7 +306,7 @@ CLASSES = {
     f"{ARCH}/chat": dict(batch=8, prompt=512, steps=64),
     f"{ARCH}/summarize": dict(batch=2, prompt=4096, steps=16),
 }
-SCHEDULE = [f"{ARCH}/chat", f"{ARCH}/chat", f"{ARCH}/summarize"] * 8  # 24 requests, 2:1
+SCHEDULE = [f"{ARCH}/chat", f"{ARCH}/chat", f"{ARCH}/summarize"] * 4  # 12 requests, 2:1
 H, HKV, HD, D_MODEL = 16, 8, 128, 2048
 # Kernel shapes of that path (flash: B, S, T, H, Hkv, d, causal; decode: B,
 # S_max, lengths; RMSNorm: rows, d).  Decode is listed at each class's last
@@ -326,7 +329,7 @@ RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL), (1001
 
 # Model families (the reference launcher's MoE and xLSTM models, the int8 KV
 # cache, the VLM prefix), full width, random weights from a seeded generator.
-# olmoe-1b-7b at full depth in internlm2's two classes (6 requests, 2:1);
+# olmoe-1b-7b at full depth in internlm2's two classes (3 requests, 2:1);
 # deepseek-moe-16b cut from 28 layers to 4 (dense layer 0 + 3 MoE layers:
 # its 16.9 B parameters would take 34 GB in bf16 besides the fp32 masters);
 # xlstm-350m in the chat class only (its sLSTM is a loop over time, so a
@@ -334,7 +337,7 @@ RMS_RAGGED = [(4097, D_MODEL), (7, 33), (1, D_MODEL), (2 * 4096, D_MODEL), (1001
 # with 256 patch embeddings + 256 tokens; the int8 cache on internlm2-1.8b.
 OLMOE = "olmoe-1b-7b"
 OLMOE_CLASSES = {f"{OLMOE}/chat": CLASSES[f"{ARCH}/chat"], f"{OLMOE}/summarize": CLASSES[f"{ARCH}/summarize"]}
-OLMOE_SCHEDULE = [f"{OLMOE}/chat", f"{OLMOE}/chat", f"{OLMOE}/summarize"] * 2  # 6 requests, 2:1
+OLMOE_SCHEDULE = [f"{OLMOE}/chat", f"{OLMOE}/chat", f"{OLMOE}/summarize"]  # 3 requests, 2:1
 DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-moe-16b", 4
 DEEPSEEK_CLASS = dict(batch=8, prompt=512, steps=17)  # one prefill + 16 decode steps
 XLSTM = "xlstm-350m"
@@ -353,7 +356,7 @@ DECODE_MOE = [(8, 576, (575,) * 8), (2, 4112, (4111,) * 2)]  # at Hkv = 16
 MOE_H = MOE_HKV = 16
 
 # The hybrid and encoder-decoder families, full width, random weights from a
-# seeded generator, in internlm2's two classes (6 requests each, 2:1).
+# seeded generator, in internlm2's two classes (3 requests each, 2:1).
 # zamba2-7b (81 Mamba2 layers, one shared attention block applied at 14 of
 # them, 32 heads of 112): 10.85 B parameters, 21.7 GB in bf16 beside 43.4 GB
 # of fp32 masters, at full depth.  seamless-m4t-large-v2 (24 + 24 layers, 16
@@ -365,16 +368,15 @@ MOE_H = MOE_HKV = 16
 # to 13 layers (application points 0, 6 and 12), full width.
 ZAMBA = "zamba2-7b"
 ZAMBA_CHECK_LAYERS = 13
-# The families phase serves zamba2-7b cut to 27 of its 81 layers (five
-# shared-attention points), for the run's time limit: phase 16 serves it at
-# full depth (one process and split over two ranks).
+# The families phase and phase 16 serve zamba2-7b cut to 27 of its 81 layers
+# (five shared-attention points), for the run's time limit.
 ZAMBA_SERVE_LAYERS = 27
 ZAMBA_CLASSES = {f"{ZAMBA}/chat": CLASSES[f"{ARCH}/chat"], f"{ZAMBA}/summarize": CLASSES[f"{ARCH}/summarize"]}
-ZAMBA_SCHEDULE = [f"{ZAMBA}/chat", f"{ZAMBA}/chat", f"{ZAMBA}/summarize"] * 2
+ZAMBA_SCHEDULE = [f"{ZAMBA}/chat", f"{ZAMBA}/chat", f"{ZAMBA}/summarize"]
 SEAMLESS = "seamless-m4t-large-v2"
 SEAMLESS_CLASSES = {f"{SEAMLESS}/chat": CLASSES[f"{ARCH}/chat"],
                     f"{SEAMLESS}/summarize": CLASSES[f"{ARCH}/summarize"]}
-SEAMLESS_SCHEDULE = [f"{SEAMLESS}/chat", f"{SEAMLESS}/chat", f"{SEAMLESS}/summarize"] * 2
+SEAMLESS_SCHEDULE = [f"{SEAMLESS}/chat", f"{SEAMLESS}/chat", f"{SEAMLESS}/summarize"]
 # Attention shapes those paths add.  zamba2's shared block: H = Hkv = 32 at
 # d 112 (the tensor-core kernel on two 64-column panels), at the classes'
 # shapes and ragged ones (S, T not tile multiples, S < T, not causal).
@@ -2751,7 +2753,9 @@ def phase_family(arch, classes, schedule, counter, ref, device="cuda", reduced=F
                  gate=False, vs_plain=False, trace=False, check_layers=None, layers=None) -> dict:
     """Build ``arch`` at full width (fp32 masters and the bf16 copy), serve
     ``schedule`` through ``MeteredServer``, meter and price it; with
-    ``trace``, trace one warm request per class (device busy per request);
+    ``trace``, trace one warm summarize request (device busy per request;
+    of the two classes the one of fewer decode steps, so fewer kernels for
+    the profiler to record);
     check the fp32 invariants (and, with ``vs_plain``, kernels against
     plain versions); with ``gate``, one decode step under the sync gate;
     then free the weights.  ``layers`` cuts the served model's depth.  With
@@ -2770,12 +2774,9 @@ def phase_family(arch, classes, schedule, counter, ref, device="cuda", reduced=F
                peak_gb=serve_out["peak_gb"], expected=expected_launches(api, classes, schedule),
                params=sum(p.numel() for p in params.parameters()))
     if cuda and trace:
-        server = serve_out["server"]
-        replays = {}
-        for name in classes:
-            engine, batch, steps = server.functions[name]
-            replays[f"serve {name}"] = (lambda e=engine, b=batch, n=steps: e.generate(b, n), stats[name]["first_s"])
-        phase_trace(replays)
+        name = next(n for n in classes if n.endswith("/summarize"))
+        engine, batch, steps = serve_out["server"].functions[name]
+        phase_trace({f"serve {name}": (lambda: engine.generate(batch, steps), stats[name]["first_s"])})
         log(f"family {arch}: traced at {time.perf_counter() - t0:.1f} s")
     check = (api, masters, params)
     if check_layers is not None:
@@ -2977,21 +2978,6 @@ def check_families(fam, int8_layers) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _dense_attention(q, k, v, causal):
-    """fp32 GQA attention with the score matrix materialised, the
-    reference's ``attention_dense``: the oracle the reference pins its flash
-    VJP to (tests/test_kernels.py::test_ref_flash_backward_matches_dense)."""
-    b, s, h, d = q.shape
-    t, hkv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, s, hkv, h // hkv, d)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(d)
-    if causal:
-        live = torch.ones((s, t), dtype=torch.bool, device=q.device).tril(t - s)
-        scores = scores.masked_fill(~live, -1e30)
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(b, s, h, d)
-
-
 def flash_bwd_work(b, s, t, h, hkv, d, causal, dtype):
     """(bytes, flops) of the attention backward: q, k, v, out, dout and lse
     read once, dq, dk, dv written once; 5 products of 2 * d flops per live
@@ -3021,7 +3007,8 @@ def phase_train_vjp(ref) -> dict:
     """The flash VJP on the card: the hand forward's out and lse against the
     plain ``flash_fwd``, and dq, dk, dv through ``ops.flash_attention``'s
     Function (the hand forward with its lse, then ``flash_bwd``) against
-    autograd through the dense fp32 oracle; the forward with and without
+    autograd through the dense fp32 oracle ``ref.attention_dense`` (the
+    reference pins its flash VJP to its twin); the forward with and without
     the lse store, the backward, and SDPA's forward and backward timed."""
     import torch.nn.functional as F
 
@@ -3045,7 +3032,7 @@ def phase_train_vjp(ref) -> dict:
         qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
         got = torch.autograd.grad(ops.flash_attention(qg, kg, vg, causal=causal), (qg, kg, vg), do)
         q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
-        want = torch.autograd.grad(_dense_attention(q32, k32, v32, causal), (q32, k32, v32), do.float())
+        want = torch.autograd.grad(ref.attention_dense(q32, k32, v32, causal=causal), (q32, k32, v32), do.float())
         errs = {n: _grad_close(a, w, dtype, f"flash VJP {n} at {key}") for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         del got, want, q32, k32, v32, qg, kg, vg
         reps = 5 if s * t > 2**22 else 15
@@ -3218,8 +3205,11 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
     the recompute under remat "full"), all tensor-core; no CUDA tensor
     reaches a plain version.  The launcher places the state on the local
     mesh (1, 1) ("data", "model"): on one device every leaf stays a plain
-    tensor.  ``keep_ckpt`` leaves the checkpoint directory for the
-    distributed phase (``out["ckpt_dir"]``), which deletes it.
+    tensor.  One warm step is traced on the straight run's final state (the
+    step updates it in place).  ``keep_ckpt`` leaves the checkpoint
+    directory (``out["ckpt_dir"]``) and the relaunch's final state, from
+    which its last checkpoint was written (``out["state"]``), for the
+    distributed phase, which deletes both.
     ``device="cpu", reduced=True`` rehearses the same control flow on the
     reduced config (no trace)."""
     import io
@@ -3263,6 +3253,20 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
                 raise _Crash(step)
         return save
 
+    def traced_step(state):
+        """One warm step, traced, on ``state``: (trace, flash launches)."""
+        api = build(cfg)
+        ocfg = opt.OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
+        batch = next(batch_iterator(api, shape, DataConfig(seed=0), start_step=TRAIN_STEPS, device=device))
+        counter.zero()
+        trace = dict(step_s=float("nan"))
+        if cuda:
+            with main_path(ref):
+                trace = _train_trace(state, make_train_step(api, ocfg), batch, ref)
+        launches = counter.read()
+        assert launches["flash"] == (3 * 2 * layers if cuda else 0) == launches["flash_tc"], launches
+        return trace, launches
+
     tmp = tempfile.mkdtemp(prefix=".train-ckpt-", dir=Path(__file__).resolve().parent)
     ckpt_args = ["--ckpt-dir", tmp, "--ckpt-every", str(TRAIN_CRASH)]
     ckpt._write, ckpt.restore_checkpoint = timed("save", real_write), timed("restore", real_restore)
@@ -3290,6 +3294,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
             if run == "straight":
                 assert not any(isinstance(x, DTensor) for x in tree_leaves(state)), "one device: plain tensors"
                 straight = [p.detach().clone() for p in tree_leaves(state.params)]
+                trace, trace_launches = traced_step(state)
                 del state
                 if cuda:
                     torch.cuda.empty_cache()
@@ -3318,19 +3323,8 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
             f"parameter diff {param_diff:.3e}); checkpoints {runs['killed']['steps']} after the killed run, "
             f"{runs['relaunch']['steps']} after the relaunch")
         assert bitwise, f"the relaunch differs from the straight run: loss {loss_diff:.3e}, parameters {param_diff:.3e}"
-
-        # One warm step, traced, on the resumed state.
-        api = build(cfg)
-        ocfg = opt.OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
-        batch = next(batch_iterator(api, shape, DataConfig(seed=0), start_step=TRAIN_STEPS, device=device))
-        counter.zero()
-        trace = dict(step_s=float("nan"))
-        if cuda:
-            with main_path(ref):
-                trace = _train_trace(state, make_train_step(api, ocfg), batch, ref)
-        trace_launches = counter.read()
-        assert trace_launches["flash"] == (3 * 2 * layers if cuda else 0) == trace_launches["flash_tc"], trace_launches
-        del state, batch
+        if not keep_ckpt:
+            del state
     finally:
         ckpt._write, ckpt.restore_checkpoint, ckpt.CheckpointManager.save = real_write, real_restore, real_save
         if not keep_ckpt:
@@ -3348,7 +3342,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
         launches=sum(launches.values()) + trace_launches["flash"], launches_by_run=launches,
         launches_per_step=launches["straight"] / TRAIN_STEPS, tokens_per_s=tokens / trace["step_s"], model_flops=flops,
         model_flops_share=flops / trace["step_s"] / BF16_FLOP_PER_S, trace=trace,
-        ckpt_dir=tmp if keep_ckpt else None,
+        ckpt_dir=tmp if keep_ckpt else None, state=state if keep_ckpt else None,
     )
     log(f"train {cfg.name}: {layers} layers, {cfg.param_count():,} parameters (6ND count), batch "
         f"{shape.global_batch} x {shape.seq_len}; losses {[round(x, 4) for x in r1.losses]}; relaunch "
@@ -3512,10 +3506,13 @@ def phase_dist_a2a(mesh, cap: int, device="cuda", reduced=False) -> dict:
     return out
 
 
-def phase_dist_restore(mesh, ckpt_dir: str, device="cuda", reduced=False):
+def phase_dist_restore(mesh, ckpt_dir: str, written, device="cuda", reduced=False):
     """(e) the training phase's last checkpoint restored with
-    ``shardings=state_shardings(...)`` on the local mesh, against the
-    unplaced restore: bitwise.  Returns (row, the restored state)."""
+    ``shardings=state_shardings(...)`` on the local mesh, against
+    ``written``, the unplaced state it was written from (the relaunch's
+    final state, which that run had restored from its step-8 checkpoint):
+    every leaf bitwise, so the checkpoint is read once.  Returns (row, the
+    restored state)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed import checkpoint as ckpt
     from repro_torch.distributed import sharding as shd
@@ -3530,24 +3527,19 @@ def phase_dist_restore(mesh, ckpt_dir: str, device="cuda", reduced=False):
     step = ckpt.latest_step(ckpt_dir)
     assert step == TRAIN_STEPS, ckpt.list_steps(ckpt_dir)
     gen = torch.Generator(device=device).manual_seed(5)
-    t0 = time.perf_counter()
-    plain = ckpt.restore_checkpoint(ckpt_dir, step, init_state(api, gen, ocfg))
-    _sync(device)
-    plain_s = time.perf_counter() - t0
     shardings = state_shardings(api, ocfg, mesh, shd.TRAIN_RULES)
     t0 = time.perf_counter()
     placed = ckpt.restore_checkpoint(ckpt_dir, step, init_state(api, gen, ocfg), shardings=shardings)
     _sync(device)
     placed_s = time.perf_counter() - t0
-    a, b = tree_leaves(plain), tree_leaves(placed)
+    a, b = tree_leaves(written), tree_leaves(placed)
+    assert not any(isinstance(x, DTensor) for x in a + b)
     bitwise = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
-    assert not any(isinstance(x, DTensor) for x in b)
-    row = dict(step=step, leaves=len(b), bitwise=bitwise, unplaced_s=plain_s, placed_s=placed_s)
+    row = dict(step=step, leaves=len(b), bitwise=bitwise, placed_s=placed_s)
     log(f"dist restore: step {step} onto the local mesh (1, 1): {len(b)} leaves "
-        f"{'bitwise' if bitwise else 'DIFFER'} against the unplaced restore; {placed_s:.2f} s "
-        f"(unplaced {plain_s:.2f} s)")
+        f"{'bitwise' if bitwise else 'DIFFER'} against the unplaced state it was written from; {placed_s:.2f} s")
     assert bitwise
-    del plain, a, b
+    del written, a, b
     return row, placed
 
 
@@ -3614,7 +3606,8 @@ def phase_distributed(ref, counter, train_full: dict, device="cuda", reduced=Fal
                 out["pod_mesh_error"] = str(exc)
             assert "needs 256 ranks" in out.get("pod_mesh_error", ""), out.get("pod_mesh_error")
             log(f"dist --mesh pod on one card: {out['pod_mesh_error']}")
-            out["restore"], state = phase_dist_restore(mesh, train_full["ckpt_dir"], device, reduced)
+            out["restore"], state = phase_dist_restore(mesh, train_full["ckpt_dir"], train_full.pop("state"),
+                                                       device, reduced)
             out["pod_mean"] = phase_dist_pod_mean(state.params, device)
             del state
     finally:
@@ -3891,17 +3884,18 @@ TP_BATCH, TP_SEQ, TP_STEPS = 2, TRAIN_SEQ, 2
 # (56 of 112 a rank): trained cut to 12 of its 81 layers (two shared-attention
 # points, ~2.0e9 parameters, as many as internlm2's; fp32 masters and moments
 # of all 81 would not fit a card beside the one-process reference) and served
-# at full depth from bf16 weights.
+# from bf16 weights at ``TP_SERVE_LAYERS``' depth.
 TP_ARCHS = (ARCH, ZAMBA)
 TP_TRAIN_LAYERS = {ZAMBA: 12}
+TP_SERVE_LAYERS = {ZAMBA: ZAMBA_SERVE_LAYERS}  # the families phase's depth, for the run's time limit
 # The archs whose first moments and logits are held in fp32: a step with fp32
 # compute and a serve from fp32 weights, both cut to ``TP_FP32_LAYERS``,
 # split against one process.  zamba2's bf16 steps are held by their
-# losses and parameters, its full-depth bf16 serve by finite logits: the
-# one-process bf16 step's own first moments lie O(1) of their scale from the
-# fp32 step's in its Mamba2 leaves (dt_bias, a_log, w_dt, the norms; PERF.md
-# section 6), and so do its full-depth bf16 logits from fp32 weights', so no
-# split program can be held to them in bf16; both are recorded.
+# losses and parameters, its bf16 serve by finite logits: the one-process
+# bf16 step's own first moments lie O(1) of their scale from the fp32 step's
+# in its Mamba2 leaves (dt_bias, a_log, w_dt, the norms; PERF.md section 6),
+# and so do its deep bf16 logits from fp32 weights', so no split program can
+# be held to them in bf16; both are recorded.
 TP_FP32_CHECKS = (ZAMBA,)
 TP_FP32_STEPS = 1  # the fp32 steps (after one, the first moment is the gradient itself)
 TP_FP32_LAYERS = 4  # the fp32 checks' depth: one shared-attention point and four Mamba2 layers
@@ -4009,8 +4003,9 @@ def tp_rank(argv: list) -> int:
 
 def _tp_arch(arch: str, rank: int, world: int, device: str, reduced: bool) -> dict:
     """Phase 16 for one architecture on this rank: the training steps at
-    ``TP_TRAIN_LAYERS``' depth (full where it names none), then the serving
-    run at full depth; rank 0 first runs both as the one-process program."""
+    ``TP_TRAIN_LAYERS``' depth and the serving run at ``TP_SERVE_LAYERS``'
+    (full where they name none); rank 0 first runs both as the one-process
+    program."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -4034,8 +4029,9 @@ def _tp_arch(arch: str, rank: int, world: int, device: str, reduced: bool) -> di
     cfg = get_config(arch, reduced=reduced)
     if reduced:  # the CPU rehearsal holds the control flow in fp32 (bf16 rounding swamps a reduced zamba2)
         cfg = dataclasses.replace(cfg, remat="full", compute_dtype="float32")
-    cut = None if reduced else TP_TRAIN_LAYERS.get(arch)
+    cut, serve_cut = (None, None) if reduced else (TP_TRAIN_LAYERS.get(arch), TP_SERVE_LAYERS.get(arch))
     train_cfg = cfg if cut is None else dataclasses.replace(cfg, num_layers=cut)
+    cfg = cfg if serve_cut is None else dataclasses.replace(cfg, num_layers=serve_cut)
     api, train_api = build(cfg), build(train_cfg)
     if arch in TP_FP32_CHECKS:  # the fp32 checks' depth, and the same depth in bf16 for its own rounding's moments
         small = dataclasses.replace(train_cfg, num_layers=min(TP_FP32_LAYERS, train_cfg.num_layers))
@@ -4193,7 +4189,7 @@ def _tp_arch(arch: str, rank: int, world: int, device: str, reduced: bool) -> di
             torch.cuda.empty_cache()
         ref_logits = one_process_serve(api, compute_dtype(cfg))
         if fp32_api is not None:
-            # the one-process bf16 serve's own logits against fp32 weights' at full depth, then the
+            # the one-process bf16 serve's own logits against fp32 weights' at the served depth, then the
             # fp32 serve that the split one is held to
             whole32 = one_process_serve(build(dataclasses.replace(cfg, compute_dtype="float32")), torch.float32)
             out["ref_bf16_logits_rel"] = max(float((g - w).abs().max()) / float(w.abs().max())
@@ -4340,8 +4336,9 @@ def phase_tp(counter, device="cuda", reduced=False) -> dict:
         launches = {k: sum(r[k] for r in per) for k in keys}
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"]))
         out["archs"][arch] = dict(ranks=per, launches=launches, loss_rel=loss_rel)
-        depth = (f"training cut to {r0['train_layers']} of {r0['layers']} layers, serving at full depth"
-                 if r0["train_layers"] != r0["layers"] else f"{r0['layers']} layers")
+        full = get_config(arch, reduced=reduced).num_layers
+        depth = (f"{r0['layers']} layers" if r0["train_layers"] == r0["layers"] == full else
+                 f"training cut to {r0['train_layers']} and serving to {r0['layers']} of {full} layers")
         f32 = r0.get("fp32")
         log(f"tp (1, {TP_WORLD}) {arch} {'reduced' if reduced else 'full width'}, {depth}: losses {r0['losses']} "
             f"against {r0['ref_losses']} one-process (rel {loss_rel:.3e}); gathered parameters max |diff| "
@@ -4699,7 +4696,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card")
     train = phase_train(ref, counter)
-    log("training " + json.dumps({**train, "vjp": {str(k): r for k, r in train["vjp"].items()}}, default=str))
+    log("training " + json.dumps({**train, "full": {k: v for k, v in train["full"].items() if k != "state"},
+                                  "vjp": {str(k): r for k, r in train["vjp"].items()}}, default=str))
     distributed = phase_distributed(ref, counter, train["full"])
     log("distributed " + json.dumps(distributed, default=str))
     dry = phase_dryrun(ref, counter, during=lambda: phase_tp(counter))  # phase 16 while (b) traces

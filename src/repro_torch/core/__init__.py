@@ -15,7 +15,9 @@ Module map (paper section -> module):
 - orchestrator                          -> ``profiler``
 """
 
+from repro_torch.core.capping import CappingConfig, PowerCapController
 from repro_torch.core.contribution import (
+    activity_series,
     augment_with_principals,
     contribution_matrix,
     invocation_counts,
@@ -24,6 +26,7 @@ from repro_torch.core.contribution import (
 from repro_torch.core.disaggregation import (
     DisaggregationConfig,
     disaggregate,
+    per_invocation_energy,
     solve_nnls,
     solve_nnls_gram,
     solve_ridge,
@@ -62,12 +65,14 @@ from repro_torch.core.shapley import (
 from repro_torch.core.sync import apply_shift, estimate_skew, synchronize
 
 __all__ = [
+    "activity_series",
     "augment_with_principals",
     "contribution_matrix",
     "invocation_counts",
     "shared_principal_contribution",
     "DisaggregationConfig",
     "disaggregate",
+    "per_invocation_energy",
     "solve_nnls",
     "solve_nnls_gram",
     "solve_ridge",
@@ -101,4 +106,6 @@ __all__ = [
     "apply_shift",
     "estimate_skew",
     "synchronize",
+    "CappingConfig",
+    "PowerCapController",
 ]

@@ -124,6 +124,41 @@ def invocation_counts(
     return counts.reshape(num_windows, num_fns)
 
 
+def activity_series(
+    fn_id: torch.Tensor,
+    start: torch.Tensor,
+    end: torch.Tensor,
+    *,
+    num_fns: int,
+    num_bins: int,
+    t0: float = 0.0,
+    dt: float = 0.01,
+) -> torch.Tensor:
+    """(T, M) concurrent-invocation counts on a fine time grid, float32,
+    on the device of the trace.
+
+    Event-based: +1 at the bin containing ``start``, -1 at the bin
+    containing ``end`` (each dropped outside the grid, and both for
+    ``fn_id < 0``), with invocations that start before ``t0`` but end
+    inside the grid seeding the first bin, cumulative-summed along time.
+    The sums add small integers, exact in float32 in any order, so CUDA's
+    atomic adds cannot change a bit.  The simulator keeps its own numpy
+    twin (``telemetry.simulator._activity_numpy``) for the bitwise
+    telemetry chain.
+    """
+    sbin = torch.floor((start.to(torch.float32) - t0) / dt).to(torch.int64)
+    ebin = torch.floor((end.to(torch.float32) - t0) / dt).to(torch.int64)
+    valid = fn_id >= 0
+    f = torch.clamp(fn_id.to(torch.int64), 0, num_fns - 1)
+    events = torch.zeros(num_bins * num_fns, dtype=torch.float32, device=start.device)
+    for bins, sign in ((sbin, 1.0), (ebin, -1.0)):
+        ok = valid & (bins >= 0) & (bins < num_bins)
+        events.index_add_(0, torch.clamp(bins, 0, num_bins - 1) * num_fns + f, ok.to(torch.float32) * sign)
+    before = valid & (sbin < 0) & (ebin >= 0)
+    events[:num_fns].index_add_(0, f, before.to(torch.float32))
+    return torch.cumsum(events.reshape(num_bins, num_fns), dim=0)
+
+
 def shared_principal_contribution(
     principal_cpu_frac: torch.Tensor,
     system_cpu_frac: torch.Tensor,

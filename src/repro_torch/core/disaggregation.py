@@ -111,6 +111,16 @@ def solve_nnls(
     return solve_nnls_gram(gram, rhs, iters=iters)
 
 
+def per_invocation_energy(x_power: torch.Tensor, latency: torch.Tensor) -> torch.Tensor:
+    """J = X * tau (paper §4.1): per-invocation energy in joules.
+
+    Args:
+      x_power: (M,) per-function power (watts) while running.
+      latency: (M,) mean per-invocation latency (seconds).
+    """
+    return x_power * latency
+
+
 def disaggregate(
     c: torch.Tensor,
     w: torch.Tensor,

@@ -71,3 +71,11 @@ def synchronize(
     """Estimate skew of ``w`` vs reference ``r`` and return (w_aligned, skew)."""
     skew = estimate_skew(w, r, max_shift=max_shift)
     return apply_shift(w, skew), skew
+
+
+def denoise_median3(w: torch.Tensor) -> torch.Tensor:
+    """3-tap median pre-filter for spiky plug-meter samples, along the
+    first axis, the edges replicated."""
+    prev = torch.cat([w[:1], w[:-1]])
+    nxt = torch.cat([w[1:], w[-1:]])
+    return torch.median(torch.stack([prev, w, nxt]), dim=0).values

@@ -20,6 +20,8 @@ saved.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -39,6 +41,26 @@ def disagg_gram(c: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.T
 
 
 NEG_INF = -1e30  # the reference's mask sentinel: a masked score, never NaN
+
+
+def attention_dense(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, scale: float | None = None
+) -> torch.Tensor:
+    """Unblocked GQA attention in fp32, the score matrix materialised: the
+    simplest oracle, for small shapes (no path calls it).  ``q`` (B, S, H,
+    d), ``k``/``v`` (B, T, Hkv, d); causal rows end at the offset ``T - S``;
+    the output takes ``q``'s dtype."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, s, hkv, h // hkv, d).to(torch.float32)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32)) * scale
+    if causal:
+        live = torch.ones((s, t), dtype=torch.bool, device=q.device).tril(t - s)
+        scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return out.reshape(b, s, h, d).to(q.dtype)
 
 
 def flash_attention(

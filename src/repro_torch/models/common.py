@@ -448,6 +448,14 @@ def maybe_remat(fn: Callable, policy: str) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+def dense(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
+    """x @ w in the compute dtype of x, optional bias."""
+    out = x @ w.to(x.dtype)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
+
+
 def rms_norm(x: Tensor, gamma: Tensor, eps: float = 1e-5) -> Tensor:
     """RMSNorm in fp32 accumulation, cast back to input dtype."""
     xf = x.to(torch.float32)

@@ -1,4 +1,4 @@
-"""Telemetry substrate: power models and simulated sensor front-ends.
+"""Telemetry substrate: power models, simulated sensor front-ends, counters.
 
 On real deployments these modules wrap host telemetry readers (IPMI/BMC,
 plug meters via SCPI, RAPL, tegrastats — paper §5).  Here the same
@@ -7,6 +7,7 @@ the profiler never sees.  Numpy throughout; ``simulator`` hands the window
 grid over as float32 CPU tensors.
 """
 
+from repro_torch.telemetry.counters import function_counters, window_counters
 from repro_torch.telemetry.power_model import PowerModelConfig, NodePowerModel
 from repro_torch.telemetry.sources import (
     FleetPowerSignal,
@@ -33,6 +34,8 @@ __all__ = [
     "sense_fleet",
     "resample_to_windows",
     "resample_fleet",
+    "window_counters",
+    "function_counters",
     "NodeSimulator",
     "SimResult",
     "SimulatorConfig",

@@ -12,12 +12,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    instructions and the decode kernel's asynchronous loads (``LDGSTS`` or
    ``UTMALDG``) in their SASS (``cuobjdump``): none, or no ``cuobjdump``,
    fails the run.  The flash and decode plans' shared memory (and the
-   decode tile) must be what the built kernels compute.
+   decode tile) must be what the built kernels compute.  ptxas's registers
+   and spills of the decode kernel's d 128 instances at register groups 4
+   and 8 (the dense models' GQA groups 4, 5 and 6) are printed.
 2. Kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at its main path's shapes and at ragged ones, in bf16 and fp32
    for the attention and RMSNorm kernels (zamba2's d 112 at H = Hkv = 32,
-   seamless's non-causal encoder, cross-attention with S != T and decode
-   against a full static memory among them); per shape the kernel's, the plain
+   seamless's non-causal encoder, cross-attention with S != T, decode
+   against a full static memory, and flash and decode at GQA groups 4, 5
+   and 6 (the three dense models' 32, 40 and 48 heads over 8) at d 128,
+   at their classes' shapes in bf16 and ragged in both, among them); per
+   shape the kernel's, the plain
    version's and one PyTorch library call's device times (cold L2), the
    kernel's and the library call's warm back-to-back time per launch, and
    the memory/compute bound.  The decode and gram kernels must give the
@@ -128,8 +133,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    xlstm-350m, 3 chat requests; internvl2-2b, 3 requests of 256 patch
    embeddings + 256 tokens; the fp32 prefill/decode invariants of each;
    one decode step of olmoe, xlstm and the int8 cache under
-   ``torch.cuda.set_sync_debug_mode("error")``; then
-   ``repro_torch.launch.serve``'s defaults (the reference's mix, reduced)
+   ``torch.cuda.set_sync_debug_mode("error")``; granite-3-8b,
+   nemotron-4-15b and qwen2.5-14b at full width and depth from bf16
+   weights alone (qwen's QKV biases drawn non-zero), 3 requests each of the
+   two classes, their fp32 invariants and kernels against plain versions
+   on a copy cut to 4 layers, one decode step each under the sync gate;
+   then ``repro_torch.launch.serve``'s defaults (the reference's mix, reduced)
    and ``--archs zamba2-7b,seamless-m4t-large-v2``.  Each path's flash and
    decode launches must be one per attention layer (zamba2: per
    application point; seamless: encoder, decoder self- and
@@ -398,6 +407,28 @@ DECODE_ZAMBA_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129), 32, 32, 112)
                        (3, 1000, (1, 999, 500), 32, 32, 112)]
 DECODE_SEAMLESS = [(8, 576, (575,) * 8, 16, 16, 64), (2, 4112, (4111,) * 2, 16, 16, 64)]
 DECODE_STATIC = [(8, 512, (512,) * 8, 16, 16, 64), (2, 4096, (4096,) * 2, 16, 16, 64)]
+# The last three dense architectures, full width and depth, from bf16 weights
+# alone (16.8, 31.3 and 29.6 GB; fp32 masters beside the larger two would
+# not fit), in internlm2's two classes (3 requests each, 2:1); their fp32
+# invariants and kernels-against-plain run on a copy cut to
+# DENSE_CHECK_LAYERS layers, full width.  Each is H heads over Hkv 8 at
+# d 128: GQA groups 4 (granite), 5 (qwen2.5) and 6 (nemotron), so decode's
+# register group (``head_chunks``) is 4, 8 and 8, the last two with 3 and 2
+# dead heads.  qwen2.5's QKV biases are drawn 0.05 * N(0, 1) (their init
+# law is zeros), so that the bias path adds something.
+GRANITE, NEMOTRON, QWEN = "granite-3-8b", "nemotron-4-15b", "qwen2.5-14b"
+DENSE_ARCHS = {GRANITE: 32, QWEN: 40, NEMOTRON: 48}  # arch -> H (Hkv 8, d 128)
+DENSE_CHECK_LAYERS = 4
+DENSE_BIAS_STD = 0.05
+FLASH_DENSE = [(b, s, s, h, 8, HD, True) for h in DENSE_ARCHS.values() for b, s in ((8, 512), (2, 4096))]
+# Ragged at groups 5 and 6: S and T not tile multiples, S < T, S > T, not causal.
+FLASH_DENSE_RAGGED = [(1, 100, 333, 40, 8, HD, True), (2, 77, 77, 48, 8, HD, True),
+                      (1, 130, 200, 40, 8, HD, False), (1, 300, 200, 48, 8, HD, True)]
+DECODE_DENSE = [(b, smax, (smax - 1,) * b, h, 8, HD) for h in DENSE_ARCHS.values()
+                for b, smax in ((8, 576), (2, 4112))]
+# Ragged decode at groups 5 and 6: lengths 1 and a full cache (S_max).
+DECODE_DENSE_RAGGED = [(8, 576, (575, 1, 64, 65, 300, 2, 576, 129), 40, 8, HD),
+                       (3, 1000, (1, 999, 1000), 48, 8, HD), (2, 4112, (1, 4112), 48, 8, HD)]
 # Training (phase 13): internlm2-1.8b at full width and depth through
 # ``python -m repro_torch.launch.train`` (bf16 compute, fp32 masters, the
 # config's remat "full"), a crash after step 8's checkpoint, and a relaunch.
@@ -570,11 +601,39 @@ def _cuobjdump() -> str:
     raise RuntimeError("no cuobjdump (PATH, /usr/local/cuda/bin, triton/backends/nvidia/bin): cannot read the SASS")
 
 
+def ptxas_functions(nvcc_log: str) -> dict:
+    """Each compiled entry function in ``-Xptxas -v`` output -> its
+    registers, stack frame and spill stores and loads (bytes)."""
+    out: dict = {}
+    name = None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+#: The decode kernel's d 128 instances at register groups 4 and 8 (the dense
+#: models' GQA groups 4, 5 and 6): ``decode_kernel<T, 128, GC>``'s mangled names.
+DECODE_GROUP_INSTANCES = {f"{t} GC={gc}": f"decode_kernelI{m}Li128ELi{gc}E"
+                          for t, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f")) for gc in (4, 8)}
+
+
 def phase_build() -> float:
     """Compile every kernel at once (one nvcc each, each timed), load each,
     check that the tensor-core flash kernel's SASS holds wgmma (HGMMA) and
     TMA loads (UTMALDG) and the decode kernel's asynchronous copies
-    (LDGSTS or UTMALDG), and that the plans' geometry is the kernels'."""
+    (LDGSTS or UTMALDG), that the plans' geometry is the kernels', and log
+    the registers and spills of the decode kernel's d 128 group-4 and
+    group-8 instances."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import decode_attention, disagg_solve, flash_attention, rmsnorm
@@ -592,6 +651,13 @@ def phase_build() -> float:
                     or "bytes stack frame" in line or "warning" in line:
                 log(f"  nvcc {name}: {line.strip()}")
     log(f"build: {', '.join(f'{k}.cu' for k in KERNELS)} -> sm_90a in {dt:.2f} s (parallel)")
+    decode_fns = ptxas_functions(built["decode_attention"][0])  # empty when built before this run
+    if decode_fns:
+        for label, pattern in DECODE_GROUP_INSTANCES.items():
+            found = {k: v for k, v in decode_fns.items() if pattern in k}
+            assert found, f"ptxas reported no {pattern} (decode {label}, d 128)"
+            for fn, props in found.items():
+                log(f"ptxas decode_attention d=128 {label}: {props} ({fn})")
     counts = _sass_count(kbuild.library_path("flash_attention_tc"), ("HGMMA", "UTMALDG"))
     log(f"sass flash_attention_tc: {counts}")
     assert all(counts.values()), f"the tensor-core flash kernel's SASS lacks wgmma or TMA loads: {counts}"
@@ -2250,8 +2316,9 @@ def phase_attention_parity(ref) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         tol, tag = _tol(dtype), str(dtype).split(".")[1]
         flash_cases = FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_RAGGED
-        flash_cases += FLASH_ZAMBA + FLASH_ZAMBA_RAGGED + FLASH_SEAMLESS + FLASH_CROSS
-        flash_cases += FLASH_TP if dtype == torch.bfloat16 else []  # the split program's dtype
+        flash_cases += FLASH_ZAMBA + FLASH_ZAMBA_RAGGED + FLASH_SEAMLESS + FLASH_CROSS + FLASH_DENSE_RAGGED
+        # the split program's and the three dense models' serving dtype
+        flash_cases += FLASH_TP + FLASH_DENSE if dtype == torch.bfloat16 else []
         for b, s, t, h, hkv, d, causal in flash_cases:
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
             got = torch.ops.repro_torch.flash_attention(q, k, v, causal)
@@ -2262,7 +2329,8 @@ def phase_attention_parity(ref) -> dict:
             more = dict(variant=fa.variant(dtype, d))
             if bf16:
                 more["err_rms"] = _row_err(got, want)
-            if bf16 and (b, s, t, h, hkv, d, causal) in FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_ZAMBA:
+            key = (b, s, t, h, hkv, d, causal)
+            if bf16 and key in FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_ZAMBA + FLASH_DENSE:
                 more["planted_err_rms"] = _planted_tile_fault(ref, q, k, v, want, tol)
             reps = 5 if s * t > 2**22 else 25
             t_kernel = device_ms(lambda: torch.ops.repro_torch.flash_attention(q, k, v, causal), reps)
@@ -2270,16 +2338,22 @@ def phase_attention_parity(ref) -> dict:
             t_lib = None
             if s == t or not causal:  # SDPA's causal mask is not offset by T - S
                 qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-                t_lib = device_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
+                sdpa = lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal, enable_gqa=True)
+                t_lib = device_ms(lambda: sdpa(qt, kt, vt), reps)
+                if key in FLASH_DENSE:  # back-to-back over copies past the L2, as in a serving loop
+                    nbytes = flash_work(*key, dtype)[0]
+                    more["warm_ms"] = warm_ms(lambda *a: torch.ops.repro_torch.flash_attention(*a, causal), (q, k, v),
+                                              nbytes)
+                    more["library_warm_ms"] = warm_ms(sdpa, (qt, kt, vt), nbytes)
             _record(rows, ("flash_attention", (b, s, t, h, hkv, d, causal), tag), err, tol, t_kernel, t_plain,
                     t_lib, flash_work(b, s, t, h, hkv, d, causal, dtype), dtype,
                     f"flash {tag} B={b} S={s} T={t} H={h} Hkv={hkv} d={d} causal={causal}", **more)
         decode_cases = [((b, smax, lengths), H, HKV, HD) for b, smax, lengths in DECODE_MAIN + DECODE_RAGGED]
         decode_cases += [((b, smax, lengths, MOE_H, MOE_HKV), MOE_H, MOE_HKV, HD) for b, smax, lengths in DECODE_MOE]
         decode_cases += [(key, *key[3:]) for key in DECODE_ZAMBA + DECODE_ZAMBA_RAGGED + DECODE_SEAMLESS
-                         + DECODE_STATIC + (DECODE_TP if dtype == torch.bfloat16 else [])]
-        warm_keys = DECODE_ZAMBA + DECODE_SEAMLESS + DECODE_STATIC  # and the main and MoE ones
+                         + DECODE_STATIC + DECODE_DENSE_RAGGED
+                         + (DECODE_TP + DECODE_DENSE if dtype == torch.bfloat16 else [])]
+        warm_keys = DECODE_ZAMBA + DECODE_SEAMLESS + DECODE_STATIC + DECODE_DENSE  # and the main and MoE ones
         for key, h, hkv, d in decode_cases:
             b, smax, lengths = key[:3]
             q = rnd(b, h, d, dtype=dtype)
@@ -2354,12 +2428,25 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _draw_qkv_biases(params, device) -> None:
+    """Every attention layer's ``bq``/``bk``/``bv`` drawn in place,
+    ``DENSE_BIAS_STD`` * N(0, 1) in fp32 from a seeded generator (their
+    init law is zeros, which would leave the bias path adding nothing)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    with torch.no_grad():
+        for layer in params["layers"]:
+            for key in ("bq", "bk", "bv"):
+                bias = layer["attn"][key]
+                bias.copy_(DENSE_BIAS_STD * torch.randn(bias.shape, generator=gen, device=device))
+
+
 def build_model(device="cuda", reduced=False, arch=ARCH, layers=None, masters=True):
     """``arch`` (full width unless ``reduced``; ``layers`` cuts the depth):
     fp32 masters from a seeded generator on ``device``, and the bf16
     compute copy (the leaves the reference reads in fp32 stay fp32).  With
     ``masters=False`` only the bf16 copy is kept (drawn leaf by leaf in
-    fp32, as the masters are) and the masters come back None."""
+    fp32, as the masters are) and the masters come back None.  QKV biases
+    (qwen2.5) are drawn by ``_draw_qkv_biases``, the same in both copies."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -2375,9 +2462,13 @@ def build_model(device="cuda", reduced=False, arch=ARCH, layers=None, masters=Tr
     gen = torch.Generator(device=device).manual_seed(0)
     if masters:
         masters = materialize(api.params_def, gen, torch.float32)
+        if cfg.qkv_bias:
+            _draw_qkv_biases(masters, device)
         params = cast_params(masters, torch.bfloat16)
     else:
         masters, params = None, materialize(api.params_def, gen, torch.bfloat16)
+        if cfg.qkv_bias:
+            _draw_qkv_biases(params, device)
     _sync(device)
     n = sum(p.numel() for p in params.parameters())
     log(f"model {api.cfg.name}: {n:,} parameters, {api.cfg.num_layers} layers, d_model {api.cfg.d_model}, "
@@ -2931,8 +3022,10 @@ class LaunchCounter:
 
 def phase_families(ref, counter, device="cuda", reduced=False) -> dict:
     """zamba2-7b, seamless-m4t-large-v2, olmoe-1b-7b, deepseek-moe-16b
-    (depth cut), xlstm-350m, internvl2-2b, then the launcher; each path
-    watched and counted on its own."""
+    (depth cut), xlstm-350m, internvl2-2b, granite-3-8b, nemotron-4-15b and
+    qwen2.5-14b (full depth from bf16 weights alone, checked on a copy cut
+    to ``DENSE_CHECK_LAYERS``), then the launcher; each path watched and
+    counted on its own."""
     t0 = time.perf_counter()
     fam: dict = {}
     fam["zamba2"] = phase_family(ZAMBA, ZAMBA_CLASSES, ZAMBA_SCHEDULE, counter, ref, device, reduced,
@@ -2946,6 +3039,11 @@ def phase_families(ref, counter, device="cuda", reduced=False) -> dict:
     fam["deepseek"] = phase_deepseek(counter, ref, device, reduced)
     fam["xlstm"] = phase_family(XLSTM, XLSTM_CLASSES, XLSTM_SCHEDULE, counter, ref, device, reduced, gate=True)
     fam["vlm"] = phase_family(VLM, VLM_CLASSES, VLM_SCHEDULE, counter, ref, device, reduced)
+    for key, arch in (("granite", GRANITE), ("nemotron", NEMOTRON), ("qwen", QWEN)):
+        classes = {f"{arch}/chat": CLASSES[f"{ARCH}/chat"], f"{arch}/summarize": CLASSES[f"{ARCH}/summarize"]}
+        fam[key] = phase_family(arch, classes, [f"{arch}/chat", f"{arch}/chat", f"{arch}/summarize"], counter, ref,
+                                device, reduced, gate=True, vs_plain=True,
+                                check_layers=None if reduced else DENSE_CHECK_LAYERS)
     t1 = time.perf_counter()
     counter.zero()
     phase_launcher(ref, device)
@@ -2962,7 +3060,7 @@ def check_families(fam, int8_layers) -> None:
     assert int8["flash"] == int8_layers * (len(INT8_SCHEDULE) + 1) == int8["flash_tc"], int8
     assert int8["decode"] == 0, f"the int8 cache's decode runs the reference's plain path: {int8}"
     assert fam["int8"]["eff"] <= 1e-5, fam["int8"]["eff"]
-    for key in ("zamba2", "seamless", "olmoe", "xlstm", "vlm", "deepseek"):
+    for key in ("zamba2", "seamless", "olmoe", "xlstm", "vlm", "deepseek", "granite", "nemotron", "qwen"):
         got, (flash_want, decode_want) = fam[key]["launches"], fam[key]["expected"]
         assert (got["flash"], got["decode"]) == (flash_want, decode_want), (key, got, flash_want, decode_want)
         assert got["flash_tc"] == got["flash"], (key, got)
@@ -4709,15 +4807,17 @@ def main() -> int:
     log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))
 
     def new_rows(kernel, keys):
-        return [dict(shape=json.loads(json.dumps(k)), **{f: arows[(kernel, k, "bfloat16")][f] for f in (
-            "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}) for k in keys]
+        fields = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "warm_ms", "library_warm_ms")
+        rows_of = [(k, arows[(kernel, k, "bfloat16")]) for k in keys]
+        return [dict(shape=json.loads(json.dumps(k)), **{f: r[f] for f in fields if f in r}) for k, r in rows_of]
 
     paths = {"dense": (flash_launches, decode_launches), "train": (train["full"]["launches"], 0),
              "dryrun_real_step": (dry["local"]["flash_real"], 0),
              "tensor_parallel": (tpo["launches"]["train_flash"] + tpo["launches"]["serve_flash"],
                                  tpo["launches"]["serve_decode"])}
     paths.update({key: (fam[key]["launches"]["flash"], fam[key]["launches"]["decode"])
-                  for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "launcher")})
+                  for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "granite", "nemotron",
+                              "qwen", "launcher")})
     by_path = {k: dict(zip(("flash", "decode"), v)) for k, v in paths.items()}
     moe_decode = [k + (MOE_H, MOE_HKV) for k in DECODE_MOE]
     kernels = [
@@ -4739,6 +4839,7 @@ def main() -> int:
                  seamless_shapes=new_rows("flash_attention", FLASH_SEAMLESS),
                  cross_shapes=new_rows("flash_attention", FLASH_CROSS),
                  tp_shapes=new_rows("flash_attention", FLASH_TP),
+                 dense_shapes=new_rows("flash_attention", FLASH_DENSE),
                  training_shapes=[dict(shape=json.loads(json.dumps(k)), **r) for k, r in train["vjp"].items()],
                  training_launches_per_step=train["full"]["launches_per_step"]),
         _summary("decode_attention", "src/repro/kernels/decode_attention.py:119",
@@ -4748,7 +4849,8 @@ def main() -> int:
                  moe_shapes=new_rows("decode_attention", moe_decode),
                  zamba2_shapes=new_rows("decode_attention", DECODE_ZAMBA),
                  seamless_shapes=new_rows("decode_attention", DECODE_SEAMLESS),
-                 static_memory_shapes=new_rows("decode_attention", DECODE_STATIC)),
+                 static_memory_shapes=new_rows("decode_attention", DECODE_STATIC),
+                 dense_shapes=new_rows("decode_attention", DECODE_DENSE)),
         _summary("decode_attention_lse", "src/repro/kernels/decode_attention.py:119", tpo["merge"]["lse_launches"],
                  [arows[("decode_attention_lse", k, "bfloat16")] for k in DECODE_LSE], DECODE_LSE,
                  source="src/repro_torch/kernels/csrc/decode_attention.cu",

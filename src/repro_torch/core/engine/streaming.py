@@ -48,6 +48,7 @@ from repro_torch.distributed.sharding import Shards
 def fleet_stream_init(
     x0: Tensor,
     n_w: int,
+    config: EngineConfig = EngineConfig(),
     *,
     mesh=None,
     device: str | torch.device = DEFAULT_DEVICE,
@@ -58,7 +59,10 @@ def fleet_stream_init(
     previous session's final state, or another node's estimate (a warm
     handoff at a step boundary).  It is copied, and every carried tensor is
     a separate allocation, because ``fleet_step`` writes them in place.
-    ``n_w`` (ticks per Kalman step) sizes the ring buffer.
+    ``n_w`` (ticks per Kalman step) sizes the ring buffer.  ``config`` is
+    the engine configuration, taken where the reference takes it
+    (``run_fleet_stream`` passes it positionally); the initial state does
+    not depend on it, in the reference either.
 
     With ``mesh`` (a ``distributed.sharding.FleetMesh``) the result is a
     ``Shards`` tuple: one state per mesh device over its block of X_0's
@@ -68,7 +72,7 @@ def fleet_stream_init(
     if mesh is not None:
         mesh.validate(x0.shape[0])
         return Shards(
-            fleet_stream_init(x, n_w, device=dev)
+            fleet_stream_init(x, n_w, config, device=dev)
             for dev, x in zip(mesh.devices, mesh.split(x0))
         )
     dev = resolve_device(device)
@@ -238,7 +242,7 @@ def run_fleet_stream(
     inputs = plan.inputs
     x0 = plan.initial_estimate()
     b, s, n_w, m = inputs.c.shape
-    state = fleet_stream_init(x0, n_w, device=x0.device)
+    state = fleet_stream_init(x0, n_w, config, device=x0.device)
     ticks = _fleet_ticks_masked(inputs)
     traj = [x0.new_zeros((b, 0, m))]
     for t in range(s * n_w):

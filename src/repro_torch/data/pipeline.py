@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -76,13 +76,18 @@ def batch_iterator(api, shape: ShapeConfig, config: DataConfig = DataConfig(), *
         step += 1
 
 
-def prefetch_iterator(it: Iterator[Any], size: int = 2) -> Iterator[Any]:
+def prefetch_iterator(it: Iterator[Any], size: int = 2, *,
+                      transfer: Callable[[Any], Any] | None = None) -> Iterator[Any]:
     """Run ``it`` on a background thread, ``size`` elements ahead.
 
     The producer thread fills a bounded queue while the consumer drains it,
-    so host-side work (telemetry sensing) overlaps the consumer's dispatches.
+    so host-side work (telemetry sensing, batch synthesis, a host-to-device
+    copy) overlaps the consumer's dispatches.  ``transfer`` (e.g. a
+    ``.to(device, non_blocking=True)`` over a batch) runs on the producer
+    thread on each element before it is queued, so the consumer only ever
+    sees transferred elements.
 
-    Exceptions raised by ``it`` re-raise at the consuming
+    Exceptions raised by ``it`` or ``transfer`` re-raise at the consuming
     ``next()`` call with the producer's traceback attached.  When the
     consumer abandons the iterator early (``close()``/GC of the generator,
     or an exception in the consuming loop), the producer thread is
@@ -113,7 +118,7 @@ def prefetch_iterator(it: Iterator[Any], size: int = 2) -> Iterator[Any]:
     def _produce() -> None:
         try:
             for item in it:
-                if not _put((item, None)):
+                if not _put((item if transfer is None else transfer(item), None)):
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
             _put((done, e))

@@ -72,7 +72,7 @@ _lib.impl("flash_attention", lambda q, k, v, causal: fa.flash_attention(q, k, v,
 _lib.impl("flash_attention_lse", _flash_lse, "CUDA")
 _lib.impl("decode_attention", lambda q, kc, vc, lengths: da.decode_attention(q, kc, vc, lengths), "CUDA")
 _lib.impl("decode_attention_lse", _decode_lse, "CUDA")
-_lib.impl("rmsnorm", lambda x, gamma, eps: rn.rmsnorm(x, gamma, eps), "CUDA")
+_lib.impl("rmsnorm", lambda x, gamma, eps: rn.rmsnorm(x, gamma, eps=eps), "CUDA")
 _lib.impl("disagg_gram", lambda c, w: ds.disagg_gram(c, w), "CUDA")
 
 

@@ -53,7 +53,7 @@ def build() -> str:
     return log
 
 
-def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """CUDA kernel: x (..., d) float32/bfloat16, gamma (d,) any float type
     (used as fp32) -> x * rsqrt(mean(x^2) + eps) * gamma in x's dtype."""
     if x.device.type != "cuda" or gamma.device != x.device:

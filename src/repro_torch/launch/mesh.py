@@ -107,6 +107,8 @@ HBM_BW = 3.35e12              # bytes/s per card (NVIDIA datasheet)
 NVLINK_BW = 900e9             # bytes/s per card over its 18 NVLink-4 links, both directions (NVIDIA datasheet)
 LINK_BW = 50e9                # bytes/s per card between nodes: one 400 Gb/s NDR InfiniBand port (ConnectX-7) per
                               # GPU, each direction (NVIDIA DGX H100 datasheet: 8 ports of 400 Gb/s for 8 GPUs)
+ICI_LINK_BW = LINK_BW         # the reference's name for the roofline's collective link: a TPU's inter-chip link;
+                              # a pod of H100s spans nodes, so its twin is the per-card inter-node port above
 HBM_BYTES = 85_017_493_504    # device memory per card (H100 80GB HBM3, 700.00 W limit; measured total_memory)
 CHIP_IDLE_W = 69.97           # W drawn at rest (H100 80GB HBM3, 700.00 W limit; measured)
 CHIP_DYN_W = 630.03           # W above idle at the power limit: 700.00 - 69.97

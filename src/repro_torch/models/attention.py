@@ -202,7 +202,7 @@ def _decode_rows(q, k_cache, v_cache, lengths, axis, scales=None):
     return merge_partials(outs, lses)
 
 
-def _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis, kv_scales=None):
+def _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis, kv_scales=None, use_rope=True):
     """``attention_decode`` on this rank's "model" blocks of the weights and
     of the cache (module docstring); an int8 cache's row scales are split
     as its rows are."""
@@ -231,9 +231,11 @@ def _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis, kv_scales=N
     kv_axis = tp.split_of(p["wk"].shape[1], cfg.kv_dim)
     if on_rows and kv_axis is not None:
         k, v = tp.gather_from_model(k, kv_axis, -1), tp.gather_from_model(v, kv_axis, -1)
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q = apply_rope(q[:, None], positions, cfg.rope_theta)[:, 0]
-    k = apply_rope(k.reshape(b, 1, -1, hd), positions, cfg.rope_theta)[:, 0]
+    k = k.reshape(b, -1, hd)
+    if use_rope:
+        positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+        q = apply_rope(q[:, None], positions, cfg.rope_theta)[:, 0]
+        k = apply_rope(k[:, None], positions, cfg.rope_theta)[:, 0]
     v = v.reshape(b, -1, hd)
     lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
     row = pos - axis.rank * k_cache.shape[1] if on_rows else pos
@@ -264,11 +266,13 @@ def attention_decode(
     cfg: ArchConfig,
     *,
     memory_kv: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attention (k_mem, v_mem)
+    use_rope: bool = True,
     kv_scales=None,
 ):
     """Single-token decode step.  Returns (y (B,1,d), k_cache, v_cache),
     plus (k_scale, v_scale) when the cache is int8 (``kv_scales`` given:
-    (B, S_max, Hkv) row scales).
+    (B, S_max, Hkv) row scales).  ``use_rope=False`` leaves q and the new
+    K row without rotary positions, as ``attention_apply`` does.
 
     The reference returns updated copies of the (donated) caches; here the
     new K/V row (and its scales) is written in place at ``pos`` and the
@@ -285,7 +289,7 @@ def attention_decode(
     """
     axis = tp.split_of(p["wq"].shape[1], cfg.q_dim) or tp.split_of(p["wk"].shape[1], cfg.kv_dim)
     if axis is not None:
-        return _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis, kv_scales)
+        return _split_decode(p, x, pos, k_cache, v_cache, cfg, memory_kv, axis, kv_scales, use_rope)
     b = x.shape[0]
     if memory_kv is not None:
         k_mem, v_mem = memory_kv
@@ -295,10 +299,11 @@ def attention_decode(
         lengths = torch.full((b,), k_mem.shape[1], dtype=torch.int32, device=x.device)
         out = ops.decode_attention(q.reshape(b, cfg.num_heads, cfg.head_dim), k_mem, v_mem, lengths)
         return (out.reshape(b, cfg.q_dim) @ p["wo"])[:, None, :], k_cache, v_cache
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     (q, k, v), _ = _project_qkv(p, x, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
     if kv_scales is not None:
         k_scale, v_scale = kv_scales

@@ -1006,13 +1006,15 @@ class MeteredServer:
     Each registered (name, engine, batch) is a FaaS function class; ``serve``
     executes a request schedule and collects the *measured* invocation
     trace, which the caller profiles -- the energy-first serving path on
-    live compute.  (The reference's unused ``profiler_config`` argument is
-    dropped.)
+    live compute.  ``profiler_config`` is kept as an attribute for the
+    caller that profiles the trace, as the reference keeps it; the server
+    itself does not read it, in the reference either.
     """
 
-    def __init__(self):
+    def __init__(self, profiler_config: ProfilerConfig | None = None):
         self.functions: dict[str, tuple] = {}
         self.order: list[str] = []
+        self.profiler_config = profiler_config
 
     def register(self, name: str, engine, batch: dict, *, steps: int = 4) -> None:
         self.functions[name] = (engine, batch, steps)

@@ -75,11 +75,13 @@ class ServeEngine:
         return logits, cache
 
     @torch.no_grad()
-    def generate(self, batch: dict, steps: int):
+    def generate(self, batch: dict, steps: int, *, greedy: bool = True):
         """Prefill then ``steps - 1`` greedy decode steps: ``steps`` tokens
         per sequence, (B, steps) int32.  Tokens stay on the device; the only
         host synchronisation is the one at the end.  The greedy argmax runs
-        over the padded vocabulary, as the reference's does."""
+        over the padded vocabulary, as the reference's does; like the
+        reference's, it takes the argmax whatever ``greedy`` says (the
+        reference has no sampling path)."""
         start = self.clock()
         logits, cache = self.api.prefill(self.params, batch)
         cache = extend_cache(self.api, cache, steps)

@@ -16,7 +16,8 @@
 The ranks are ``python -c`` subprocesses meeting at a ``FileStore`` in a
 temporary directory (no TCP port), launched once for the module under a
 timeout of their own; each writes its results to an ``.npz`` that the
-tests read.
+tests read, waits at a barrier for the others, destroys its group and
+leaves without the interpreter's teardown (``run_ranks``).
 """
 
 import os
@@ -24,6 +25,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -38,23 +40,52 @@ N = 4
 E, C, D = 8, 3, 16  # (E, C, d) dispatch buffers: E_loc = 2 per rank
 
 
+#: Appended to every rank's code, after its results are written and its
+#: group destroyed: leave without the interpreter's teardown.  There, torch's
+#: gloo objects that the rank's globals still hold (the mesh, its groups)
+#: are destroyed while gloo's own threads run, and about one rank group in
+#: 60-150 under load died of SIGABRT ("terminate called without an active
+#: exception", raised in a C++ thread while the main thread had no Python
+#: frame left) after every collective had completed.
+RANK_EXIT = """
+import os as _os, sys as _sys
+_sys.stdout.flush()
+_sys.stderr.flush()
+_os._exit(0)
+"""
+
+
 def run_ranks(code: str, n: int, tmp: pathlib.Path, timeout: float = 240.0) -> None:
-    """Run ``code`` as ``n`` gloo ranks (argv: rank, world, tmp dir)."""
+    """Run ``code`` as ``n`` gloo ranks (argv: rank, world, tmp dir),
+    followed by ``RANK_EXIT``.
+
+    Each rank runs with ``faulthandler`` on (a fatal signal prints its
+    Python stack) and writes its output to ``tmp/rank{r}.log``, a file, so
+    no rank can block on a full pipe while this process waits on another.
+    The group fails, with every rank's exit code and the end of its log,
+    when a rank exits non-zero (the others are stopped at once) or when it
+    is still running ``timeout`` seconds after the start."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, "-c", textwrap.dedent(code), str(r), str(n), str(tmp)], cwd=ROOT,
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(n)]
-    errs = []
+    paths = [tmp / f"rank{r}.log" for r in range(n)]
+    procs = []
     try:
-        for p in procs:
-            _, err = p.communicate(timeout=timeout)
-            errs.append((p.returncode, err[-3000:]))
+        for r, path in enumerate(paths):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-X", "faulthandler", "-c", textwrap.dedent(code) + RANK_EXIT, str(r), str(n),
+                     str(tmp)], cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert all(rc == 0 for rc, _ in errs), errs
+    report = [(p.returncode, path.read_text()[-3000:]) for p, path in zip(procs, paths)]
+    assert all(rc == 0 for rc, _ in report), report
 
 
 RANK_CODE = """
@@ -86,6 +117,7 @@ RANK_CODE = """
         home = moe._a2a(y.detach(), group, 1, 0, dtype)
         out[f"{name}_fwd"], out[f"{name}_bwd"], out[f"{name}_home"] = y.detach().numpy(), g.numpy(), home.numpy()
     np.savez(f"{tmp}/rank{rank}.npz", **out)
+    dist.barrier()  # no rank tears its group down while a peer's last exchange is in flight
     dist.destroy_process_group()
 """
 

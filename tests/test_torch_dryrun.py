@@ -399,6 +399,7 @@ RANK_CODE = f"""
         out[name] = dict(bytes=counter.collective_bytes(), by_axis=dict(counter.by_axis), calls=dict(counter.calls))
     with open(f"{{tmp}}/rank{{rank}}.json", "w") as f:
         json.dump(out, f)
+    dist.barrier()  # no rank tears its group down while a peer's last exchange is in flight
     dist.destroy_process_group()
 """
 

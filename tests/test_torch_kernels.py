@@ -489,6 +489,10 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (2, 300, 300, 8, 8, 112, True),    # d 112 (zamba2): the second panel half zero-filled by TMA
     (1, 100, 333, 4, 4, 112, True),    # d 112, S < T, neither a tile multiple
     (1, 130, 200, 8, 2, 112, False),   # d 112 not causal, S != T (cross-attention), group 4
+    (1, 100, 333, 40, 8, 128, True),   # group 5 (qwen2.5-14b's 40 heads over 8), S < T, neither a tile multiple
+    (2, 130, 130, 48, 8, 128, False),  # group 6 (nemotron-4-15b's 48 over 8), not causal
+    (1, 300, 200, 48, 8, 128, True),   # group 6, S > T: the first 100 rows have no live key
+    (1, 1000, 1000, 40, 8, 128, True), # group 5, 8 key tiles: the ring wraps
 ]
 
 
@@ -577,7 +581,11 @@ def test_cuda_flash_backward_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_at
      (1, 257, 16, 1, 32, [257]),          # G 16: two head chunks of 8
      (8, 576, 32, 32, 112, [575, 1, 64, 65, 576, 2, 300, 129]),  # d 112 (zamba2): 16 lanes a key, 2 idle
      (2, 3000, 32, 32, 112, [2999, 17]),  # d 112, a cluster of 2 slices
-     (3, 100, 8, 2, 112, [100, 0, 33])],  # d 112, G 4
+     (3, 100, 8, 2, 112, [100, 0, 33]),  # d 112, G 4
+     (3, 1000, 32, 8, 128, [1, 999, 500]),  # G 4 (granite-3-8b): a register group of 4
+     (8, 576, 40, 8, 128, [575, 1, 64, 65, 576, 2, 300, 129]),  # G 5 (qwen2.5-14b): a group of 8, 3 heads dead
+     (2, 4112, 48, 8, 128, [4111, 1]),   # G 6 (nemotron-4-15b): a group of 8, 2 heads dead, a cluster of 8
+     (4, 300, 40, 8, 128, [300, 0, 17, 299])],  # G 5 with a sequence of length 0
 )
 def test_cuda_decode_vs_plain(b, s, h, hkv, d, lengths, dtype, cuda_attention):
     da = cuda_attention[1]
@@ -753,7 +761,7 @@ def test_decode_split_plan(b, hkv, s_max, dtype, sms):
         assert chunk >= da.MIN_SLICE_TILES * tile and b * hkv * splits <= 2 * da.BLOCKS_PER_SM * sms
 
 
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8, 12, 16, 32])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 6, 8, 12, 16, 32])
 def test_decode_head_chunks(g):
     """A block serves at most MAX_GROUP query heads: G splits into as few
     chunks as will do, each within a power-of-two register group."""

@@ -117,6 +117,7 @@ RANK_CODE = """
             for k in ("nll", "moe_aux"):
                 out[f"{arch}/full/{k}"] = metrics[k].numpy()
     np.savez(f"{tmp}/rank{rank}.npz", **out)
+    dist.barrier()  # no rank tears its group down while a peer's last exchange is in flight
     dist.destroy_process_group()
 """
 

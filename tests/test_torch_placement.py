@@ -154,6 +154,7 @@ RANK_CODE = f"""
     out["launch/bitwise"] = np.array(all(np.array_equal(a1[k], a2[k]) for k in a1))
     if rank == 0:
         np.savez(f"{{tmp}}/out.npz", **out)
+    dist.barrier()  # no rank tears its group down while a peer's last exchange is in flight
     dist.destroy_process_group()
 """
 

@@ -18,7 +18,9 @@ loads the same arrays.  On each mesh:
   heads, split), zamba2 at ``ssm_head_dim`` 64 (2 Mamba2 heads: at "model"
   4 they do not divide, its ``d_inner`` of 128 does), xlstm (2 heads: the
   mLSTM on its heads at 2, on its channels at 4; the sLSTM's input product
-  split), the int8 cache on internlm2 (serve: kv heads at 2, kv_seq at 4);
+  split), the int8 cache on internlm2 (serve: kv heads at 2, kv_seq at 4),
+  reduced qwen2.5 (5 heads over Hkv 1, the QKV biases split with their
+  columns; its cache on kv_seq at 2 and 4);
 - under ``SERVE_RULES``: the prefill's logits (gathered over "model") and
   the cache block each rank keeps (its kv heads, or its rows; zamba2's SSM
   state on its heads and conv tail on its channels; the mLSTM's memory on
@@ -85,6 +87,7 @@ CASES = {
     "xlstm": ("xlstm-350m", {}, ("train", "serve")),
     "zamba2_hd64": ("zamba2-7b", {"ssm_head_dim": 64}, ("train", "serve")),
     "int8": ("internlm2-1.8b", {"kv_cache_dtype": "int8"}, ("serve",)),
+    "qwen": ("qwen2.5-14b", {}, ("train", "serve")),
 }
 MESHES = {2: (1, 2), 4: (1, 4)}
 #: Cases run on some of the meshes only: zamba2 at ``ssm_head_dim`` 64 is
@@ -285,6 +288,7 @@ RANK_CODE = """
                         out[f"{name}/decode/cache/{k}/r{rank}"] = v.float().numpy()
                         out[f"{name}/decode/cache/{k}/r{rank}/dim"] = np.array(split_dim(v, c_whole[k]))
     np.savez(f"{tmp}/rank{rank}.npz", **out)
+    dist.barrier()  # no rank tears its group down while a peer's last exchange is in flight
     dist.destroy_process_group()
 """
 
@@ -471,9 +475,10 @@ def test_no_collective_a_token(ranks, world, name):
 
 @pytest.mark.parametrize(("world", "name"), _cases("serve"))
 def test_decode_over_the_cache_where_it_lies(ranks, world, name):
-    """Three steps; at "model" 4 reduced internlm2's and nemotron's caches
-    are split on kv_seq (blocks of 4 rows), and the last block holds no
-    live row in any step."""
+    """Three steps; a dense cache whose kv heads do not divide "model" is
+    split on kv_seq (reduced internlm2's and nemotron's Hkv 2 at 4, in
+    blocks of 4 rows, the last holding no live row in any step; reduced
+    qwen's Hkv 1 at 2 and 4), else on its kv heads."""
     want = _one_process(name)
     cfg = _cfg(name)
     dims = set()
@@ -484,9 +489,9 @@ def test_decode_over_the_cache_where_it_lies(ranks, world, name):
             dim = int(out[f"{name}/decode/cache/{k}/r{rank}/dim"])
             dims.add((k, dim))
             _close(out[f"{name}/decode/cache/{k}/r{rank}"], _block(v, dim, world, rank), k)
-    if cfg.family == "dense" and world == 4:  # Hkv 2 does not divide 4: the rows are split
+    if cfg.family == "dense" and cfg.num_kv_heads % world:  # Hkv does not divide "model": the rows are split
         assert ("k", 2) in dims and PROMPT + STEPS <= 3 * S_MAX // world
-    elif cfg.family == "dense":  # Hkv 2 divides 2: the kv heads are
+    elif cfg.family == "dense":  # Hkv divides "model": the kv heads are
         assert ("k", 3) in dims
 
 

@@ -8,17 +8,22 @@
   be a ``def``, a ``class``, an assignment or an import; a method may come
   from a base class of the same module);
 - every reference package's ``__all__`` is contained in its twin's;
+- every public function and public method (``__init__`` included) whose
+  twin is a ``def`` of the same name takes the reference's parameters:
+  each under its name, of its kind (positional, positional or keyword,
+  ``*``, keyword-only, ``**``), the positional ones at their place; a
+  parameter the port adds is named too (``f(+name)``);
 - every function of ``src/repro/kernels/`` whose body holds a
   ``pl.pallas_call`` (the sites of ``PERF.md``'s kernel table) has a
   ``repro_torch::<name>`` custom op defined in ``kernels/ops.py``.
 
-Arguments are not compared: the port keeps the reference's signatures
-apart from the Pallas tuning arguments (``interpret``, ``q_block``,
-``kv_block``, ``n_block``, ``row_block``).  The port's departures are the
-``DEPARTURES`` below, each with its reason (ROADMAP Queue 3 lists them);
-an entry that no longer matches a missing twin fails, so the list cannot
-outlive what it excuses.  ``test_walker_reports_each_fault`` runs the
-walker on small synthetic trees, so the test cannot pass vacuously.
+The port's departures are the ``DEPARTURES`` below (by dotted name, a
+parameter as ``f(name)``) and the ``PARAMETER_DEPARTURES`` (a parameter
+name wherever it appears: the Pallas tuning arguments, the port's
+``device``), each with its reason (ROADMAP Queue 3 lists them); an entry
+that no longer matches a missing twin fails, so the list cannot outlive
+what it excuses.  ``test_walker_reports_each_fault`` runs the walker on
+small synthetic trees, so the test cannot pass vacuously.
 """
 
 import ast
@@ -54,6 +59,43 @@ DEPARTURES = {
     "repro.distributed.collectives.collective_bytes_from_compiled": _HLO,
     "repro.distributed.collectives.collective_bytes_structured": _HLO,
     "repro.core.engine.Array": "the type alias jax.Array",
+    "repro.distributed.collectives.compressed_psum(axis_name)": (
+        "names a vmap/shard_map axis; the port reduces over a torch.distributed process group, its (+group)"),
+    "repro.distributed.collectives.compressed_psum(+group)": (
+        "the process group of the reduction, the twin of the reference's named axis (axis_name)"),
+    "repro.models.common.materialize(+trainable)": (
+        "makes the fp32 masters of the training path require grad; a JAX tree carries no gradient flag"),
+    "repro.models.mlp.mlp_apply(+d_ff)": (
+        "the MLP's hidden width, so that a narrower weight is read as this rank's 'model' block (tensor parallelism)"),
+    "repro.launch.dryrun.lower_cell(+mesh)": (
+        "the mesh to trace on (the pod, the multipod, a card's (1, 1) or a small fake world); the reference's "
+        "is fixed by multi_pod"),
+    "repro.training.train_step.jit_train_step(+accum_steps)": (
+        "make_train_step's gradient accumulation, which the dry run's cells pass through"),
+    "repro.training.train_step.jit_train_step(+cast_params)": (
+        "make_train_step's bf16 compute copy of the masters, which the dry run's cells pass through"),
+    "repro.models.common.cross_entropy_loss(+padded_vocab)": (
+        "the model's padded vocabulary, so that narrower logits are read as a vocab-parallel block"),
+    "repro.models.common.chunked_lm_loss(+padded_vocab)": (
+        "the model's padded vocabulary, so that a narrower unembedding is read as a vocab-parallel block"),
+}
+_PALLAS = "a Pallas tuning argument (grid blocks, interpret mode); the CUDA kernel plans its own launch"
+_KEY = "a jax.random key; the port draws from a torch.Generator, its (+generator)"
+#: Parameter names excused wherever they appear: ``name`` a reference
+#: parameter the port does not take, ``+name`` one the port adds.
+PARAMETER_DEPARTURES = {
+    "interpret": _PALLAS,
+    "q_block": _PALLAS,
+    "kv_block": _PALLAS,
+    "n_block": _PALLAS,
+    "row_block": _PALLAS,
+    "rng": _KEY,
+    "+generator": "a torch.Generator, the twin of the reference's jax.random key (rng)",
+    "+device": "the torch device the entry point runs on (the card unless the caller asks for the CPU)",
+    "+device_type": "the torch device type of a DeviceMesh (cuda on the card, cpu in the gloo tests)",
+    "+lse": "the kernel's optional log-sum-exp store (the flash VJP, the kv_seq merge); the reference returns none",
+    "+return_lse": "the plain version's log-sum-exp, the oracle of the kernels' lse store",
+    "+argv": "the launcher's argument list (sys.argv when None), so that tests and chip_smoke.py call it in-process",
 }
 
 
@@ -156,7 +198,69 @@ def module_gaps(ref_root: pathlib.Path, port_root: pathlib.Path, rel: pathlib.Pa
     want = exports(ref_tree)
     if want is not None:
         gaps |= {f"{name}.{e}" for e in want - (exports(port_tree) or set())}
+    return gaps | signature_gaps(name, ref_tree, port_tree)
+
+
+_KINDS = {"posonlyargs": "positional", "args": "positional or keyword", "kwonlyargs": "keyword"}
+_POSITIONAL = ("positional", "positional or keyword")
+
+
+def parameters(fn) -> list:
+    """(name, kind) of each parameter of a ``def``, in order."""
+    a = fn.args
+    out = [(x.arg, _KINDS["posonlyargs"]) for x in a.posonlyargs] + [(x.arg, _KINDS["args"]) for x in a.args]
+    if a.vararg:
+        out.append((a.vararg.arg, "*"))
+    out += [(x.arg, _KINDS["kwonlyargs"]) for x in a.kwonlyargs]
+    if a.kwarg:
+        out.append((a.kwarg.arg, "**"))
+    return out
+
+
+def _defs(tree: ast.Module) -> dict:
+    """Top-level functions and the methods of top-level classes ->
+    their ``def`` node, keyed ``f`` and ``C.m``."""
+    out = {}
+    for node in _body(tree.body):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            for member in _body(node.body):
+                if isinstance(member, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out[f"{node.name}.{member.name}"] = member
+    return out
+
+
+def signature_gaps(name: str, ref_tree: ast.Module, port_tree: ast.Module) -> set:
+    """``name.f(p)`` for each parameter ``p`` of a public reference
+    function or method (``__init__`` included) that its ``def`` twin does
+    not take by the same name and kind, positional ones at the same place;
+    ``name.f(+p)`` for each parameter that the twin adds."""
+    port = _defs(port_tree)
+    gaps = set()
+    for key, fn in _defs(ref_tree).items():
+        if key not in port or any(not _public(part) for part in key.split(".") if part != "__init__"):
+            continue
+        want, have = parameters(fn), parameters(port[key])
+        have_kind = dict(have)
+        want_pos = [n for n, k in want if k in _POSITIONAL]
+        have_pos = [n for n, k in have if k in _POSITIONAL]
+        for n, k in want:
+            moved = k in _POSITIONAL and (n not in have_pos or have_pos.index(n) != want_pos.index(n))
+            if have_kind.get(n) != k or moved:
+                gaps.add(f"{name}.{key}({n})")
+        gaps |= {f"{name}.{key}(+{n})" for n, _ in have if n not in dict(want)}
     return gaps
+
+
+def _parameter(gap: str) -> str | None:
+    """The parameter part of a gap (``p`` or ``+p``), or None."""
+    m = re.search(r"\((\+?\w+)\)$", gap)
+    return m.group(1) if m else None
+
+
+def excused(gap: str, departures: dict, parameter_departures: dict) -> bool:
+    return gap in departures or _parameter(gap) in parameter_departures
 
 
 def reference_modules(ref_root: pathlib.Path) -> list:
@@ -168,10 +272,13 @@ def gaps(ref_root: pathlib.Path, port_root: pathlib.Path, package: str) -> set:
     return set().union(*(module_gaps(ref_root, port_root, rel, package) for rel in reference_modules(ref_root)))
 
 
-def problems(found: set, departures: dict) -> list:
+def problems(found: set, departures: dict, parameter_departures: dict | None = None) -> list:
     """Gaps that no departure excuses, and departures that excuse nothing."""
-    return ([f"no twin: {g}" for g in sorted(found - departures.keys())]
-            + [f"stale departure: {d}" for d in sorted(departures.keys() - found)])
+    by_name = parameter_departures or {}
+    used = {_parameter(g) for g in found}
+    return ([f"no twin: {g}" for g in sorted(found) if not excused(g, departures, by_name)]
+            + [f"stale departure: {d}" for d in sorted(departures.keys() - found)]
+            + [f"stale parameter departure: {p}" for p in sorted(by_name.keys() - used)])
 
 
 def pallas_functions(kernels_dir: pathlib.Path) -> set:
@@ -212,17 +319,20 @@ def custom_ops(ops_path: pathlib.Path, namespace: str = "repro_torch") -> set:
 def test_module_twins(rel):
     """The module's twin, its names and members (for a package, its
     ``__all__`` inside the twin's), but for the listed departures."""
-    unexcused = sorted(module_gaps(REF, PORT, rel, "repro") - DEPARTURES.keys())
+    unexcused = sorted(g for g in module_gaps(REF, PORT, rel, "repro")
+                       if not excused(g, DEPARTURES, PARAMETER_DEPARTURES))
     assert not unexcused, f"{rel}: no twin in src/repro_torch for {unexcused}"
 
 
 def test_no_stale_departure():
-    stale = [p for p in problems(gaps(REF, PORT, "repro"), DEPARTURES) if p.startswith("stale")]
+    stale = [p for p in problems(gaps(REF, PORT, "repro"), DEPARTURES, PARAMETER_DEPARTURES)
+             if p.startswith("stale")]
     assert not stale, stale
 
 
 def test_every_departure_has_a_reason():
-    assert all(isinstance(r, str) and len(r) > 20 for r in DEPARTURES.values())
+    reasons = list(DEPARTURES.values()) + list(PARAMETER_DEPARTURES.values())
+    assert all(isinstance(r, str) and len(r) > 20 for r in reasons)
 
 
 def test_every_pallas_kernel_has_a_custom_op():
@@ -245,12 +355,14 @@ def _write(root: pathlib.Path, files: dict) -> pathlib.Path:
 
 
 def test_walker_reports_each_fault(tmp_path):
-    """A missing function, method, field, export and module, and a stale
-    departure, each reported by name; a complete twin reports nothing."""
+    """A missing function, method, field, export and module, a parameter
+    missing, of another kind, moved or added, and a stale departure, each
+    reported by name; a complete twin reports nothing."""
     ref = _write(tmp_path / "ref", {
         "__init__.py": "from .a import f, g\n__all__ = ['f', 'g']\n",
         "a.py": ("import dataclasses\n\n"
-                 "def f():\n    pass\n\n"
+                 "def f(x, y=1, *, flag=True):\n    pass\n\n"
+                 "def k(a, b):\n    pass\n\n"
                  "def g():\n    pass\n\n"
                  "def _private():\n    pass\n\n"
                  "@dataclasses.dataclass\nclass C:\n    x: int = 0\n    y: int = 0\n\n"
@@ -262,13 +374,16 @@ def test_walker_reports_each_fault(tmp_path):
         "__init__.py": "from .a import f\n__all__ = ['f']\n",
         "a.py": ("class Base:\n    def m(self):\n        pass\n\n"
                  "class C(Base):\n    x: int = 0\n\n"
-                 "def f():\n    pass\n"),
+                 "def f(x, *, y=1, extra=None):\n    pass\n\n"
+                 "def k(b, a):\n    pass\n"),
     })
     found = gaps(ref, port, "pkg")
-    assert found == {"pkg.g", "pkg.a.g", "pkg.a.C.y", "pkg.a.C.n", "pkg.b"}, found
-    assert problems(found, {"pkg.b": "a shim", "pkg.zzz": "excuses nothing"}) == [
-        "no twin: pkg.a.C.n", "no twin: pkg.a.C.y", "no twin: pkg.a.g", "no twin: pkg.g",
-        "stale departure: pkg.zzz"]
+    assert found == {"pkg.g", "pkg.a.g", "pkg.a.C.y", "pkg.a.C.n", "pkg.b", "pkg.a.f(y)", "pkg.a.f(flag)",
+                     "pkg.a.f(+extra)", "pkg.a.k(a)", "pkg.a.k(b)"}, found
+    assert problems(found, {"pkg.b": "a shim", "pkg.zzz": "excuses nothing", "pkg.a.f(flag)": "a Pallas flag"},
+                    {"+extra": "the port's", "+zzz": "excuses nothing"}) == [
+        "no twin: pkg.a.C.n", "no twin: pkg.a.C.y", "no twin: pkg.a.f(y)", "no twin: pkg.a.g", "no twin: pkg.a.k(a)",
+        "no twin: pkg.a.k(b)", "no twin: pkg.g", "stale departure: pkg.zzz", "stale parameter departure: +zzz"]
     kernels = _write(tmp_path / "kernels", {
         "k.py": "def kern(x):\n    return pl.pallas_call(body)(x)\n\ndef other(x):\n    return kern(x)\n",
         "ops.py": "_lib.define('other_op(Tensor x) -> Tensor')\nOP = 'repro_torch::third'\n",
@@ -280,6 +395,8 @@ def test_walker_reports_each_fault(tmp_path):
     _write(port, {"b.py": "from .a import f as h\n",
                   "__init__.py": "from .a import f, g\n__all__ = ['f', 'g', 'extra']\n",
                   "a.py": ("class C:\n    x: int = 0\n    y = 1\n\n    def m(self):\n        pass\n\n"
-                           "    n = m\n\ndef f():\n    pass\n\ng = f\n")})
-    assert gaps(ref, port, "pkg") == set()
+                           "    n = m\n\ndef f(x, y=1, *, flag=True, device=None):\n    pass\n\ng = f\n\n"
+                           "def k(a, b):\n    pass\n")})
+    assert gaps(ref, port, "pkg") == {"pkg.a.f(+device)"}
+    assert problems({"pkg.a.f(+device)"}, {}, {"+device": "the port's"}) == []
     assert problems(set(), {}) == []

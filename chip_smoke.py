@@ -9,10 +9,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    switches TF32 off, builds every CUDA source of ``src/repro_torch`` at
    once (one nvcc each), prints each one's build time and ptxas report,
    and counts the tensor-core flash kernel's ``HGMMA`` and ``UTMALDG``
-   instructions and the decode kernel's asynchronous loads (``LDGSTS`` or
-   ``UTMALDG``) in their SASS (``cuobjdump``): none, or no ``cuobjdump``,
-   fails the run.  The flash and decode plans' shared memory (and the
-   decode tile) must be what the built kernels compute.  ptxas's registers
+   instructions, the decode kernel's asynchronous loads (``LDGSTS`` or
+   ``UTMALDG``) and the flash backward's tensor-core instance's ``HMMA``
+   (``mma.sync``) and ``LDSM`` (``ldmatrix``) in their SASS
+   (``cuobjdump``): none, or no ``cuobjdump``, fails the run.  The flash
+   and decode plans' shared memory (and the decode tile) must be what the
+   built kernels compute.  ptxas's registers
    and spills of the decode kernel's d 128 instances at register groups 4
    and 8 (the dense models' GQA groups 4, 5 and 6) are printed.
 2. Kernel parity: each CUDA kernel against its plain PyTorch version on
@@ -144,13 +146,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    application point; seamless: encoder, decoder self- and
    cross-attention) per prefill and per decode step.
 13. Training, after the families' weights are freed: (a) the flash VJP at
-   bf16 d 64/112/128 (the tensor-core forward) and fp32 (the FMA forward),
-   causal and not, S = T and S < T: the hand forward's out and lse against
-   the plain ``flash_fwd``, and dq, dk, dv through ``ops.flash_attention``'s
-   autograd Function against autograd through a dense fp32 attention, with
-   the forward timed with and without its lse store, ``flash_bwd``, and
-   SDPA's forward and backward; (b) internlm2-1.8b cut to 2 layers at full
-   width, fp32: one ``make_train_step`` on the card and on the CPU (loss,
+   bf16 d 64/112/128 (the tensor-core kernels) and fp32 (the FMA kernels),
+   causal and not, S = T and S < T, and at phase 16's ranks' training
+   calls (internlm2's and zamba2's heads a rank, zamba2's in fp32 too): the
+   hand forward's out and lse against
+   the plain ``flash_fwd``, the backward kernels' dq, dk, dv against the
+   plain ``flash_bwd`` on the same inputs, and dq, dk, dv through
+   ``ops.flash_attention``'s autograd Function (the hand forward, then the
+   hand backward, one launch each) against autograd through a dense fp32
+   attention, with the forward timed with and without its lse store, the
+   backward kernels (cold, and warm at the training shape), ``flash_bwd``,
+   and SDPA's forward and backward; (b) internlm2-1.8b cut to 2 layers at
+   full width, fp32: one ``make_train_step`` on the card and on the CPU (loss,
    gradients) and the AdamW update from the same gradients; (c)
    internlm2-1.8b at full width and depth through
    ``repro_torch.launch.train.main`` (12 steps, batch 4 x 2048, bf16
@@ -160,9 +167,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    8-11 and final parameters bitwise (the step is deterministic on the
    card); two 21.19 GiB states written in all, under the machine's
    45 GiB of disk writes a call; finite and falling losses; exactly 2 x
-   24 flash launches a step, all tensor-core; one warm step traced on the
-   straight run's final state (busy, idle share, the flash forward's and
-   ``flash_bwd``'s shares), step time, tokens/s, 6ND against 989 TFLOP/s,
+   24 flash launches a step, all tensor-core, and 24 of the backward; one
+   warm step traced on the straight run's final state (busy, idle share,
+   the flash forward kernels' and the backward kernels' shares, read by
+   kernel name), step time, tokens/s, 6ND against 989 TFLOP/s,
    peak memory; the relaunch's final state is kept for phase 14 (e).
    The launcher places the state on the local mesh (1, 1) ("data",
    "model") under ``TRAIN_RULES``; on one device every leaf stays a plain
@@ -188,8 +196,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    tensors on the (1, 1) mesh of a one-rank fake world, then one real step
    of it on a fresh state under ``FlopCounterMode``: the trace's
    ``flash_attention_lse`` ops must equal the real step's flash launches
-   (48), its FLOPs the real step's exactly, and its ``peak_bytes_est`` the
-   real step's ``max_memory_allocated`` above what was allocated before,
+   (48) and its ``flash_attention_bwd`` ops the real step's backward
+   launches (24), its FLOPs the real step's exactly, and its
+   ``peak_bytes_est`` the real step's ``max_memory_allocated`` above what was allocated before,
    within 15 %; (b) internlm2-1.8b train_4k, olmoe-1b-7b train_4k under the
    EP rules, internlm2-1.8b prefill_32k and decode_32k, and zamba2-7b
    train_4k and prefill_32k (each ``peak_bytes_est`` within a card's 79.18
@@ -216,8 +225,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    after the steps, the prefill's and decode steps' logits, against rank
    0's, at ``TP_TOL``'s bounds (zamba2's first moments and logits from a
    step and a serve in fp32 cut to 4 layers, ``TP_FP32_CHECKS``);
-   tensor-core flash at the ranks' heads (d 128 and 112), decode on the
-   ranks' kv heads.  Phase 15 (b)'s worker processes trace beside it.
+   tensor-core flash, forward and backward, at the ranks' heads (d 128
+   and 112), decode on the ranks' kv heads.  Phase 15 (b)'s worker
+   processes trace beside it.
    Then in this process the kv_seq merge alone: a 32,768-row cache cut
    into 16 blocks (internlm2 decode_32k's block on the pod), each through
    the ``decode_attention_lse`` op at its clipped lengths, merged by
@@ -231,8 +241,8 @@ after (every bf16 flash launch of the serving paths must be a tensor-core
 one); while the fleet, streaming, combined, control, elastic and serving
 paths run, the plain versions are watched, and a CUDA tensor reaching one
 fails the run (the launches that compare a kernel with its plain version
-are outside those paths); ``flash_fwd``, the plain forward of the
-training path, is watched too.
+are outside those paths); ``flash_fwd`` and ``flash_bwd``, the plain
+forward and backward of the training path, are watched too.
 
 Output: one line per measurement, a ``combined_control {...}`` JSON line of
 phases 5-6, an ``elastic {...}`` one of phase 7, a ``families {...}``
@@ -642,6 +652,7 @@ def phase_build() -> float:
     built = kbuild.compile_all(list(KERNELS))
     for mod in (disagg_solve, flash_attention, decode_attention, rmsnorm):
         mod.build()
+    flash_attention.build_bwd()
     dt = time.perf_counter() - t0
     for name in KERNELS:
         nvcc_log, secs = built[name]
@@ -664,6 +675,9 @@ def phase_build() -> float:
     counts = _sass_count(kbuild.library_path("flash_attention_tc"), ("HGMMA", "UTMALDG"), "flash_tc_kernelILi112E")
     log(f"sass flash_attention_tc d=112 instance: {counts}")
     assert all(counts.values()), f"the d = 112 tensor-core instance lacks wgmma or TMA loads: {counts}"
+    counts = _sass_count(kbuild.library_path("flash_attention_bwd"), ("HMMA", "LDSM"), "flash_bwd_tc_kernel")
+    log(f"sass flash_attention_bwd tensor-core instances: {counts}")
+    assert all(counts.values()), f"the flash backward's tensor-core kernels lack mma.sync or ldmatrix: {counts}"
     counts = _sass_count(kbuild.library_path("decode_attention"), ("LDGSTS", "UTMALDG"))
     log(f"sass decode_attention: {counts}")
     assert any(counts.values()), f"the decode kernel's SASS has no asynchronous loads: {counts}"
@@ -3004,8 +3018,8 @@ class LaunchCounter:
     zeroed just before it and read just after)."""
 
     def __init__(self, fa, da, rn, ds):
-        self.fns = dict(flash=fa.flash_attention, decode=da.decode_attention, rmsnorm=rn.rmsnorm,
-                        gram=ds.disagg_gram)
+        self.fns = dict(flash=fa.flash_attention, flash_bwd=fa.flash_attention_bwd, decode=da.decode_attention,
+                        rmsnorm=rn.rmsnorm, gram=ds.disagg_gram)
 
     def zero(self):
         for fn in self.fns.values():
@@ -3085,29 +3099,54 @@ def flash_bwd_work(b, s, t, h, hkv, d, causal, dtype):
     return nbytes, 2.5 * fwd_flops
 
 
-def _grad_close(got, want, dtype, what) -> float:
-    """fp32: the reference's pin (atol 3e-4, rtol 1e-3), atol scaled by
-    max|want| when that exceeds 1.  bf16: 1e-2 of max|want| plus 2e-2 of
-    each value: the inputs are the same bf16 values on both sides, and the
-    Function's gradients are rounded to bf16 at the end (2^-8 relative)
-    after a backward that read the kernel's bf16 output.  Returns the max
-    error over max(1, max|want|)."""
+# (atol of max(1, max|want|), rtol) for (fp32, bf16).  The Function
+# against the dense fp32 oracle: fp32 the reference's pin; bf16 1e-2 and
+# 2e-2, since the inputs are the same bf16 values on both sides and the
+# Function's gradients are rounded to bf16 at the end (2^-8 relative) after
+# a backward that read the kernel's bf16 output.
+GRAD_TOL = ((3e-4, 1e-3), (1e-2, 2e-2))
+# The backward kernels against the plain ``flash_bwd`` on the same inputs,
+# at ``tests/test_torch_kernels.py``'s bounds: fp32 sums in another order;
+# bf16 P and dS rounded to bf16 for the kernels' products, where the plain
+# version rounds the scores.
+BWD_TOL = ((1e-4, 1e-3), (2e-2, 2e-2))
+
+
+def _grad_close(got, want, dtype, what, tol=GRAD_TOL) -> float:
+    """Asserts |got - want| <= atol * max(1, max|want|) + rtol * |want|,
+    with ``tol``'s (atol, rtol) for ``dtype``; returns the max abs error."""
     g, w = got.float(), want.float()
     scale = max(1.0, float(w.abs().max()))
-    atol, rtol = (3e-4 * scale, 1e-3) if dtype == torch.float32 else (1e-2 * scale, 2e-2)
+    atol, rtol = tol[dtype != torch.float32]
     err = (g - w).abs()
-    bad = ~(err <= atol + rtol * w.abs())
+    bad = ~(err <= atol * scale + rtol * w.abs())
     assert not bad.any(), f"{what}: {int(bad.sum())} of {bad.numel()} off, max abs err {float(err.max()):.3e}"
-    return float(err.max()) / scale
+    return float(err.max())
+
+
+def _vjp_key(b, s, t, h, hkv, d, causal, dtype) -> tuple:
+    return (b, s, t, h, hkv, d, causal, str(dtype).split(".")[1])
+
+
+def _bwd_row(r: dict) -> dict:
+    """A VJP row's backward fields under the ``kernels`` line's names."""
+    return dict(err=r["err_bwd_plain"], ms=r["bwd_ms"], plain_ms=r["plain_bwd_ms"], library_ms=r["library_bwd_ms"],
+                bound_ms=r["bwd_bound_ms"], bound_by=r["bwd_bound_by"], variant=r["variant"])
 
 
 def phase_train_vjp(ref) -> dict:
-    """The flash VJP on the card: the hand forward's out and lse against the
-    plain ``flash_fwd``, and dq, dk, dv through ``ops.flash_attention``'s
-    Function (the hand forward with its lse, then ``flash_bwd``) against
-    autograd through the dense fp32 oracle ``ref.attention_dense`` (the
-    reference pins its flash VJP to its twin); the forward with and without
-    the lse store, the backward, and SDPA's forward and backward timed."""
+    """The flash VJP on the card, at ``VJP_CASES`` and the tensor-parallel
+    ranks' training calls (``VJP_TP``): the hand forward's out and lse
+    against the plain ``flash_fwd``; the backward kernels' dq, dk, dv
+    against the plain ``flash_bwd`` on the same (q, k, v, out, lse, dout)
+    (at ``BWD_TOL``); and dq, dk, dv
+    through ``ops.flash_attention``'s Function (the hand forward with its
+    lse, then the hand backward: one launch of each) against autograd
+    through the dense fp32 oracle ``ref.attention_dense`` (the reference
+    pins its flash VJP to its twin).  Timed: the forward with and without
+    the lse store, the backward kernels (cold L2; at the training shape
+    also warm, back to back), the plain ``flash_bwd``, and SDPA's forward
+    and backward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3115,8 +3154,8 @@ def phase_train_vjp(ref) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows: dict = {}
-    for b, s, t, h, hkv, d, causal, dtype in VJP_CASES:
-        key = (b, s, t, h, hkv, d, causal, str(dtype).split(".")[1])
+    for b, s, t, h, hkv, d, causal, dtype in VJP_CASES + VJP_TP:
+        key = _vjp_key(b, s, t, h, hkv, d, causal, dtype)
         q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                        for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d)))
         out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
@@ -3127,20 +3166,36 @@ def phase_train_vjp(ref) -> dict:
             "the lse store changed the output"
         err_lse = float((lse - want_lse).abs().max())
         assert err_lse <= 2e-5 * max(1.0, float(want_lse.abs().max())), (key, err_lse)
+        del want_out, want_lse
+        kernel = torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        plain = ref.flash_bwd(q, k, v, out, lse, do, causal)
+        err_bwd_plain = max(_grad_close(a, w, dtype, f"flash backward {n} against flash_bwd at {key}", BWD_TOL)
+                            for n, a, w in zip(("dq", "dk", "dv"), kernel, plain))
+        del kernel, plain
         qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
         got = torch.autograd.grad(ops.flash_attention(qg, kg, vg, causal=causal), (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        launched = (fa.flash_attention.launches - before[0], fa.flash_attention_bwd.launches - before[1])
+        assert launched == (1, 1), (key, launched)
         q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
         want = torch.autograd.grad(ref.attention_dense(q32, k32, v32, causal=causal), (q32, k32, v32), do.float())
-        errs = {n: _grad_close(a, w, dtype, f"flash VJP {n} at {key}") for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        errs = {n: _grad_close(a, w, dtype, f"flash VJP {n} at {key}") / max(1.0, float(w.abs().max()))
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         del got, want, q32, k32, v32, qg, kg, vg
         reps = 5 if s * t > 2**22 else 15
         row = dict(err_out=err_out, err_lse=err_lse, **{f"err_{n}": e for n, e in errs.items()},
-                   variant=fa.variant(dtype, d),
+                   err_bwd_plain=err_bwd_plain, variant=fa.variant(dtype, d),
                    ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps),
                    lse_ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal, lse=lse), reps),
                    plain_ms=device_ms(lambda: ref.flash_fwd(q, k, v, causal), reps),
-                   bwd_ms=device_ms(lambda: ref.flash_bwd(q, k, v, out, lse, do, causal), reps),
+                   bwd_ms=device_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal), reps),
+                   plain_bwd_ms=device_ms(lambda: ref.flash_bwd(q, k, v, out, lse, do, causal), reps),
                    library_ms=None, library_bwd_ms=None)
+        bwd_bytes, bwd_flops = flash_bwd_work(b, s, t, h, hkv, d, causal, dtype)
+        if (b, s, t, h, hkv, d, causal) == FLASH_TRAIN and dtype == torch.bfloat16:  # the training path's call
+            row["bwd_warm_ms"] = warm_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal), (q, k, v, out, lse, do),
+                                         bwd_bytes)
         if s == t or not causal:  # SDPA's causal mask is not offset by T - S
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
             dot = do.transpose(1, 2).contiguous()
@@ -3150,13 +3205,16 @@ def phase_train_vjp(ref) -> dict:
             row["library_bwd_ms"] = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), reps)
             del ot, qt, kt, vt
         row["bound_ms"], row["bound_by"] = _bound(*flash_work(b, s, t, h, hkv, d, causal, dtype), dtype)
-        row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(*flash_bwd_work(b, s, t, h, hkv, d, causal, dtype), dtype)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(bwd_bytes, bwd_flops, dtype)
         rows[key] = row
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} / {row['library_bwd_ms']:.4f}"
+        warm = f" (warm {row['bwd_warm_ms']:.4f} ms)" if "bwd_warm_ms" in row else ""
         log(f"train vjp {key}: {row['variant']} out {err_out:.2e} lse {err_lse:.2e} dq {errs['dq']:.2e} "
-            f"dk {errs['dk']:.2e} dv {errs['dv']:.2e} (of scale); fwd {row['ms']:.4f} ms, fwd+lse {row['lse_ms']:.4f} ms, "
-            f"plain fwd {row['plain_ms']:.3f} ms, flash_bwd {row['bwd_ms']:.3f} ms, SDPA fwd / bwd {lib} ms; "
-            f"bounds fwd {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), bwd {row['bwd_bound_ms'] * 1e3:.1f} us")
+            f"dk {errs['dk']:.2e} dv {errs['dv']:.2e} (of scale), backward against flash_bwd max abs "
+            f"{err_bwd_plain:.2e}; fwd {row['ms']:.4f} ms, fwd+lse {row['lse_ms']:.4f} ms, plain fwd "
+            f"{row['plain_ms']:.3f} ms, backward kernels {row['bwd_ms']:.4f} ms{warm}, flash_bwd "
+            f"{row['plain_bwd_ms']:.3f} ms, SDPA fwd / bwd {lib} ms; bounds fwd {row['bound_ms'] * 1e3:.1f} us "
+            f"({row['bound_by']}), bwd {row['bwd_bound_ms'] * 1e3:.1f} us ({row['bwd_bound_by']})")
     return rows
 
 
@@ -3232,12 +3290,13 @@ def phase_train_step_parity(ref) -> dict:
     return res
 
 
-def _train_trace(state, step_fn, batch, ref) -> dict:
+def _train_trace(state, step_fn, batch) -> dict:
     """One warm step untimed, one timed (host clock to the loss read) and
-    one under torch.profiler with ``ref.flash_bwd`` annotated: device busy,
-    idle share, top kernels, and the shares of the flash forward kernel and
-    of the kernels launched inside ``flash_bwd``."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    one under torch.profiler: device busy, idle share, top kernels, and the
+    shares of the flash forward kernels and of the backward's three kernels
+    (``flash_bwd_*``, by name; ``flash_bwd_calls`` counts its prologues)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     state, m = step_fn(state, batch)
     float(m["loss"])
@@ -3246,39 +3305,26 @@ def _train_trace(state, step_fn, batch, ref) -> dict:
     state, m = step_fn(state, batch)
     float(m["loss"])
     wall = time.perf_counter() - t0
-    real_bwd = ref.flash_bwd
-
-    def annotated(*args, **kwargs):
-        with record_function("flash_bwd"):
-            return real_bwd(*args, **kwargs)
-
-    ref.flash_bwd = annotated
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, m = step_fn(state, batch)
-            float(m["loss"])
-            torch.cuda.synchronize()
-    finally:
-        ref.flash_bwd = real_bwd
-    from torch.autograd import DeviceType
-
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
     events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
-    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events if e.name() == "flash_bwd"]
-    kernels = [(e.name(), e.start_ns(), e.duration_ns() * 1e-3) for e in events if e.name() != "flash_bwd"]
-    busy = sum(us for _, _, us in kernels) * 1e-6
-    fwd = sum(us for name, _, us in kernels if "flash_tc_kernel" in name or "flash_fwd_kernel" in name) * 1e-6
-    bwd = sum(us for _, t, us in kernels if any(a <= t < b for a, b in spans)) * 1e-6 if spans else None
+    kernels = [(e.name(), e.duration_ns() * 1e-3) for e in events]
+    busy = sum(us for _, us in kernels) * 1e-6
+    fwd = sum(us for name, us in kernels if "flash_tc_kernel" in name or "flash_fwd_kernel" in name) * 1e-6
+    bwd = sum(us for name, us in kernels if "flash_bwd_" in name) * 1e-6
     by_name: dict = {}
-    for name, _, us in kernels:
+    for name, us in kernels:
         by_name[name] = by_name.get(name, 0.0) + us * 1e-3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = dict(step_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall, kernels=len(kernels),
-               flash_fwd_share=fwd / busy, flash_bwd_share=None if bwd is None else bwd / busy,
-               flash_bwd_annotations=len(spans), top=[(n[:80], ms) for n, ms in top])
+               flash_fwd_share=fwd / busy, flash_bwd_share=bwd / busy,
+               flash_bwd_calls=sum("flash_bwd_dsum_kernel" in name for name, _ in kernels),
+               top=[(n[:80], ms) for n, ms in top])
     log(f"train trace: warm step {wall:.4f} s, device busy {busy:.4f} s, idle share {out['idle_share']:.4f}, "
         f"{len(kernels)} kernels; flash forward kernels {fwd:.4f} s ({out['flash_fwd_share']:.4f} of busy), "
-        + (f"flash_bwd {bwd:.4f} s ({out['flash_bwd_share']:.4f} of busy, {len(spans)} annotated calls)"
-           if bwd is not None else "flash_bwd share not measured (no device-side annotation in the trace)"))
+        f"backward kernels {bwd:.4f} s ({out['flash_bwd_share']:.4f} of busy, {out['flash_bwd_calls']} calls)")
     for name, ms in top:
         log(f"train trace:   {ms:9.3f} ms  {name[:90]}")
     return out
@@ -3360,9 +3406,11 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
         trace = dict(step_s=float("nan"))
         if cuda:
             with main_path(ref):
-                trace = _train_trace(state, make_train_step(api, ocfg), batch, ref)
+                trace = _train_trace(state, make_train_step(api, ocfg), batch)
         launches = counter.read()
         assert launches["flash"] == (3 * 2 * layers if cuda else 0) == launches["flash_tc"], launches
+        assert launches["flash_bwd"] == (3 * layers if cuda else 0), launches
+        assert not cuda or trace["flash_bwd_calls"] == layers, trace
         return trace, launches
 
     tmp = tempfile.mkdtemp(prefix=".train-ckpt-", dir=Path(__file__).resolve().parent)
@@ -3406,13 +3454,14 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
         for name, steps in (("straight", TRAIN_STEPS), ("killed", TRAIN_CRASH), ("relaunch", TRAIN_STEPS - TRAIN_CRASH)):
             got = runs[name]["launches"]
             want = 2 * layers * steps if cuda else 0
-            assert got["flash"] == want == got["flash_tc"], (name, got)
-            assert not any(v for k, v in got.items() if k not in ("flash", "flash_tc")), (name, got)
+            assert got["flash"] == want == got["flash_tc"] and got["flash_bwd"] == want // 2, (name, got)
+            assert not any(v for k, v in got.items() if k not in ("flash", "flash_tc", "flash_bwd")), (name, got)
         resumed = [p.detach() for p in tree_leaves(state.params)]
         # Bitwise, with no tolerance: every operation of this step is
         # deterministic on the card (cuBLAS at fixed shapes, the flash
-        # kernels, the plain ``flash_bwd``, and the index backward's sorted
-        # accumulation), so any difference is a fault of the resume.
+        # forward and backward kernels, which use no atomics, and the index
+        # backward's sorted accumulation), so any difference is a fault of
+        # the resume.
         loss_diff = max(abs(a - b) for a, b in zip(r2.losses, r1.losses[TRAIN_CRASH:]))
         param_diff = max(float((a - b).abs().max()) for a, b in zip(straight, resumed))
         bitwise = r2.losses == r1.losses[TRAIN_CRASH:] and all(torch.equal(a, b) for a, b in zip(straight, resumed))
@@ -3432,13 +3481,17 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
     tokens = shape.global_batch * shape.seq_len
     flops = model_flops(cfg, shape)
     launches = {name: r["launches"]["flash"] for name, r in runs.items()}
+    bwd_launches = {name: r["launches"]["flash_bwd"] for name, r in runs.items()}
     out = dict(
         arch=cfg.name, params=cfg.param_count(), layers=layers, batch=shape.global_batch, seq=shape.seq_len,
         losses=r1.losses, resumed_losses=r2.losses, resume_bitwise=bitwise, loss_diff=loss_diff,
         param_diff=param_diff, step_times=r1.step_times, run_s={k: r["wall"] for k, r in runs.items()},
         save_s=io_s["save"], restore_s=io_s["restore"], peak_gib=peak_gib,
         launches=sum(launches.values()) + trace_launches["flash"], launches_by_run=launches,
-        launches_per_step=launches["straight"] / TRAIN_STEPS, tokens_per_s=tokens / trace["step_s"], model_flops=flops,
+        launches_per_step=launches["straight"] / TRAIN_STEPS,
+        bwd_launches=sum(bwd_launches.values()) + trace_launches["flash_bwd"], bwd_launches_by_run=bwd_launches,
+        bwd_launches_per_step=bwd_launches["straight"] / TRAIN_STEPS, tokens_per_s=tokens / trace["step_s"],
+        model_flops=flops,
         model_flops_share=flops / trace["step_s"] / BF16_FLOP_PER_S, trace=trace,
         ckpt_dir=tmp if keep_ckpt else None, state=state if keep_ckpt else None,
     )
@@ -3448,7 +3501,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
         f"6ND {flops:.4e} flops = {out['model_flops_share']:.4f} of 989 TFLOP/s; peak {peak_gib:.2f} GiB; "
         f"checkpoint saves {[round(x, 2) for x in io_s['save']]} s, restores {[round(x, 2) for x in io_s['restore']]} s; "
         f"runs {', '.join(f'{k} {r:.1f} s' for k, r in out['run_s'].items())}; flash launches {launches} "
-        f"(+ {trace_launches['flash']} traced)")
+        f"(+ {trace_launches['flash']} traced), backward {bwd_launches} (+ {trace_launches['flash_bwd']} traced)")
     return out
 
 
@@ -3908,12 +3961,15 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False, during=None) -> dic
         real = _real_step(cfg, shape, ocfg, counter, device)
     mem = rec["memory"]
     flash_trace = rec["kernels"].get("flash_attention_lse", 0)
+    bwd_trace = rec["kernels"].get("flash_attention_bwd", 0)
     out["local"] = dict(record=rec, real=real, flash_trace=flash_trace, flash_real=real["launches"]["flash"],
+                        bwd_trace=bwd_trace, bwd_real=real["launches"]["flash_bwd"],
                         peak_rel=(mem["peak_bytes_est"] - real["peak_bytes"]) / real["peak_bytes"]
                         if device == "cuda" else float("nan"))
     log(f"dryrun (a) {cfg.name} {shape.global_batch} x {shape.seq_len} on the (1, 1) mesh: trace {rec['compile_s']} s on "
         f"fake {rec['device']} tensors; flash ops traced {flash_trace}, launched by the real step "
-        f"{real['launches']['flash']}; FLOPs traced {rec['flops_per_device']:.6e}, real {real['flops']:.6e}; "
+        f"{real['launches']['flash']}; backward ops traced {bwd_trace}, launched {real['launches']['flash_bwd']}; "
+        f"FLOPs traced {rec['flops_per_device']:.6e}, real {real['flops']:.6e}; "
         f"peak_bytes_est {mem['peak_bytes_est'] / 2**30:.3f} GiB (arguments {mem['argument_bytes'] / 2**30:.3f}, "
         f"temp {mem['temp_bytes'] / 2**30:.3f}), real step {real['peak_bytes'] / 2**30:.3f} GiB above the "
         f"{(real['max_memory_allocated'] - real['peak_bytes']) / 2**30:.3f} GiB allocated before "
@@ -3921,6 +3977,7 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False, during=None) -> dic
         f"real step {real['step_s']:.3f} s under FlopCounterMode, loss {real['loss']:.4f}")
     if device == "cuda":
         assert flash_trace == real["launches"]["flash"] == 2 * cfg.num_layers, (flash_trace, real["launches"])
+        assert bwd_trace == real["launches"]["flash_bwd"] == cfg.num_layers, (bwd_trace, real["launches"])
         assert rec["flops_per_device"] == real["flops"], (rec["flops_per_device"], real["flops"])
         assert abs(out["local"]["peak_rel"]) <= DRYRUN_PEAK_RTOL, out["local"]["peak_rel"]
 
@@ -3946,7 +4003,8 @@ def phase_dryrun(ref, counter, device="cuda", reduced=False, during=None) -> dic
         # A decode cache whose kv heads do not divide the pod's 16 "model" ranks lies on kv_seq:
         # each layer attends the rank's rows with the lse store, then merges across "model".
         dec = "decode_attention_lse" if c.num_kv_heads % POD_MODEL else "decode_attention"
-        want = {"train": {"flash_attention_lse": per_step}, "prefill": {"flash_attention": layers},
+        want = {"train": {"flash_attention_lse": per_step, "flash_attention_bwd": layers},
+                "prefill": {"flash_attention": layers},
                 "decode": {dec: layers}}[r["kind"]]
         assert r["kernels"] == want, (arch, shape_name, r["kernels"], want)
         if arch in DRYRUN_FIT and not reduced:
@@ -4022,6 +4080,13 @@ TP_MERGE = dict(b=8, rows=32768, blocks=16)
 # class's last decode step.
 FLASH_TP = [(TP_BATCH, TP_SEQ, TP_SEQ, H // m, max(HKV // m, 1), HD, True) for m in (2, 4, 16)]
 DECODE_TP = [(8, 576, (575,) * 8, H // m, max(HKV // m, 1), HD) for m in (2, 4, 16)]
+# The flash VJP at the ranks' training calls (phase 13 (a) holds them as it
+# holds ``VJP_CASES``): internlm2 (H 8 over Hkv 4) and zamba2's shared
+# attention (H = Hkv 16, d 112) at "model" ``TP_WORLD``, and zamba2's in the
+# fp32 step of ``TP_FP32_CHECKS`` too.
+VJP_TP = [(TP_BATCH, TP_SEQ, TP_SEQ, H // TP_WORLD, HKV // TP_WORLD, HD, True, torch.bfloat16)] + [
+    (TP_BATCH, TP_SEQ, TP_SEQ, ZAMBA_H // TP_WORLD, ZAMBA_HKV // TP_WORLD, ZAMBA_HD, True, dtype)
+    for dtype in (torch.bfloat16, torch.float32)]
 # The lse store at the serving shapes and at the kv_seq block of a rank
 # (2,048 of 32,768 rows; ragged lengths, one block with no live row).
 DECODE_KV_BLOCK = (8, 2048, (2048, 2048, 1500, 0, 2048, 1, 700, 2048), H, HKV, HD)
@@ -4303,19 +4368,19 @@ def _tp_arch(arch: str, rank: int, world: int, device: str, reduced: bool) -> di
     mesh = init_device_mesh(device, (1, world), mesh_dim_names=("data", "model"))
     axis_size = mesh.size(1)
     plain_calls, restore = _watch_plain(ref, PLAIN_NAMES)  # the split program reaches no plain version
-    fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
+    fa.flash_attention.launches = fa.flash_attention.launches_tc = fa.flash_attention_bwd.launches = 0
     da.decode_attention.launches = da.decode_attention.launches_lse = 0
     t0 = time.perf_counter()
     out.update(split_train(train_api, TP_STEPS, ref_train, moments=fp32_api is None))
     out.update(train_flash=fa.flash_attention.launches, train_flash_tc=fa.flash_attention.launches_tc,
-               train_decode=da.decode_attention.launches)
+               train_flash_bwd=fa.flash_attention_bwd.launches, train_decode=da.decode_attention.launches)
     if device == "cuda":
         out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del ref_train
     if fp32_api is not None:  # the first moments, in fp32 (``TP_FP32_CHECKS``)
-        fa.flash_attention.launches = 0
+        fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
         out["fp32"] = split_train(fp32_api, TP_FP32_STEPS, ref_fp32)
-        out["fp32"]["flash"] = fa.flash_attention.launches
+        out["fp32"]["flash"], out["fp32"]["flash_bwd"] = fa.flash_attention.launches, fa.flash_attention_bwd.launches
         del ref_fp32
     if device == "cuda":
         out["before_serve_gib"] = torch.cuda.memory_allocated() / 2**30
@@ -4427,7 +4492,8 @@ def phase_tp(counter, device="cuda", reduced=False) -> dict:
             raise RuntimeError("\n".join(failed))
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
     out: dict = dict(world=TP_WORLD, archs={})
-    keys = ("train_flash", "train_flash_tc", "serve_flash", "serve_flash_tc", "serve_decode", "serve_decode_lse")
+    keys = ("train_flash", "train_flash_tc", "train_flash_bwd", "serve_flash", "serve_flash_tc", "serve_decode",
+            "serve_decode_lse")
     for arch in TP_ARCHS:
         per = [r[arch] for r in ranks]
         r0 = per[0]
@@ -4462,8 +4528,9 @@ def phase_tp(counter, device="cuda", reduced=False) -> dict:
             assert rel <= TP_TOL["loss_rtol"], ("tp losses", arch, r["losses"], r0["ref_losses"])
             assert r["losses"] == r0["losses"], f"the model ranks report different {arch} losses"
             assert r["model_blocks"] > 0 and r["logits_block"] * TP_WORLD == r["vocab"], r
-            if device == "cuda":  # each attention layer's forward and its remat recompute, a step
+            if device == "cuda":  # each attention layer's forward and its remat recompute, a step, and its backward
                 assert r["train_flash"] == 2 * r["attn_layers"] * TP_STEPS, (arch, r["train_flash"])
+                assert r["train_flash_bwd"] == r["attn_layers"] * TP_STEPS, (arch, r["train_flash_bwd"])
             if "ssm_heads" in r:  # the Mamba2 block runs on the rank's heads
                 c = get_config(arch, reduced=reduced)
                 assert (r["ssm_heads"], r["ssm_channels"]) == (c.ssm_heads // TP_WORLD, c.d_inner // TP_WORLD), r
@@ -4493,7 +4560,7 @@ def phase_tp(counter, device="cuda", reduced=False) -> dict:
     return out
 
 
-PLAIN_NAMES = ("disagg_gram", "flash_attention", "flash_fwd", "decode_attention", "rmsnorm")
+PLAIN_NAMES = ("disagg_gram", "flash_attention", "flash_fwd", "flash_bwd", "decode_attention", "rmsnorm")
 
 
 @contextlib.contextmanager
@@ -4576,7 +4643,7 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port from {SRC}: {exc}", file=sys.stderr)
         return 2
-    counted = (ds.disagg_gram, fa.flash_attention, da.decode_attention, rn.rmsnorm)
+    counted = (ds.disagg_gram, fa.flash_attention, fa.flash_attention_bwd, da.decode_attention, rn.rmsnorm)
     plain_names = PLAIN_NAMES
 
     counter = LaunchCounter(fa, da, rn, ds)
@@ -4819,6 +4886,14 @@ def main() -> int:
                   for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "granite", "nemotron",
                               "qwen", "launcher")})
     by_path = {k: dict(zip(("flash", "decode"), v)) for k, v in paths.items()}
+    bwd_paths = {"train": train["full"]["bwd_launches"], "dryrun_real_step": dry["local"]["bwd_real"],
+                 "tensor_parallel": tpo["launches"]["train_flash_bwd"]}  # train_energy's xlstm-350m has no attention
+    assert all(bwd_paths.values()), f"a training path launched no flash backward: {bwd_paths}"
+    train_row = train["vjp"][_vjp_key(*FLASH_TRAIN, torch.bfloat16)]  # the training path's backward call
+
+    def bwd_rows(cases):
+        return [dict(shape=list(_vjp_key(*c)), **_bwd_row(train["vjp"][_vjp_key(*c)])) for c in cases]
+
     moe_decode = [k + (MOE_H, MOE_HKV) for k in DECODE_MOE]
     kernels = [
         _summary("disagg_gram", "src/repro/kernels/disagg_solve.py:84",
@@ -4842,6 +4917,10 @@ def main() -> int:
                  dense_shapes=new_rows("flash_attention", FLASH_DENSE),
                  training_shapes=[dict(shape=json.loads(json.dumps(k)), **r) for k, r in train["vjp"].items()],
                  training_launches_per_step=train["full"]["launches_per_step"]),
+        _summary("flash_attention_bwd", "src/repro/kernels/ref.py:140", sum(bwd_paths.values()),
+                 [_bwd_row(train_row)], [list(FLASH_TRAIN)], launches_by_path=bwd_paths,
+                 warm_ms=train_row["bwd_warm_ms"],
+                 training_shapes=bwd_rows(VJP_CASES), tp_shapes=bwd_rows(VJP_TP)),
         _summary("decode_attention", "src/repro/kernels/decode_attention.py:119",
                  sum(v["decode"] for v in by_path.values()),
                  [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN,

@@ -6,7 +6,10 @@
 - ``flash_attention``  -- CUDA forward GQA attention for prefill: the
   tensor-core kernel for bf16 at d in {64, 112, 128}
   (``csrc/flash_attention_tc.cu``), the FMA kernel for the rest
-  (``csrc/flash_attention.cu``).
+  (``csrc/flash_attention.cu``); and its backward for the training path
+  (``csrc/flash_attention_bwd.cu``: a rowsum prologue, a dK/dV pass and a
+  dQ pass, ``mma.sync`` tensor-core products in bf16 at d in {64, 112, 128},
+  FMAs otherwise).
 - ``decode_attention`` -- CUDA single-token attention against a KV cache
   (``csrc/decode_attention.cu``: one launch, a cp.async K/V ring, the
   cache's slices merged inside a thread-block cluster).
@@ -19,4 +22,5 @@ Kernels are built at first use, never at import.
 """
 
 #: Every kernel source under ``csrc/``, in the order ``chip_smoke.py`` lists them.
-KERNELS = ("disagg_gram", "flash_attention", "flash_attention_tc", "decode_attention", "rmsnorm")
+KERNELS = ("disagg_gram", "flash_attention", "flash_attention_tc", "flash_attention_bwd", "decode_attention",
+           "rmsnorm")

@@ -21,8 +21,15 @@ tensor-core ones.  Neither kernel pads: ragged
 S and T are masked inside.  Given an ``lse`` buffer (the training path's
 forward, ``kernels.ops.flash_attention``'s autograd Function), both kernels
 also store each query row's log-sum-exp there, which the backward
-(``ref.flash_bwd``) recomputes the probabilities from; serving passes none,
-and the kernels then store nothing more.
+recomputes the probabilities from; serving passes none, and the kernels
+then store nothing more.
+
+``flash_attention_bwd`` is that backward on the card, the twin of the
+reference's ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``: a rowsum
+prologue, then a dK/dV pass and a dQ pass, no atomics): tensor-core
+products (``mma.sync``) where the forward takes ``"tc"``, FMAs where it
+takes ``"fma"``.  It raises on anything it does not take; its ``launches``
+attribute counts its calls (three kernels each).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ TC_HEAD_DIMS = (64, 112, 128)
 TC_BQ, TC_BK, TC_STAGES, TC_THREADS, TC_PANEL = 128, 128, 3, 384, 64
 _TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled", -2: "cuTensorMapEncodeTiled refused a tensor map"}
 _fns: dict | None = None  # variant, dtype -> loaded C entry point, set by ``build``
+_bwd_fns: dict | None = None  # dtype -> the backward's loaded C entry point, set by ``build_bwd``
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
@@ -97,6 +105,23 @@ def build() -> str:
     fns["tc_smem_bytes"] = lib_tc.flash_attention_tc_smem_bytes
     _fns = fns
     return log + log_tc
+
+
+def build_bwd() -> str:
+    """Compile the backward's kernels if needed and load them, apart from
+    the forward's (serving never needs them); returns nvcc's output, or ""
+    when they were already built or loaded."""
+    global _bwd_fns
+    if _bwd_fns is not None:
+        return ""
+    lib, log = load_library("flash_attention_bwd")
+    fns = {}
+    for dtype, fn in ((torch.float32, lib.flash_attention_bwd_f32), (torch.bfloat16, lib.flash_attention_bwd_bf16)):
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[dtype] = fn
+    _bwd_fns = fns
+    return log
 
 
 def tc_smem_bytes(d: int) -> int:
@@ -173,3 +198,53 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    *, causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CUDA kernels: (dq, dk, dv) of ``flash_attention`` in the inputs' dtype.
+
+    ``out`` and ``lse`` are the forward's (its lse store: contiguous fp32
+    (B, Hkv, H // Hkv, S)), ``dout`` the output's gradient, (B, S, H, d)
+    like ``out``; all in q's dtype and on q's CUDA device, the shapes and
+    head dims ``flash_attention`` takes.  fp32 accumulators; a query row
+    with no live key gets zero gradient.  No atomics: the same inputs give
+    the same bits.
+    """
+    kind = check_args(q, k, v)
+    tensors = (q, k, v, out, lse, dout)
+    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
+        raise ValueError(
+            f"flash_attention_bwd launches CUDA kernels: its inputs must be on one CUDA device, got "
+            f"{[str(x.device) for x in tensors]} (the CPU path is kernels.ops.flash_attention)"
+        )
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout must be {q.dtype} {tuple(q.shape)} like q; got {out.dtype} "
+                         f"{tuple(out.shape)}, {dout.dtype} {tuple(dout.shape)}")
+    if lse.shape != (b, hkv, h // hkv, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(b, hkv, h // hkv, s)} tensor; "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    q, k, v, out, dout = (kernel_input(x, "flash_attention_bwd") for x in (q, k, v, out, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b and s and t:
+        dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)  # rowsum(dO * O)
+        build_bwd()
+        with torch.cuda.device(q.device):
+            err = _bwd_fns[q.dtype](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, s, t, h, hkv, d, int(causal), 1.0 / float(d) ** 0.5, stream_of(q),
+            )
+        check_launch(f"flash_attention_bwd ({kind})", err)
+        flash_attention_bwd.launches += 1
+    else:  # no query or no key: nothing is attended, every gradient is 0
+        for x in (dq, dk, dv):
+            x.zero_()
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -9,8 +9,8 @@ Signatures are the reference's (``repro/kernels/ops.py``).
 
 **Custom ops.**  Each kernel is an operator of the ``repro_torch``
 namespace -- ``flash_attention``, ``flash_attention_lse``,
-``decode_attention``, ``decode_attention_lse``, ``rmsnorm``,
-``disagg_gram`` -- whose CUDA
+``flash_attention_bwd``, ``decode_attention``, ``decode_attention_lse``,
+``rmsnorm``, ``disagg_gram`` -- whose CUDA
 implementation is its wrapper's launch (``flash_attention.py``,
 ``decode_attention.py``, ``rmsnorm.py``, ``disagg_solve.py``) and whose fake
 implementation gives the output shapes and dtypes alone, touching no
@@ -18,7 +18,8 @@ library.  So a trace on fake tensors (``launch.dryrun``) reaches the ops as
 the card's program does, without building or launching anything, and
 ``torch.utils.flop_counter.FlopCounterMode`` counts the attention ops by
 ``launch.costs._attn_score_flops``'s convention (2 x 2 x queries x keys x
-H x d, halved when causal), so that the counter and the cost model agree.
+H x d, halved when causal; the backward 2.5 times that, its five
+products), so that the counter and the cost model agree.
 A fake tensor reaches the op on any device: torch built without CUDA
 cannot run autograd on fake CUDA tensors, so a dry run there traces on fake
 CPU tensors, and those too go to the op, never to the plain version.
@@ -27,9 +28,10 @@ CPU tensors, and those too go to the op, never to the plain version.
 ``custom_vjp`` of its ``ref.flash_attention``: when autograd records (grad
 enabled and an input requiring grad), it runs as an autograd Function whose
 forward is the ``flash_attention_lse`` op (the kernel with its log-sum-exp
-store) or ``ref.flash_fwd`` (CPU) and whose backward is ``ref.flash_bwd`` on
-either device.  Without a gradient it takes the forward alone and keeps
-nothing.
+store) and whose backward is the ``flash_attention_bwd`` op (the backward
+kernels) wherever the forward took the op, or ``ref.flash_fwd`` then
+``ref.flash_bwd`` for a real CPU tensor.  Without a gradient it takes the
+forward alone and keeps nothing.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from repro_torch.kernels import rmsnorm as rn
 _lib = torch.library.Library("repro_torch", "DEF")
 _lib.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
 _lib.define("flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal) -> (Tensor, Tensor)")
+_lib.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, bool causal)"
+            " -> (Tensor, Tensor, Tensor)")
 _lib.define("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths) -> Tensor")
 _lib.define("decode_attention_lse(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths) -> (Tensor, Tensor)")
 _lib.define("rmsnorm(Tensor x, Tensor gamma, float eps) -> Tensor")
@@ -70,6 +74,8 @@ def _decode_lse(q, k_cache, v_cache, lengths):
 # Each CUDA implementation looks its wrapper up at call time.
 _lib.impl("flash_attention", lambda q, k, v, causal: fa.flash_attention(q, k, v, causal=causal), "CUDA")
 _lib.impl("flash_attention_lse", _flash_lse, "CUDA")
+_lib.impl("flash_attention_bwd", lambda q, k, v, out, lse, dout, causal: fa.flash_attention_bwd(
+    q, k, v, out, lse, dout, causal=causal), "CUDA")
 _lib.impl("decode_attention", lambda q, kc, vc, lengths: da.decode_attention(q, kc, vc, lengths), "CUDA")
 _lib.impl("decode_attention_lse", _decode_lse, "CUDA")
 _lib.impl("rmsnorm", lambda x, gamma, eps: rn.rmsnorm(x, gamma, eps=eps), "CUDA")
@@ -86,6 +92,15 @@ def _flash_lse_fake(q, k, v, causal):
     b, s, h, _ = q.shape
     hkv = k.shape[2]
     return torch.empty_like(q), q.new_empty((b, hkv, h // hkv, s), dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_bwd", lib=_lib)
+def _flash_bwd_fake(q, k, v, out, lse, dout, causal):
+    # The gradients as the CUDA implementation allocates them: contiguous.
+    # Its scratch is left out: the (B, H, S) fp32 rowsum (2 / d of dq's
+    # bytes in bf16) and a contiguous copy of a strided input live only
+    # inside the call, and the dry run's tracker sees an op's outputs alone.
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
 
 
 @torch.library.register_fake("repro_torch::decode_attention", lib=_lib)
@@ -122,6 +137,15 @@ def _flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwa
     return attention_flops(b, s, k_shape[1], h, d, causal)
 
 
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal, *args, out_shape=None,
+                     **kwargs) -> int:
+    """The backward's five products (the recomputed Q K^T, dO V^T, dS K,
+    dS^T Q, P^T dO): 2.5 x the forward's two, whatever a kernel recomputes."""
+    b, s, h, d = q_shape
+    return 5 * attention_flops(b, s, k_shape[1], h, d, causal) // 2
+
+
 @register_flop_formula([torch.ops.repro_torch.decode_attention, torch.ops.repro_torch.decode_attention_lse])
 def _decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     b, h, d = q_shape
@@ -152,7 +176,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_block, kv_block):
-        if _kernel_path("flash_attention", q):
+        ctx.kernel = _kernel_path("flash_attention", q)
+        if ctx.kernel:
             out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
         else:
             out, lse = ref.flash_fwd(q, k, v, causal, q_block, kv_block)
@@ -163,7 +188,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*ref.flash_bwd(q, k, v, out, lse, dout, *ctx.blocks), None, None, None)
+        if ctx.kernel:  # the backward's op wherever the forward took the op
+            grads = torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, dout, ctx.blocks[0])
+        else:
+            grads = ref.flash_bwd(q, k, v, out, lse, dout, *ctx.blocks)
+        return (*grads, None, None, None)
 
 
 def flash_attention(
@@ -177,9 +206,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blocked GQA attention (B, S, H, d) x (B, T, Hkv, d) -> (B, S, H, d).
 
-    The CUDA kernel chooses its own tiles and ignores ``q_block`` and
-    ``kv_block``; the plain versions (``flash_fwd``, and ``flash_bwd`` on
-    every device) block by them, as the reference does.
+    The CUDA kernels (forward and backward) choose their own tiles and
+    ignore ``q_block`` and ``kv_block``; the plain versions (``flash_fwd``
+    and ``flash_bwd``, CPU tensors only) block by them, as the reference
+    does.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, q_block, kv_block)

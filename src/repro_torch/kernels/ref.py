@@ -10,12 +10,12 @@ the reference's models call them directly on every device
 do too, on the card as well.  Each follows its twin in the reference's
 ``repro/kernels/ref.py``.
 
-``flash_bwd`` is the other exception: the twin of the reference's
-``_flash_bwd``, the backward of its ``custom_vjp``, which is jnp outside any
-Pallas kernel.  It runs on every device, the card included, behind
-``kernels.ops.flash_attention``'s autograd Function, from the (out, lse)
-that the forward (the hand kernel on the card, ``flash_fwd`` on the CPU)
-saved.
+``flash_bwd`` is the twin of the reference's ``_flash_bwd``, the backward
+of its ``custom_vjp``, which is jnp outside any Pallas kernel.  It is the
+plain version of the backward kernels (``flash_attention.flash_attention_bwd``):
+``kernels.ops.flash_attention``'s autograd Function runs it for a CPU
+tensor, from the (out, lse) that ``flash_fwd`` saved, and the kernels on
+the card.
 """
 
 from __future__ import annotations

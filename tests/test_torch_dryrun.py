@@ -176,7 +176,9 @@ def test_pod_cell_counts(pod_records, cell):
     assert rec["model_flops"] == r_model_flops(r_cfg, r_get_shape(shape))
     assert rec["param_count"] == r_cfg.param_count()
     layers = get_config(arch).num_layers
-    want = {"train": {"flash_attention_lse": 2 * layers}, "ep": {"flash_attention_lse": 2 * layers},
+    # each layer's forward and its remat recompute, then its backward
+    train = {"flash_attention_lse": 2 * layers, "flash_attention_bwd": layers}
+    want = {"train": train, "ep": train,
             "prefill": {"flash_attention": layers}, "decode": {"decode_attention_lse": layers}}[cell]
     assert rec["kernels"] == want
     assert rec["mesh"] == "16x16" and rec["devices"] == 256 and rec["flops_per_device"] > 0
@@ -336,8 +338,9 @@ def _reduced_overrides(arch: str) -> dict:
 
 def test_trace_flops_equal_a_real_step(monkeypatch):
     """Reduced internlm2 (remat "full" put back) on the (1, 1) mesh: the
-    trace against one real step on the CPU, with the flash op (its plain
-    forward registered as the op's CPU implementation) on both paths."""
+    trace against one real step on the CPU, with the flash ops (the plain
+    forward and backward registered as their CPU implementations) on both
+    paths."""
     overrides = {**_reduced_overrides(ARCH), "remat": "full", "compute_dtype": "float32"}
     shape = ShapeConfig("t", 64, 2, "train")
     ocfg = opt.OptimizerConfig()
@@ -347,6 +350,8 @@ def test_trace_flops_equal_a_real_step(monkeypatch):
 
     lib = torch.library.Library("repro_torch", "IMPL")
     lib.impl("flash_attention_lse", lambda q, k, v, causal: ref.flash_fwd(q, k, v, causal), "CPU")
+    lib.impl("flash_attention_bwd",
+             lambda q, k, v, out, lse, dout, causal: ref.flash_bwd(q, k, v, out, lse, dout, causal), "CPU")
     monkeypatch.setattr(ops, "_kernel_path", lambda name, x: True)
     try:
         api = build(dataclasses.replace(get_config(ARCH), **overrides))
@@ -356,7 +361,7 @@ def test_trace_flops_equal_a_real_step(monkeypatch):
             make_train_step(api, ocfg)(state, batch)
     finally:
         lib._destroy()
-    assert rec["kernels"] == {"flash_attention_lse": 2 * api.cfg.num_layers}
+    assert rec["kernels"] == {"flash_attention_lse": 2 * api.cfg.num_layers, "flash_attention_bwd": api.cfg.num_layers}
     assert rec["flops_per_device"] == counter.get_total_flops() > 0
     mem = rec["memory"]
     assert mem["argument_bytes"] == sum(t.numel() * t.element_size() for t in dryrun._leaves((state, batch)))

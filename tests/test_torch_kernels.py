@@ -448,9 +448,10 @@ def cuda_attention():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
 
-    kbuild.compile_all(["flash_attention", "flash_attention_tc", "decode_attention", "rmsnorm"])
+    kbuild.compile_all(["flash_attention", "flash_attention_tc", "flash_attention_bwd", "decode_attention", "rmsnorm"])
     for mod in (fa, da, rn):
         mod.build()
+    fa.build_bwd()
     return fa, da, rn
 
 
@@ -537,27 +538,42 @@ def test_cuda_flash_lse_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attenti
     assert err <= 2e-5 * max(1.0, float(want_lse[live].abs().max())), err
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", FLASH_CUDA_CASES)
-def test_cuda_flash_backward_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
-    """``ops.flash_attention`` with a gradient on CUDA: one kernel launch
-    with the lse store, then ``ref.flash_bwd``; its dq, dk, dv against
-    ``flash_bwd`` from the plain forward's (out, lse).  fp32: 1e-4 of
-    max(1, max|want|) plus 1e-3 of each value (the two outputs differ in
-    the last bits, through rowsum(dO * O)); bf16: 2e-2 of both (the
-    kernel's output rounds P to bf16)."""
+# The backward's further shapes: zamba2's d 112 at H = Hkv = 32, and a
+# tensor-parallel rank's heads (internlm2's 16 over 8 split 2, 4 and 16 ways).
+FLASH_BWD_CASES = FLASH_CUDA_CASES + [
+    (2, 256, 256, 32, 32, 112, True),  # d 112, group 1
+    (1, 200, 200, 8, 4, 128, True),    # a rank of 2: H 8 over Hkv 4
+    (1, 200, 264, 4, 2, 128, True),    # a rank of 4, S < T
+    (1, 130, 130, 1, 1, 128, False),   # a rank of 16: one head
+]
+
+
+def _flash_grads(q, k, v, do, causal):
     from repro_torch.kernels import ops
 
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    return torch.autograd.grad(ops.flash_attention(qg, kg, vg, causal=causal), (qg, kg, vg), do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", FLASH_BWD_CASES)
+def test_cuda_flash_backward_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
+    """``ops.flash_attention`` with a gradient on CUDA: one forward launch
+    with the lse store, then one launch of the backward kernels; its dq,
+    dk, dv against ``ref.flash_bwd`` from the plain forward's (out, lse).
+    fp32: 1e-4 of max(1, max|want|) plus 1e-3 of each value (the two
+    outputs differ in the last bits, through rowsum(dO * O)); bf16: 2e-2 of
+    both (the kernels round P, and the backward dS, to bf16).  A query row
+    with no live key (causal, S > T) gets exactly zero gradient."""
     fa = cuda_attention[0]
     rng = np.random.default_rng(s + t + 2)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
                    for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d)))
-    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    before = fa.flash_attention.launches
-    got = torch.autograd.grad(ops.flash_attention(qg, kg, vg, causal=causal), (qg, kg, vg), do)
+    before, before_bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    got = _flash_grads(q, k, v, do, causal)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (before + 1, before_bwd + 1)
     want_out, want_lse = ref.flash_fwd(q, k, v, causal)
     want = ref.flash_bwd(q, k, v, want_out, want_lse, do, causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -566,6 +582,36 @@ def test_cuda_flash_backward_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_at
         atol, rtol = (1e-4 * scale, 1e-3) if dtype == torch.float32 else (2e-2 * scale, 2e-2)
         err = (g.float() - w.float()).abs()
         assert bool((err <= atol + rtol * w.float().abs()).all()), (name, float(err.max()))
+    if causal and s > t:
+        assert not got[0][:, : s - t].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", [(1, 300, 200, 16, 8, 128, True), (2, 130, 200, 8, 2, 112, False),
+                                                  (1, 100, 333, 4, 1, 32, True)])
+def test_cuda_flash_backward_deterministic_and_strided(b, s, t, h, hkv, d, causal, dtype, cuda_attention):
+    """Two calls of the backward kernels give the same bits (no atomics),
+    and a non-contiguous q, k, v or dout (a transposed view) is read as
+    its values: the same bits as from contiguous copies."""
+    fa = cuda_attention[0]
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    q, do = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    strided = [torch.cat([x, x], dim=-1)[..., :d] for x in (q, k, v, out, do)]  # rows 2d apart
+    assert not any(x.is_contiguous() for x in strided)
+    qs, ks, vs, outs, dos = strided
+    third = fa.flash_attention_bwd(qs, ks, vs, outs, lse, dos, causal=causal)
+    torch.cuda.synchronize()
+    for a, b_, c in zip(first, second, third):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd(q, k, v, out, lse[..., 1:], do)
+    with pytest.raises(ValueError, match="out and dout"):
+        fa.flash_attention_bwd(q, k, v, out.float() if dtype == torch.bfloat16 else out.bfloat16(), lse, do)
 
 
 @pytest.mark.cuda
@@ -996,9 +1042,14 @@ def test_cuda_custom_ops_launch_the_kernels(cuda_attention):
     x, gamma = torch.randn(16, 256, generator=g, device="cuda"), torch.randn(256, generator=g, device="cuda")
     c, w = torch.rand(3, 40, 8, generator=g, device="cuda"), torch.rand(3, 40, generator=g, device="cuda")
     ops_ = torch.ops.repro_torch
+    q32, k32 = q.float(), k.float()
+    o32, lse32 = ref.flash_fwd(q32, k32, k32, True)
+    lse32 = lse32.contiguous()  # the plain forward's is a slice of its padded blocks
     cases = [
         (fa.flash_attention, lambda: ops_.flash_attention(q, k, k, True), lambda: ref.flash_attention(q, k, k, True)),
         (fa.flash_attention, lambda: ops_.flash_attention_lse(q, k, k, False), lambda: ref.flash_fwd(q, k, k, False)),
+        (fa.flash_attention_bwd, lambda: ops_.flash_attention_bwd(q32, k32, k32, o32, lse32, q32, True),
+         lambda: ref.flash_bwd(q32, k32, k32, o32, lse32, q32, True)),
         (da.decode_attention, lambda: ops_.decode_attention(qd, k, k, lens), lambda: ref.decode_attention(qd, k, k, lens)),
         (rn.rmsnorm, lambda: ops_.rmsnorm(x, gamma, 1e-5), lambda: ref.rmsnorm(x, gamma)),
         (ds.disagg_gram, lambda: ops_.disagg_gram(c, w), lambda: ref.disagg_gram(c, w)),

@@ -4,7 +4,10 @@ step, data and trainer, on the CPU.
 - The flash VJP: ``kernels.ops.flash_attention`` (an autograd Function:
   ``ref.flash_fwd``, then ``ref.flash_bwd``) against ``jax.grad`` of the
   reference's ``ref.flash_attention`` (its ``custom_vjp``), out, lse, dq,
-  dk and dv at 1e-5 of scale in fp32.
+  dk and dv at 1e-5 of scale in fp32; the same Function on its kernel path
+  (the ``flash_attention_lse`` and ``flash_attention_bwd`` ops, with the
+  plain versions registered as their CPU implementations) at 1e-5, and
+  the backward op's fake implementation and FLOP formula.
 - The optimizer (schedule, clipping, int8 error feedback, ``update``) on
   the same numpy state and gradients as the reference, at 1e-6.
 - One train step against the reference's; ``accum_steps=4`` against 1
@@ -25,6 +28,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs.registry import get_config as r_get_config
 from repro.configs.shapes import ShapeConfig as RShape
@@ -92,7 +98,9 @@ def test_flash_function_matches_reference_vjp(b, s, t, h, hkv, d, causal, qb, kb
 
 def test_flash_function_routes_and_keeps_nothing_without_grad(monkeypatch):
     """With a gradient recorded the CPU path is ``flash_fwd`` then
-    ``flash_bwd``; without one it is the plain forward alone."""
+    ``flash_bwd``; without one it is the plain forward alone.  A fake
+    tensor takes the ops: its backward reaches ``flash_attention_bwd`` once
+    a call and no plain version."""
     seen = []
     for name in ("flash_attention", "flash_fwd", "flash_bwd"):
         real = getattr(ref, name)
@@ -106,6 +114,86 @@ def test_flash_function_routes_and_keeps_nothing_without_grad(monkeypatch):
     assert seen == ["flash_fwd"] and out.grad_fn is not None
     out.sum().backward()
     assert seen == ["flash_fwd", "flash_bwd"]
+    seen.clear()
+    with FakeTensorMode() as mode, _OpLog() as ops_seen:
+        q, k = mode.from_tensor(torch.randn(2, 32, 4, 16)), mode.from_tensor(torch.randn(2, 48, 2, 16))
+        q.requires_grad_()
+        for causal in (True, False):
+            torch.autograd.grad(ops.flash_attention(q, k, k, causal=causal).sum(), q)
+    assert seen == []
+    assert ops_seen.names == ["flash_attention_lse", "flash_attention_bwd"] * 2
+
+
+class _OpLog(TorchDispatchMode):
+    """Records the ``repro_torch`` custom ops called under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "namespace", None) == "repro_torch":
+            self.names.append(func._opname)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture
+def ops_on_cpu(monkeypatch):
+    """The Function's kernel path on the CPU: the plain versions registered
+    as the ``flash_attention_lse`` and ``flash_attention_bwd`` ops' CPU
+    implementations, and every tensor sent to the ops."""
+    lib = torch.library.Library("repro_torch", "IMPL")
+    lib.impl("flash_attention_lse", lambda q, k, v, causal: ref.flash_fwd(q, k, v, causal), "CPU")
+    lib.impl("flash_attention_bwd",
+             lambda q, k, v, out, lse, dout, causal: ref.flash_bwd(q, k, v, out, lse, dout, causal), "CPU")
+    monkeypatch.setattr(ops, "_kernel_path", lambda name, x: True)
+    yield
+    lib._destroy()
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,causal,qb,kb", [
+    (2, 64, 64, 4, 4, True, 16, 32),    # causal, group 1
+    (2, 64, 64, 4, 4, False, 32, 16),   # not causal
+    (1, 48, 48, 4, 2, True, 16, 16),    # GQA group 2
+    (1, 32, 96, 4, 2, True, 16, 32),    # S < T: the causal offset T - S
+])
+def test_flash_ops_glue_matches_reference_vjp(b, s, t, h, hkv, causal, qb, kb, ops_on_cpu):
+    """The kernel path's glue (the argument order the Function hands the
+    ops, the lse layout between them, the causal flag) against ``jax.grad``
+    of the reference's ``ref.flash_attention`` at 1e-5 of scale."""
+    d = 16
+    rng = np.random.default_rng(s + t + h + hkv + causal)
+    qn, kn, vn, gn = (rng.standard_normal(shape).astype(np.float32)
+                      for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d)))
+    grads_r = jax.grad(lambda q, k, v: jnp.sum(r_ref.flash_attention(q, k, v, causal, qb, kb) * gn), argnums=(0, 1, 2))(
+        jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (qn, kn, vn))
+    with _OpLog() as seen:
+        out = ops.flash_attention(q, k, v, causal=causal)
+        grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(gn))
+    assert seen.names == ["flash_attention_lse", "flash_attention_bwd"]
+    for got, want in zip(grads, grads_r):
+        close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_fake_and_flops(dtype):
+    """The backward op's fake implementation gives the gradients' shapes
+    and dtypes, and ``FlopCounterMode`` counts it at 2.5x the forward's
+    FLOPs (its five products against the forward's two)."""
+    b, s, t, h, hkv, d = 2, 40, 56, 4, 2, 16
+    with FakeTensorMode():
+        q, k = torch.empty(b, s, h, d, dtype=dtype), torch.empty(b, t, hkv, d, dtype=dtype)
+        lse = torch.empty(b, hkv, h // hkv, s)
+        for causal in (True, False):
+            with FlopCounterMode(display=False) as fwd:
+                out, _ = torch.ops.repro_torch.flash_attention_lse(q, k, k, causal)
+            with FlopCounterMode(display=False) as bwd:
+                grads = torch.ops.repro_torch.flash_attention_bwd(q, k, k, out, lse, out, causal)
+            assert [(tuple(g.shape), g.dtype) for g in grads] == [((b, s, h, d), dtype)] + [((b, t, hkv, d), dtype)] * 2
+            assert all(g.is_contiguous() for g in grads)
+            want = 5 * ops.attention_flops(b, s, t, h, d, causal)
+            assert bwd.get_total_flops() * 2 == 5 * fwd.get_total_flops() == want
 
 
 @pytest.mark.parametrize("b,s,t,causal", [(1, 37, 53, True), (2, 45, 45, False), (1, 20, 70, True)])

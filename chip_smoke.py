@@ -10,13 +10,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
    once (one nvcc each), prints each one's build time and ptxas report,
    and counts the tensor-core flash kernel's ``HGMMA`` and ``UTMALDG``
    instructions, the decode kernel's asynchronous loads (``LDGSTS`` or
-   ``UTMALDG``) and the flash backward's tensor-core instance's ``HMMA``
-   (``mma.sync``) and ``LDSM`` (``ldmatrix``) in their SASS
+   ``UTMALDG``) and, in each tensor-core instance of the flash backward
+   (the dK/dV and dQ passes at d 64, 112 and 128), ``HGMMA`` and
+   ``UTMALDG`` with no ``HMMA`` (``mma.sync``), in their SASS
    (``cuobjdump``): none, or no ``cuobjdump``, fails the run.  The flash
-   and decode plans' shared memory (and the decode tile) must be what the
-   built kernels compute.  ptxas's registers
-   and spills of the decode kernel's d 128 instances at register groups 4
-   and 8 (the dense models' GQA groups 4, 5 and 6) are printed.
+   forward's, the flash backward's and the decode plans' shared memory
+   (and the decode tile) must be what the built kernels compute.  ptxas's
+   registers and spills of the backward's tensor-core instances (0 bytes
+   spilled, asserted) and of the decode kernel's d 128 instances at
+   register groups 4 and 8 (the dense models' GQA groups 4, 5 and 6) are
+   printed.
 2. Kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at its main path's shapes and at ragged ones, in bf16 and fp32
    for the attention and RMSNorm kernels (zamba2's d 112 at H = Hkv = 32,
@@ -263,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import inspect
 import json
@@ -583,11 +587,17 @@ def time_gram(ds, c, w, warm: bool = False) -> dict:
     return row
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(lib: Path) -> str:
+    """``lib``'s SASS, disassembled once per library and run."""
+    return subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
 def _sass_count(lib: Path, ops, function: str = "") -> dict:
     """Counts of each SASS opcode in ``lib``, or only in its functions whose
     (mangled) name holds ``function``."""
-    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, timeout=300,
-                          check=True).stdout
+    sass = _sass(lib)
     if function:
         parts = [f for f in sass.split("Function : ")[1:] if function in f.split("\n", 1)[0]]
         assert parts, f"no function {function!r} in {lib.name}'s SASS"
@@ -631,6 +641,9 @@ def ptxas_functions(nvcc_log: str) -> dict:
     return out
 
 
+#: The flash backward's two tensor-core passes (dK/dV, dQ), each built at
+#: d 64, 112 and 128: ``flash_bwd_kv_kernel<D>`` and ``flash_bwd_q_kernel<D>``.
+BWD_TC_KERNELS = ("flash_bwd_kv_kernel", "flash_bwd_q_kernel")
 #: The decode kernel's d 128 instances at register groups 4 and 8 (the dense
 #: models' GQA groups 4, 5 and 6): ``decode_kernel<T, 128, GC>``'s mangled names.
 DECODE_GROUP_INSTANCES = {f"{t} GC={gc}": f"decode_kernelI{m}Li128ELi{gc}E"
@@ -640,10 +653,13 @@ DECODE_GROUP_INSTANCES = {f"{t} GC={gc}": f"decode_kernelI{m}Li128ELi{gc}E"
 def phase_build() -> float:
     """Compile every kernel at once (one nvcc each, each timed), load each,
     check that the tensor-core flash kernel's SASS holds wgmma (HGMMA) and
-    TMA loads (UTMALDG) and the decode kernel's asynchronous copies
-    (LDGSTS or UTMALDG), that the plans' geometry is the kernels', and log
-    the registers and spills of the decode kernel's d 128 group-4 and
-    group-8 instances."""
+    TMA loads (UTMALDG), that each tensor-core instance of the flash
+    backward (both passes at d 64, 112, 128) holds HGMMA and UTMALDG and no
+    ``mma.sync`` (HMMA), with 0 bytes spilled, and the decode kernel's
+    asynchronous copies (LDGSTS or UTMALDG), that the plans' geometry
+    (shared memory included) is the kernels', and log the registers and
+    spills of the backward's instances and of the decode kernel's d 128
+    group-4 and group-8 instances."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import decode_attention, disagg_solve, flash_attention, rmsnorm
@@ -675,9 +691,25 @@ def phase_build() -> float:
     counts = _sass_count(kbuild.library_path("flash_attention_tc"), ("HGMMA", "UTMALDG"), "flash_tc_kernelILi112E")
     log(f"sass flash_attention_tc d=112 instance: {counts}")
     assert all(counts.values()), f"the d = 112 tensor-core instance lacks wgmma or TMA loads: {counts}"
-    counts = _sass_count(kbuild.library_path("flash_attention_bwd"), ("HMMA", "LDSM"), "flash_bwd_tc_kernel")
-    log(f"sass flash_attention_bwd tensor-core instances: {counts}")
-    assert all(counts.values()), f"the flash backward's tensor-core kernels lack mma.sync or ldmatrix: {counts}"
+    bwd_fns = ptxas_functions(built["flash_attention_bwd"][0])  # empty when built before this run
+    for d in flash_attention.TC_HEAD_DIMS:
+        for kernel in BWD_TC_KERNELS:
+            counts = _sass_count(kbuild.library_path("flash_attention_bwd"), ("HGMMA", "UTMALDG", "HMMA"),
+                                 f"{kernel}ILi{d}E")
+            log(f"sass flash_attention_bwd {kernel} d={d}: {counts}")
+            assert counts["HGMMA"] and counts["UTMALDG"] and not counts["HMMA"], \
+                f"the backward's {kernel} at d = {d} is not on wgmma fed by TMA alone: {counts}"
+            if bwd_fns:
+                props = [v for k, v in bwd_fns.items() if f"{kernel}ILi{d}E" in k]
+                assert len(props) == 1, (kernel, d, props)
+                log(f"ptxas flash_attention_bwd {kernel} d={d}: {props[0]}")
+                assert props[0]["spill_stores"] == props[0]["spill_loads"] == 0, (kernel, d, props[0])
+        plan = flash_attention.bwd_plan(*FLASH_TRAIN[:5], d)
+        built_smem = flash_attention.bwd_smem_bytes(d)
+        assert built_smem == (plan["kv"]["smem_bytes"], plan["q"]["smem_bytes"]), (d, built_smem, plan)
+    log(f"flash bwd plan at the training shape (d {HD}): dK/dV grid {plan['kv']['grid']}, {plan['kv']['smem_bytes']} B, "
+        f"{sum(plan['kv']['tiles'])} query tiles per (batch, KV head); dQ grid {plan['q']['grid']}, "
+        f"{plan['q']['smem_bytes']} B, {sum(plan['q']['tiles'])} key tiles per (batch, head)")
     counts = _sass_count(kbuild.library_path("decode_attention"), ("LDGSTS", "UTMALDG"))
     log(f"sass decode_attention: {counts}")
     assert any(counts.values()), f"the decode kernel's SASS has no asynchronous loads: {counts}"
@@ -4960,14 +4992,21 @@ def bench_main(argv: list) -> int:
     ``python3 chip_smoke.py --bench [DIR]`` imports ``repro_torch`` from
     ``DIR`` (default: this checkout's ``src``), so that one call can time
     two trees on one card.  Flash runs at the serving path's main shapes
-    (bf16, no lse: serving's call), cold-L2 median and warm per launch.
+    (bf16, no lse: serving's call), cold-L2 median and warm per launch; on a
+    tree with the hand backward (``fa.flash_attention_bwd``), the backward
+    at the training call ``FLASH_TRAIN`` and the ranks' bf16 ``VJP_TP``
+    calls too, cold and warm, beside SDPA's backward (cold).
     Per kernel and shape it prints ``time_decode``'s
     or ``time_gram``'s row (cold and warm, the kernel's and the library
     call's), at decode's main shapes (bf16) and at the gram's main shapes,
     its parity shapes with M >= 64 and those either side of the variants'
     threshold.  Last, ``BENCH_TRAIN_STEPS`` steps of the training phase's
     program through the launcher on the (1, 1) mesh, whose losses two trees
-    must repeat bitwise where "model" has size 1.  Decode also runs at a rank's kv_seq block of a 32,768-row
+    with the same kernels repeat bitwise where "model" has size 1 (two
+    trees whose backward kernels sum in another order may differ after the
+    first step, whose loss no backward has touched yet: AdamW's first
+    update is about lr * sign(g), and the bf16 compute copy of the masters
+    can round a last-bit difference away, so they may also agree).  Decode also runs at a rank's kv_seq block of a 32,768-row
     cache (``DECODE_KV_BLOCK``), and on a tree whose kernel has the lse
     store, with it (``lse_ms``, ``lse_warm_ms``).  For decode it adds ``len1_ms`` (every length 1: the
     launch's fixed cost at that grid), ``host_us`` (the wrapper's host
@@ -5004,6 +5043,28 @@ def bench_main(argv: list) -> int:
         out["flash"][f"B={b} S={s} T={t}"] = row
         print(f"flash B={b} S={s} T={t} H={h} Hkv={hkv} d={d}: " + " ".join(f"{k}={v}" for k, v in row.items()),
               flush=True)
+    if hasattr(fa, "flash_attention_bwd"):  # a tree with the hand backward: its bf16 training calls
+        import torch.nn.functional as F
+
+        fa.build_bwd()
+        out["flash_bwd"] = {}
+        for b, s, t, h, hkv, d, causal, dtype in [FLASH_TRAIN + (torch.bfloat16,)] + [
+                c for c in VJP_TP if c[-1] == torch.bfloat16]:
+            q, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, t, hkv, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
+            nbytes = flash_bwd_work(b, s, t, h, hkv, d, causal, dtype)[0]
+            row = dict(ms=device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)),
+                       warm_ms=warm_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal), (q, k, v, o, lse, do),
+                                       nbytes))
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            row["library_ms"] = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+            del ot, qt, kt, vt, dot
+            out["flash_bwd"][f"B={b} S={s} H={h} Hkv={hkv} d={d}"] = row
+            print(f"flash backward B={b} S={s} T={t} H={h} Hkv={hkv} d={d}: "
+                  + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
     has_lse = "lse" in inspect.signature(da.decode_attention).parameters
     for b, smax, lengths in DECODE_MAIN + [DECODE_KV_BLOCK[:3]]:
         q = torch.randn(b, H, HD, generator=gen, device="cuda").bfloat16()

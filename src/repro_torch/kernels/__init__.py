@@ -8,8 +8,9 @@
   (``csrc/flash_attention_tc.cu``), the FMA kernel for the rest
   (``csrc/flash_attention.cu``); and its backward for the training path
   (``csrc/flash_attention_bwd.cu``: a rowsum prologue, a dK/dV pass and a
-  dQ pass, ``mma.sync`` tensor-core products in bf16 at d in {64, 112, 128},
-  FMAs otherwise).
+  dQ pass, both on ``wgmma`` fed by TMA rings in bf16 at d in {64, 112, 128},
+  FMAs otherwise); ``csrc/hopper.cuh`` holds the mbarrier, TMA and wgmma
+  helpers the forward's and the backward's tensor-core kernels share.
 - ``decode_attention`` -- CUDA single-token attention against a KV cache
   (``csrc/decode_attention.cu``: one launch, a cp.async K/V ring, the
   cache's slices merged inside a thread-block cluster).

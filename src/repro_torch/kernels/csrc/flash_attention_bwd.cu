@@ -12,7 +12,7 @@
 // the G = H / Hkv query heads of a KV head summed into its dK and dV. A
 // masked pair gets probability 0 from the mask itself, never from
 // exp(-1e30 - lse), so a query row with no live key (causal, S > T: the
-// forward's lse -1e30, output 0) gets zero gradient.
+// forward's lse -1e30, output 0) gets exactly zero gradient.
 //
 // Replaces src/repro/kernels/ref.py::_flash_bwd, the backward of the
 // reference's custom_vjp (ref.py:91, defvjp at :222). The reference has no
@@ -24,51 +24,94 @@
 //            (batch, KV head), keeps its K and V rows in shared memory and
 //            its dK and dV in registers, and walks the G query heads and,
 //            for each, the query tiles from the first with a live pair (the
-//            causal diagonal) to the end: Q, dO, lse and Dsum staged per tile.
+//            causal diagonal) to the end.
 //   dQ       grid (query tiles, H, B): a block owns a query tile of one head,
 //            keeps Q and dO in shared memory and dQ in registers, and walks
 //            the key tiles up to its causal limit.
 //
-// The two passes recompute Q K^T and dO V^T each (7 products where the
-// function needs 5): the price of having no atomics. FlashAttention-2 adds
-// each pair's dS K into dQ with floating-point atomics, whose order changes
-// from run to run; here every sum runs in a fixed order (the head and tile
-// loops), so the same inputs give the same bits, which the training path's
-// crash-and-relaunch check needs. Both passes are one template: a block's
-// "own" rows (keys, or queries) and its "streamed" rows (queries, or keys):
+// Bound on an H100: at the training shape (B 4, S = T = 2048, H 16, Hkv 8,
+// D 128, causal, bf16) the function's five products (Q K^T, dO V^T, P^T dO,
+// dS^T Q, dS K: 2.5x the forward's flops) against reading q, k, v, out,
+// dout and lse and writing dq, dk, dv once are bound by operations: 173.8 us
+// at 989 TFLOP/s bf16 dense. This design runs seven products (each pass
+// recomputes Q K^T and dO V^T), so its own floor is 7/5 of that, 243.3 us.
+// What each part of the tensor-core variant (bf16, D in {64, 112, 128})
+// does about it:
+//
+//   products  every product is wgmma, the only path to the full bf16 rate
+//             (hopper.cuh's helpers, shared with the forward). The score
+//             products S^T = K Q^T and dP^T = V dO^T (dK/dV pass), S = Q K^T
+//             and dP = dO V^T (dQ pass) read both operands from shared
+//             memory, K-major as stored (the forward's Q K^T); the gradient
+//             products dV += P^T dO, dK += dS^T Q and dQ += dS K take P^T,
+//             dS^T or dS from registers as bf16 (the fp32 accumulator layout
+//             of a score tile is the register-A layout of the next product)
+//             and the streamed tile MN-major under the transpose bit (the
+//             forward's P V). P and dS never leave registers; both are
+//             rounded to bf16 for their products, as the forward rounds P.
+//   copies    TMA: 4-D tensor maps over the (B, T, Hkv, d) and (B, S, H, d)
+//             layouts, 128-byte swizzled, 64-column boxes (two panels at
+//             D = 112 and 128): no consumer thread spends registers or
+//             instructions on a copy; TMA fills rows past S or T, and
+//             columns 112-127 at D = 112, with zeros. The dK/dV pass's
+//             producer warp stages each query tile's lse and Dsum (64 fp32
+//             each) beside it with plain loads: a TMA box over the (B, H, S)
+//             rows would start off 16-byte alignment when S % 4 != 0.
+//   pipeline  a block is one producer warp (in a warpgroup that setmaxnreg
+//             shrinks to 24 registers) and two consumer warpgroups (240).
+//             The own tiles are loaded once; the streamed tiles come through
+//             a ring with full (TMA bytes landed) and empty (all 8 consumer
+//             warps done) mbarriers, so the next tiles load while the tensor
+//             cores work: 3 stages of Q, dO, lse and Dsum (dK/dV pass), 2 of
+//             K and V (dQ pass). Each consumer issues its two score products
+//             as one wgmma group and its gradient products as a second and
+//             waits on each; the two warpgroups share the tensor cores, so
+//             one's exponentials run while the other's products do (the
+//             forward's explicit ping-pong turns measured no faster here).
+//   tiles     dK/dV: 128 keys a block (64 a warpgroup: 64 + 64 fp32
+//             accumulator registers for dK and dV at D 128, 32 + 32 for the
+//             two score tiles) against 64-query tiles; key tile 0 walks the
+//             most query tiles (causal) and launches first. dQ: 128 query
+//             rows a block (64 a warpgroup: 64 accumulator registers for dQ,
+//             64 + 64 for the score tiles) against 128-key tiles; the query
+//             tiles nearest the diagonal's end launch first. A warpgroup
+//             skips a tile with no live pair for its rows; only tiles that
+//             the causal diagonal, S or T cut are masked; key tiles wholly
+//             above the diagonal are never loaded. Shared memory: 166,400 B
+//             (dK/dV) and 197,632 B (dQ) at D 128, within 227 KB.
+//   D = 112   (zamba2's heads) is computed natively: products whose depth
+//             is D take 7 k-steps of 16 and never read the zero columns;
+//             products whose width is D run at N = 128, and the epilogue
+//             stores no column >= 112.
+//   order     no floating-point atomics and no split of one output row's sum
+//             across blocks: each dK and dV row is summed in one block's
+//             registers over the G heads, then the query tiles, in loop
+//             order, and each dQ row over the key tiles, so the same inputs
+//             give the same bits, which the training path's crash-and-
+//             relaunch check needs. That is why dQ has a pass of its own
+//             (FlashAttention-2 adds each dS K into dQ with atomics, whose
+//             order changes from run to run): 7 products for 5, and no dQ
+//             workspace to write and read again.
+//
+// The fma variant: fp32 at every D (so fp32 never goes through TF32) and
+// bf16 at D in {16, 32}: 32 x 32 tiles in fp32 shared memory, fp32 FMAs,
+// each thread a 2 x 4 patch of X and Y and 2 rows x D/8 columns of each
+// accumulator; P and dS staged in shared memory. Its two passes are one
+// template: a block's "own" rows (keys, or queries) and its "streamed" rows
+// (queries, or keys):
 //   X = A1 B1^T, Y = A2 B2^T   (own x streamed: S^T and dP^T, or S and dP)
 //   acc1 += dS B1, acc2 += P B2 (dK and dV from Q and dO; or dQ from K)
-//
-// Variants, picked by the wrapper (kernels/flash_attention.py) before launch,
-// as the forward's are:
-//   tc   bf16 at D in {64, 112, 128}: tensor-core products with
-//        mma.sync m16n8k16 (bf16 in, fp32 accumulate), fragments read from
-//        shared memory with ldmatrix (.trans for the streamed operand of
-//        the second products). Tiles of 64 own x 64 streamed rows, four
-//        warps of 16 own rows each; each 16-column slice of a streamed
-//        tile goes X, Y -> P, dS (fp32, rounded to bf16 for their products,
-//        as the forward rounds P) -> acc, the accumulator layout of X being
-//        the A-fragment layout of the next product, so P and dS never leave
-//        registers. Shared rows are padded by 8 elements, which puts the 8
-//        rows of an ldmatrix on 8 distinct 16-byte bank groups. D = 112 is
-//        computed natively: 7 k-steps of 16 and 14 output tiles of 8.
-//   fma  fp32 at every D (so fp32 never goes through TF32) and bf16 at D in
-//        {16, 32}: 32 x 32 tiles in fp32 shared memory, fp32 FMAs, each
-//        thread a 2 x 4 patch of X and Y and 2 rows x D/8 columns of each
-//        accumulator; P and dS staged in shared memory.
-//
-// Bound on an H100: at the training shape (B 4, S = T = 2048, H 16, Hkv 8,
-// D 128, causal, bf16) the function's five products do 2.5x the forward's
-// flops against reading q, k, v, out, dout and lse and writing dq, dk, dv
-// once: bound by operations (989 TFLOP/s bf16 dense). mma.sync reaches only
-// part of that rate on Hopper (wgmma is the full-rate path), and the two
-// passes do 7/5 of the products; both are what a later redesign takes up.
+// The wrapper (kernels/flash_attention.py) picks the variant before launch,
+// as the forward's are picked.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound through ctypes (plain C interface below).
 
+#include <math.h>
+
 #include "convert.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -125,261 +168,349 @@ flash_bwd_dsum_kernel(const T* __restrict__ out, const T* __restrict__ dout, flo
   }
 }
 
-// ---- tensor-core variant (bf16, D in {64, 112, 128}) --------------------------
+// ---- tensor-core variant (bf16, D in {64, 112, 128}): wgmma + TMA --------------
 
-constexpr int TC_ROWS = 64;  // own rows a block: 4 warps x 16
-constexpr int TC_COLS = 64;  // streamed rows a step
-constexpr int TC_THREADS = 128;
+constexpr int TC_CONSUMERS = 256;               // two consumer warpgroups of 64 own rows
+constexpr int TC_THREADS = TC_CONSUMERS + 128;  // + the producer warpgroup
+constexpr int KV_OWN = 128, KV_STREAM = 64, KV_STAGES = 3;  // dK/dV pass: keys a block, queries a stage
+constexpr int Q_OWN = 128, Q_STREAM = 128, Q_STAGES = 2;    // dQ pass: queries a block, keys a stage
 
-template <int D>
-struct TcLayout {
-  static constexpr int LD = D + 8;  // row stride (elements): 16-byte aligned, conflict-free ldmatrix
-  static constexpr size_t bytes() {
-    return sizeof(bf16) * (2 * TC_ROWS + 2 * TC_COLS) * LD + sizeof(float) * 2 * TC_COLS;
-  }
+// Shared memory of one pass: its two own tiles (K and V, or Q and dO), then
+// STAGES streamed tiles of each of the other two (Q and dO, or K and V),
+// each tile ceil(D / 64) swizzle panels of (rows x 128 bytes), 1024-byte
+// aligned; then, with ROWS (the dK/dV pass), each stage's queries' lse and
+// Dsum. DP is D rounded up to whole panels: the width of the products
+// whose width is D, and of their accumulators.
+template <int D, int OWN, int STREAM, int STAGES, bool ROWS>
+struct TcSmem {
+  static constexpr int PANELS = (D + PANEL - 1) / PANEL;
+  static constexpr int DP = PANELS * PANEL;
+  static constexpr int OWN_PANEL = OWN * ROW_BYTES;
+  static constexpr int STREAM_PANEL = STREAM * ROW_BYTES;
+  static constexpr int OWN_BYTES = PANELS * OWN_PANEL;        // one own tile
+  static constexpr int STREAM_BYTES = PANELS * STREAM_PANEL;  // one streamed tile
+  static constexpr int A2_OFF = OWN_BYTES;
+  static constexpr int B1_OFF = 2 * OWN_BYTES;
+  static constexpr int B2_OFF = B1_OFF + STAGES * STREAM_BYTES;
+  static constexpr int ROWS_OFF = B2_OFF + STAGES * STREAM_BYTES;
+  static constexpr int ROW_VALUES = ROWS ? 2 * STREAM : 0;  // fp32 a stage: lse, then Dsum
+  static constexpr int BYTES = ROWS_OFF + STAGES * ROW_VALUES * 4;
+  static constexpr int ALLOC = BYTES + 1024;  // slack to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `valid` of 64 rows of D bf16 (global row stride `gstride` elements,
-// 16-byte aligned) into shared rows of stride D + 8, zero-filling the rest.
 template <int D>
-__device__ __forceinline__ void stage_tc(bf16* dst, const bf16* __restrict__ src, int64_t gstride, int valid) {
-  constexpr int CHUNKS = D / 8;
-  constexpr int LD = TcLayout<D>::LD;
-  for (int e = threadIdx.x; e < 64 * CHUNKS; e += TC_THREADS) {
-    const int r = e / CHUNKS;
-    const int c = (e % CHUNKS) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) raw = __ldg(reinterpret_cast<const uint4*>(src + r * gstride + c));
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = raw;
-  }
+using KvSmem = TcSmem<D, KV_OWN, KV_STREAM, KV_STAGES, true>;
+template <int D>
+using QSmem = TcSmem<D, Q_OWN, Q_STREAM, Q_STAGES, false>;
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
 }
 
-// Fragment layouts (m16n8k16, lane = 4 * gq + tq): an accumulator tile's
-// element e sits at row gq + 8 * (e >> 1), column 2 * tq + (e & 1).
-//
-// One streamed tile (b1s, b2s, and for KV the per-column lse / Dsum in
-// shared memory; for dQ the own rows' in registers) into the accumulators.
-template <int D, bool KV>
-__device__ __forceinline__ void tc_step(float (&acc1)[D / 8][4], float (&acc2)[KV ? D / 8 : 1][4], uint32_t a1_addr,
-                                        uint32_t a2_addr, uint32_t b1_base, uint32_t b2_base, const float* lse_s,
-                                        const float* dsum_s, const float (&lse_own)[2], const float (&dsum_own)[2],
-                                        int own_lo, int c0, int s, int t, int offset, int causal, float scale_log2) {
-  constexpr int LDB = TcLayout<D>::LD * 2;  // row stride in bytes
-  const int lane = threadIdx.x & 31;
-  const int tq = lane & 3;  // own_lo already holds this lane's row group
-  const int m = lane >> 3, rr = lane & 7;
-  // ldmatrix row addresses of this lane: the non-transposed B operand
-  // (matrices: n 0-7 k 0-7, n 0-7 k 8-15, n 8-15 k 0-7, n 8-15 k 8-15) and
-  // the transposed one (k 0-7 n 0-7, k 8-15 n 0-7, k 0-7 n 8-15, k 8-15 n 8-15).
-  const uint32_t b_off = (rr + (m >> 1) * 8) * LDB + (m & 1) * 16;
-  const uint32_t bt_off = (rr + (m & 1) * 8) * LDB + (m >> 1) * 16;
-#pragma unroll 1
-  for (int cc = 0; cc < TC_COLS / 16; ++cc) {
-    float x[2][4], y[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[n][e] = y[n][e] = 0.0f;
-    const uint32_t row16 = cc * 16 * LDB;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a1[4], a2[4], b1[4], b2[4];
-      ldsm_x4(a1, a1_addr + kk * 32);
-      ldsm_x4(b1, b1_base + row16 + b_off + kk * 32);
-      mma_bf16(x[0], a1, b1[0], b1[1]);
-      mma_bf16(x[1], a1, b1[2], b1[3]);
-      ldsm_x4(a2, a2_addr + kk * 32);
-      ldsm_x4(b2, b2_base + row16 + b_off + kk * 32);
-      mma_bf16(y[0], a2, b2[0], b2[1]);
-      mma_bf16(y[1], a2, b2[2], b2[3]);
-    }
-    // P and dS as A fragments of the next products: (a0, a1, a2, a3) of a
-    // 16 x 16 slice are (rows 0-7 k 0-7, rows 8-15 k 0-7, rows 0-7 k 8-15,
-    // rows 8-15 k 8-15), i.e. accumulator tile 0's two halves, then tile 1's.
-    uint32_t pa[4], dsa[4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int own = own_lo + 8 * (e >> 1);
-        const int col = cc * 16 + n * 8 + 2 * tq + (e & 1);  // within the streamed tile
-        const int qi = KV ? c0 + col : own;
-        const int ki = KV ? own : c0 + col;
-        const float l2 = KV ? lse_s[col] : lse_own[e >> 1];
-        const float dsum = KV ? dsum_s[col] : dsum_own[e >> 1];
-        p[e] = live_pair(qi, ki, s, t, offset, causal) ? exp2f(x[n][e] * scale_log2 - l2) : 0.0f;
-        ds[e] = p[e] * (y[n][e] - dsum);
-      }
-      pa[2 * n] = pack_bf16(p[0], p[1]);
-      pa[2 * n + 1] = pack_bf16(p[2], p[3]);
-      dsa[2 * n] = pack_bf16(ds[0], ds[1]);
-      dsa[2 * n + 1] = pack_bf16(ds[2], ds[3]);
-    }
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, b1_base + row16 + bt_off + np * 32);
-      mma_bf16(acc1[2 * np], dsa, b[0], b[1]);
-      mma_bf16(acc1[2 * np + 1], dsa, b[2], b[3]);
-      if constexpr (KV) {
-        ldsm_x4_trans(b, b2_base + row16 + bt_off + np * 32);
-        mma_bf16(acc2[2 * np], pa, b[0], b[1]);
-        mma_bf16(acc2[2 * np + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// KV: (d1, d2) = (dK, dV), grid (ceil(T / 64), Hkv, B).
-// !KV: d1 = dQ, grid (ceil(S / 64), H, B), the longest query tiles first.
-template <int D, bool KV>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-              bf16* __restrict__ d1, bf16* __restrict__ d2, int s, int t, int h, int hkv, int causal, float scale) {
-  constexpr int LD = TcLayout<D>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* a1s = reinterpret_cast<bf16*>(smem_raw);  // own rows: K, or Q
-  bf16* a2s = a1s + TC_ROWS * LD;                 // own rows: V, or dO
-  bf16* b1s = a2s + TC_ROWS * LD;                 // streamed: Q, or K
-  bf16* b2s = b1s + TC_COLS * LD;                 // streamed: dO, or V
-  float* lse_s = reinterpret_cast<float*>(b2s + TC_COLS * LD);  // KV: the streamed queries' lse * log2 e
-  float* dsum_s = lse_s + TC_COLS;
+// dK/dV pass, grid (ceil(T / 128), Hkv, B): a block owns 128 keys of one
+// (batch, KV head), 64 a consumer warpgroup, and walks the G query heads in
+// order and, for each, the 64-row query tiles from the causal diagonal on.
+// Key tile 0 walks the most (causal) and is launched first.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                    const float* __restrict__ lse, const float* __restrict__ dsum, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int s, int t, int h, int hkv, int causal, float scale) {
+  using L = KvSmem<D>;
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  __shared__ __align__(8) uint64_t own_full, full[KV_STAGES], empty[KV_STAGES];
+  uint8_t* smem = align_1024(tc_smem);
 
   const int g_size = h / hkv;
+  const int k0 = blockIdx.x * KV_OWN;
+  const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int offset = t - s;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const float scale_log2 = scale * LOG2E;
-  const int nq = (s + TC_COLS - 1) / TC_COLS;
-  const int own0 = KV ? blockIdx.x * TC_ROWS : (nq - 1 - static_cast<int>(blockIdx.x)) * TC_ROWS;
-  const int n_own = KV ? t : s;
-  const int hk = KV ? blockIdx.y : blockIdx.y / g_size;
-  const int64_t q_stride = static_cast<int64_t>(h) * D;
-  const int64_t kv_stride = static_cast<int64_t>(hkv) * D;
-  const bf16* kb = k + static_cast<int64_t>(b) * t * kv_stride + static_cast<int64_t>(hk) * D;
-  const bf16* vb = v + static_cast<int64_t>(b) * t * kv_stride + static_cast<int64_t>(hk) * D;
+  const int qt0 = first_query_tile(k0, offset, causal, KV_STREAM);
+  const int per_head = (s + KV_STREAM - 1) / KV_STREAM - qt0;  // >= 1: query k0 - offset < S sees key k0
+  const int n_tiles = g_size * per_head;
 
-  // Own rows: staged once (the first step's barrier orders them).
-  if constexpr (KV) {
-    stage_tc<D>(a1s, kb + own0 * kv_stride, kv_stride, min(TC_ROWS, t - own0));
-    stage_tc<D>(a2s, vb + own0 * kv_stride, kv_stride, min(TC_ROWS, t - own0));
-  } else {
-    const int64_t off = static_cast<int64_t>(b) * s * q_stride + own0 * q_stride + static_cast<int64_t>(blockIdx.y) * D;
-    stage_tc<D>(a1s, q + off, q_stride, min(TC_ROWS, s - own0));
-    stage_tc<D>(a2s, dout + off, q_stride, min(TC_ROWS, s - own0));
-  }
-
-  const int own_lo = own0 + warp * 16 + gq;  // this lane's own rows: own_lo and own_lo + 8
-  float lse_own[2] = {0.0f, 0.0f}, dsum_own[2] = {0.0f, 0.0f};
-  if constexpr (!KV) {
-    const int64_t row0 = (static_cast<int64_t>(b) * h + blockIdx.y) * s;
+  if (threadIdx.x == 0) {
+    mbar_init(&own_full, 1);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (own_lo + 8 * i < s) {
-        lse_own[i] = lse[row0 + own_lo + 8 * i] * LOG2E;
-        dsum_own[i] = dsum[row0 + own_lo + 8 * i];
-      }
+    for (int i = 0; i < KV_STAGES; ++i) {
+      mbar_init(&full[i], 32);  // the producer warp's lanes, lane 0's with the TMA bytes
+      mbar_init(&empty[i], TC_CONSUMERS / 32);  // one arrival per consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  float acc1[D / 8][4], acc2[KV ? D / 8 : 1][4];
+  if (threadIdx.x >= TC_CONSUMERS) {
+    // ---- producer warpgroup: one warp; lane 0 issues every TMA copy, and
+    // the warp stages each query tile's lse (times log2 e) and Dsum with
+    // plain loads (a TMA box over the (B, H, S) rows would start off 16-byte
+    // alignment whenever S % 4 != 0) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int lane = threadIdx.x - TC_CONSUMERS;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_expect_tx(&own_full, 2 * L::OWN_BYTES);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc1[n][e] = 0.0f;
-#pragma unroll
-  for (int n = 0; n < (KV ? D / 8 : 1); ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc2[n][e] = 0.0f;
-
-  // ldmatrix A addresses of this lane (matrices: rows 0-7 k 0-7, rows 8-15
-  // k 0-7, rows 0-7 k 8-15, rows 8-15 k 8-15 of the warp's 16 own rows).
-  const int m = lane >> 3, rr = lane & 7;
-  const uint32_t a_off = ((warp * 16 + rr + (m & 1) * 8) * LD + (m >> 1) * 8) * 2;
-  const uint32_t a1_addr = smem_u32(a1s) + a_off, a2_addr = smem_u32(a2s) + a_off;
-  const uint32_t b1_base = smem_u32(b1s), b2_base = smem_u32(b2s);
-
-  if constexpr (KV) {
-    const int qt0 = first_query_tile(own0, offset, causal, TC_COLS);
-    for (int g = 0; g < g_size; ++g) {
-      const int head = hk * g_size + g;
-      const int64_t base = static_cast<int64_t>(b) * s * q_stride + static_cast<int64_t>(head) * D;
-      const int64_t row0 = (static_cast<int64_t>(b) * h + head) * s;
-      for (int qt = qt0; qt < nq; ++qt) {
-        const int c0 = qt * TC_COLS;
-        __syncthreads();  // the previous step's readers are done
-        stage_tc<D>(b1s, q + base + c0 * q_stride, q_stride, min(TC_COLS, s - c0));
-        stage_tc<D>(b2s, dout + base + c0 * q_stride, q_stride, min(TC_COLS, s - c0));
-        if (threadIdx.x < TC_COLS) {
-          const int qi = c0 + threadIdx.x;
-          lse_s[threadIdx.x] = qi < s ? lse[row0 + qi] * LOG2E : 0.0f;
-          dsum_s[threadIdx.x] = qi < s ? dsum[row0 + qi] : 0.0f;
+        for (int p = 0; p < L::PANELS; ++p) {
+          tma_load_4d(smem + p * L::OWN_PANEL, &tm_k, &own_full, p * PANEL, hk, k0, b);
+          tma_load_4d(smem + L::A2_OFF + p * L::OWN_PANEL, &tm_v, &own_full, p * PANEL, hk, k0, b);
         }
-        __syncthreads();
-        tc_step<D, KV>(acc1, acc2, a1_addr, a2_addr, b1_base, b2_base, lse_s, dsum_s, lse_own, dsum_own, own_lo,
-                       c0, s, t, offset, causal, scale_log2);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % KV_STAGES;
+        const int head = hk * g_size + i / per_head;
+        const int q0 = (qt0 + i % per_head) * KV_STREAM;
+        mbar_wait(&empty[st], ((i / KV_STAGES) & 1) ^ 1);  // the first round passes at once
+        float* rows = reinterpret_cast<float*>(smem + L::ROWS_OFF + st * L::ROW_VALUES * 4);
+        const int64_t row0 = (static_cast<int64_t>(b) * h + head) * s + q0;  // lse's (B, H, S) order
+#pragma unroll
+        for (int r = lane; r < KV_STREAM; r += 32) {
+          const bool in = q0 + r < s;
+          rows[r] = in ? lse[row0 + r] * LOG2E : 0.0f;
+          rows[KV_STREAM + r] = in ? dsum[row0 + r] : 0.0f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * L::STREAM_BYTES);
+          uint8_t* qd = smem + L::B1_OFF + st * L::STREAM_BYTES;
+          uint8_t* dod = smem + L::B2_OFF + st * L::STREAM_BYTES;
+#pragma unroll
+          for (int p = 0; p < L::PANELS; ++p) {
+            tma_load_4d(qd + p * L::STREAM_PANEL, &tm_q, &full[st], p * PANEL, head, q0, b);
+            tma_load_4d(dod + p * L::STREAM_PANEL, &tm_do, &full[st], p * PANEL, head, q0, b);
+          }
+        } else {
+          mbar_arrive(&full[st]);
+        }
       }
     }
   } else {
-    const int hi = key_tiles(own0, TC_ROWS, s, t, offset, causal, TC_COLS);
-    for (int kt = 0; kt < hi; ++kt) {
-      const int c0 = kt * TC_COLS;
-      __syncthreads();
-      stage_tc<D>(b1s, kb + c0 * kv_stride, kv_stride, min(TC_COLS, t - c0));
-      stage_tc<D>(b2s, vb + c0 * kv_stride, kv_stride, min(TC_COLS, t - c0));
-      __syncthreads();
-      tc_step<D, KV>(acc1, acc2, a1_addr, a2_addr, b1_base, b2_base, lse_s, dsum_s, lse_own, dsum_own, own_lo,
-                     c0, s, t, offset, causal, scale_log2);
+    // ---- consumer warpgroups: 64 keys each ----
+    // Each query tile: S^T = K Q^T and dP^T = V dO^T (one async wgmma
+    // group); P^T and dS^T in fp32 registers, rounded to bf16 fragments;
+    // dV += P^T dO and dK += dS^T Q (a second group); release the stage.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    constexpr int NS = KV_STREAM / 2;  // score registers a thread (m64 x n64)
+    constexpr int NO = L::DP / 2;      // accumulator registers a thread (m64 x nDP)
+    const int wg = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int wg_k0 = k0 + wg * 64;
+    const int key0 = wg_k0 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // and key0 + 8
+    const int col0 = 2 * (lane % 4);
+    const float scale_log2 = scale * LOG2E;
+    float dk_acc[NO], dv_acc[NO];
+    zero(dk_acc);
+    zero(dv_acc);
+    const uint32_t k_base = smem_u32(smem) + wg * 64 * ROW_BYTES;
+    const uint32_t v_base = smem_u32(smem + L::A2_OFF) + wg * 64 * ROW_BYTES;
+    mbar_wait(&own_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % KV_STAGES;
+      const int q0 = (qt0 + i % per_head) * KV_STREAM;
+      mbar_wait(&full[st], (i / KV_STAGES) & 1);
+      // No live pair for this warpgroup's keys: all >= T, or (causal) every
+      // query of the tile before the first key's diagonal.
+      const bool dead = wg_k0 >= t || (causal && min(q0 + KV_STREAM, s) - 1 + offset < wg_k0);
+      if (!dead) {
+        const uint32_t q_base = smem_u32(smem + L::B1_OFF + st * L::STREAM_BYTES);
+        const uint32_t do_base = smem_u32(smem + L::B2_OFF + st * L::STREAM_BYTES);
+        const float* lse_s = reinterpret_cast<const float*>(smem + L::ROWS_OFF + st * L::ROW_VALUES * 4);
+        const float* dsum_s = lse_s + KV_STREAM;  // lse_s holds lse * log2 e
+        float sc[NS], dp[NS];
+        wgmma_fence();
+        mma_rows<D, KV_STREAM>(sc, k_base, L::OWN_PANEL, q_base, L::STREAM_PANEL);   // S^T = K Q^T
+        mma_rows<D, KV_STREAM>(dp, v_base, L::OWN_PANEL, do_base, L::STREAM_PANEL);  // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence_all(sc);
+        reg_fence_all(dp);
+        // Only a tile that S or the causal diagonal cuts is masked: a masked
+        // score is -inf, so its P is 0 and its dS 0. Keys >= T are never
+        // stored.
+        if (q0 + KV_STREAM > s || (causal && q0 + offset < wg_k0 + 63)) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            if (!live_pair(q0 + col0 + acc_col(j), key0 + acc_row(j), s, t, offset, causal)) sc[j] = -INFINITY;
+        }
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {  // registers j, j + 1: queries q0 + c, q0 + c + 1
+          const int c = col0 + acc_col(j);
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+          const float2 ds = *reinterpret_cast<const float2*>(dsum_s + c);
+          sc[j] = ex2(fmaf(sc[j], scale_log2, -l.x));
+          sc[j + 1] = ex2(fmaf(sc[j + 1], scale_log2, -l.y));
+          dp[j] = sc[j] * (dp[j] - ds.x);
+          dp[j + 1] = sc[j + 1] * (dp[j + 1] - ds.y);
+        }
+        uint32_t pa[KV_STREAM / 16][4], dsa[KV_STREAM / 16][4];
+        to_fragments<KV_STREAM>(pa, sc);
+        to_fragments<KV_STREAM>(dsa, dp);
+        wgmma_fence();
+        mma_cols<L::DP, KV_STREAM>(dv_acc, pa, do_base, L::STREAM_PANEL);  // dV += P^T dO
+        mma_cols<L::DP, KV_STREAM>(dk_acc, dsa, q_base, L::STREAM_PANEL);  // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence_all(dv_acc);
+        reg_fence_all(dk_acc);
+      }
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // Epilogue: dK = acc * scale, dV = acc, bf16 pairs; no row >= T and no
+    // column >= D (the zero padding of D = 112) is stored.
+    const int64_t kv_stride = static_cast<int64_t>(hkv) * D;
+    bf16* dkb = dk + static_cast<int64_t>(b) * t * kv_stride + static_cast<int64_t>(hk) * D;
+    bf16* dvb = dv + static_cast<int64_t>(b) * t * kv_stride + static_cast<int64_t>(hk) * D;
+#pragma unroll
+    for (int j = 0; j < NO; j += 2) {
+      const int r = key0 + acc_row(j);
+      const int c = col0 + acc_col(j);
+      if (8 * (j / 4) < D && r < t) {
+        *reinterpret_cast<uint32_t*>(dkb + r * kv_stride + c) = pack_bf16(dk_acc[j] * scale, dk_acc[j + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvb + r * kv_stride + c) = pack_bf16(dv_acc[j], dv_acc[j + 1]);
+      }
     }
   }
+}
 
-  // Epilogue: dK (or dQ) = acc1 * scale, dV = acc2; bf16 pairs.
+// dQ pass, grid (ceil(S / 128), H, B): a block owns 128 query rows of one
+// head, 64 a consumer warpgroup, and walks the 128-key tiles up to its
+// causal limit; the query tiles nearest the diagonal's end launch first.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                   const float* __restrict__ lse, const float* __restrict__ dsum, bf16* __restrict__ dq, int s,
+                   int t, int h, int hkv, int causal, float scale) {
+  using L = QSmem<D>;
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  __shared__ __align__(8) uint64_t own_full, full[Q_STAGES], empty[Q_STAGES];
+  uint8_t* smem = align_1024(tc_smem);
+
+  const int nq = (s + Q_OWN - 1) / Q_OWN;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * Q_OWN;  // longest tiles first
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = head / (h / hkv);
+  const int offset = t - s;
+  const int n_tiles = key_tiles(q0, Q_OWN, s, t, offset, causal, Q_STREAM);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&own_full, 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = own_lo + 8 * i;
-    if (r >= n_own) continue;
-    const int64_t off = KV ? (static_cast<int64_t>(b) * t + r) * kv_stride + static_cast<int64_t>(hk) * D
-                           : (static_cast<int64_t>(b) * s + r) * q_stride + static_cast<int64_t>(blockIdx.y) * D;
+    for (int i = 0; i < Q_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TC_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= TC_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == TC_CONSUMERS) {
+      mbar_expect_tx(&own_full, 2 * L::OWN_BYTES);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(d1 + off + c) = pack_bf16(acc1[n][2 * i] * scale, acc1[n][2 * i + 1] * scale);
-      if constexpr (KV) *reinterpret_cast<uint32_t*>(d2 + off + c) = pack_bf16(acc2[n][2 * i], acc2[n][2 * i + 1]);
+      for (int p = 0; p < L::PANELS; ++p) {
+        tma_load_4d(smem + p * L::OWN_PANEL, &tm_q, &own_full, p * PANEL, head, q0, b);
+        tma_load_4d(smem + L::A2_OFF + p * L::OWN_PANEL, &tm_do, &own_full, p * PANEL, head, q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % Q_STAGES;
+        mbar_wait(&empty[st], ((i / Q_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * L::STREAM_BYTES);
+#pragma unroll
+        for (int p = 0; p < L::PANELS; ++p) {
+          tma_load_4d(smem + L::B1_OFF + st * L::STREAM_BYTES + p * L::STREAM_PANEL, &tm_k, &full[st], p * PANEL,
+                      hk, i * Q_STREAM, b);
+          tma_load_4d(smem + L::B2_OFF + st * L::STREAM_BYTES + p * L::STREAM_PANEL, &tm_v, &full[st], p * PANEL,
+                      hk, i * Q_STREAM, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    // Each key tile: S = Q K^T and dP = dO V^T (one async wgmma group); P
+    // and dS in fp32 registers, dS rounded to bf16 fragments; dQ += dS K
+    // (a second group); release the stage.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    constexpr int NS = Q_STREAM / 2;
+    constexpr int NO = L::DP / 2;
+    const int wg = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int wg_q0 = q0 + wg * 64;
+    const int row0 = wg_q0 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // and row0 + 8
+    const int col0 = 2 * (lane % 4);
+    const float scale_log2 = scale * LOG2E;
+    const int64_t lrow = (static_cast<int64_t>(b) * h + head) * s;
+    float lse2[2] = {0.0f, 0.0f}, dsum_r[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row0 + 8 * r < s) {
+        lse2[r] = lse[lrow + row0 + 8 * r] * LOG2E;
+        dsum_r[r] = dsum[lrow + row0 + 8 * r];
+      }
+    }
+    float dq_acc[NO];
+    zero(dq_acc);
+    const uint32_t q_base = smem_u32(smem) + wg * 64 * ROW_BYTES;
+    const uint32_t do_base = smem_u32(smem + L::A2_OFF) + wg * 64 * ROW_BYTES;
+    const int wg_first = wg_q0 + offset;                     // earliest query position of this warpgroup
+    const int wg_last = min(wg_q0 + 64, s) - 1 + offset;     // and its latest
+    mbar_wait(&own_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % Q_STAGES;
+      const int k0 = i * Q_STREAM;
+      mbar_wait(&full[st], (i / Q_STAGES) & 1);
+      // No live pair for this warpgroup's rows: all >= S, or (causal) the
+      // tile's first key past the last row's diagonal.
+      const bool dead = wg_q0 >= s || (causal && k0 > wg_last);
+      if (!dead) {
+        const uint32_t k_base = smem_u32(smem + L::B1_OFF + st * L::STREAM_BYTES);
+        const uint32_t v_base = smem_u32(smem + L::B2_OFF + st * L::STREAM_BYTES);
+        float sc[NS], dp[NS];
+        wgmma_fence();
+        mma_rows<D, Q_STREAM>(sc, q_base, L::OWN_PANEL, k_base, L::STREAM_PANEL);   // S = Q K^T
+        mma_rows<D, Q_STREAM>(dp, do_base, L::OWN_PANEL, v_base, L::STREAM_PANEL);  // dP = dO V^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence_all(sc);
+        reg_fence_all(dp);
+        // Only a tile that T or the causal diagonal cuts is masked (a masked
+        // score is -inf: P 0, dS 0); rows >= S are never stored.
+        if (k0 + Q_STREAM > t || (causal && k0 + Q_STREAM - 1 > wg_first)) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            if (!live_pair(row0 + acc_row(j), k0 + col0 + acc_col(j), s, t, offset, causal)) sc[j] = -INFINITY;
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const int r = (j / 2) % 2;
+          dp[j] = ex2(fmaf(sc[j], scale_log2, -lse2[r])) * (dp[j] - dsum_r[r]);
+        }
+        uint32_t dsa[Q_STREAM / 16][4];
+        to_fragments<Q_STREAM>(dsa, dp);
+        wgmma_fence();
+        mma_cols<L::DP, Q_STREAM>(dq_acc, dsa, k_base, L::STREAM_PANEL);  // dQ += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence_all(dq_acc);
+      }
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    const int64_t q_stride = static_cast<int64_t>(h) * D;
+    bf16* dqb = dq + static_cast<int64_t>(b) * s * q_stride + static_cast<int64_t>(head) * D;
+#pragma unroll
+    for (int j = 0; j < NO; j += 2) {
+      const int r = row0 + acc_row(j);
+      if (8 * (j / 4) < D && r < s)
+        *reinterpret_cast<uint32_t*>(dqb + r * q_stride + col0 + acc_col(j)) =
+            pack_bf16(dq_acc[j] * scale, dq_acc[j + 1] * scale);
     }
   }
 }
@@ -613,27 +744,55 @@ int launch_dsum(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch one pass `kernel` on grid (tiles, heads, B) with `smem` bytes.
+// Launch one FMA pass `kernel` on grid (tiles, heads, B) with `smem` bytes.
 template <typename T, typename K>
 int launch_pass(K kernel, size_t smem, int tiles, int heads, const Args& a, void* d1, void* d2) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  static_assert(TC_THREADS == F_THREADS, "both variants run one block size");
-  kernel<<<dim3(tiles, heads, a.b), TC_THREADS, smem, a.stream>>>(
+  kernel<<<dim3(tiles, heads, a.b), F_THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
       static_cast<T*>(d1), static_cast<T*>(d2), a.s, a.t, a.h, a.hkv, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// The prologue, then the two wgmma passes, each on its own tensor maps: the
+// dK/dV pass reads K, V in boxes of 128 own rows and Q, dO in boxes of 64
+// streamed rows; the dQ pass
+// reads Q, dO in boxes of 128 own rows and K, V in boxes of 128 streamed
+// rows. kernels/flash_attention.py::bwd_plan mirrors this geometry.
 template <int D>
 int launch_tc(const Args& a) {
   int err = launch_dsum<bf16, D>(a);
   if (err) return err;
-  const size_t smem = TcLayout<D>::bytes();
-  err = launch_pass<bf16>(flash_bwd_tc_kernel<D, true>, smem, (a.t + TC_ROWS - 1) / TC_ROWS, a.hkv, a, a.dk, a.dv);
+  CUtensorMap q_s, do_s, k_o, v_o;
+  err = make_map(&q_s, a.q, a.b, a.s, a.h, D, KV_STREAM);
+  if (!err) err = make_map(&do_s, a.dout, a.b, a.s, a.h, D, KV_STREAM);
+  if (!err) err = make_map(&k_o, a.k, a.b, a.t, a.hkv, D, KV_OWN);
+  if (!err) err = make_map(&v_o, a.v, a.b, a.t, a.hkv, D, KV_OWN);
+  if (!err) err = set_smem(flash_bwd_kv_kernel<D>, KvSmem<D>::ALLOC);
   if (err) return err;
-  return launch_pass<bf16>(flash_bwd_tc_kernel<D, false>, smem, (a.s + TC_ROWS - 1) / TC_ROWS, a.h, a, a.dq, nullptr);
+  flash_bwd_kv_kernel<D><<<dim3((a.t + KV_OWN - 1) / KV_OWN, a.hkv, a.b), TC_THREADS, KvSmem<D>::ALLOC, a.stream>>>(
+      q_s, do_s, k_o, v_o, static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.s, a.t, a.h, a.hkv, a.causal, a.scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  CUtensorMap q_o, do_o, k_s, v_s;
+  err = make_map(&q_o, a.q, a.b, a.s, a.h, D, Q_OWN);
+  if (!err) err = make_map(&do_o, a.dout, a.b, a.s, a.h, D, Q_OWN);
+  if (!err) err = make_map(&k_s, a.k, a.b, a.t, a.hkv, D, Q_STREAM);
+  if (!err) err = make_map(&v_s, a.v, a.b, a.t, a.hkv, D, Q_STREAM);
+  if (!err) err = set_smem(flash_bwd_q_kernel<D>, QSmem<D>::ALLOC);
+  if (err) return err;
+  flash_bwd_q_kernel<D><<<dim3((a.s + Q_OWN - 1) / Q_OWN, a.h, a.b), TC_THREADS, QSmem<D>::ALLOC, a.stream>>>(
+      q_o, do_o, k_s, v_s, static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+      static_cast<bf16*>(a.dq), a.s, a.t, a.h, a.hkv, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
@@ -653,7 +812,8 @@ int launch_fma(const Args& a) {
 // forward's; dsum (B, H, S) fp32 scratch. D in {16, 32, 64, 112, 128} for
 // fp32 and bf16 (bf16 at 64, 112 and 128 on the tensor cores); H % Hkv == 0.
 // Launches three kernels on `stream` and returns the first nonzero
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success); the tensor-core passes also -1 when the
+// driver has no cuTensorMapEncodeTiled, -2 when it refuses a tensor map.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* out,
                                        const void* dout, const void* lse, void* dsum, void* dq, void* dk, void* dv,
                                        int b, int s, int t, int h, int hkv, int d, int causal, float scale,
@@ -682,4 +842,16 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
     case 128: return launch_tc<128>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory one block of a tensor-core pass asks for at head_dim
+// `d` (pass 0: dK/dV, 1: dQ; 0 if d is not served):
+// kernels/flash_attention.py::bwd_plan computes the same numbers.
+extern "C" int flash_attention_bwd_tc_smem_bytes(int d, int pass) {
+  switch (d) {
+    case 64: return pass ? QSmem<64>::ALLOC : KvSmem<64>::ALLOC;
+    case 112: return pass ? QSmem<112>::ALLOC : KvSmem<112>::ALLOC;
+    case 128: return pass ? QSmem<128>::ALLOC : KvSmem<128>::ALLOC;
+    default: return 0;
+  }
 }

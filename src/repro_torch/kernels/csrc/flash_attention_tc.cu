@@ -64,15 +64,15 @@
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and bound through ctypes (plain C interface below). The tensor maps are
-// encoded on the host with cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, so the library links against the runtime only.
+// and bound through ctypes (plain C interface below). The mbarrier, TMA and
+// wgmma helpers are hopper.cuh's, shared with the backward's tensor-core
+// passes; the tensor maps are encoded on the host with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// library links against the runtime only.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,8 +81,6 @@ constexpr int BK = 128;          // keys per K/V tile
 constexpr int STAGES = 3;        // K/V ring depth
 constexpr int CONSUMERS = 256;   // two consumer warpgroups of 64 query rows
 constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
-constexpr int PANEL = 64;        // bf16 columns in one 128-byte swizzle panel
-constexpr int ROW_BYTES = 128;   // bytes of one row of a panel
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NO_KEY_LSE = -1e30f;  // the reference's sentinel: a row with no live key
@@ -105,167 +103,6 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;  // slack to align the base
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ---- TMA -------------------------------------------------------------------
-
-// One box of a 4-D tensor map into shared memory; completion is counted in
-// bytes on `bar`.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 (B128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-
-// Pin a register value in program order: the compiler may not move its
-// reads or writes across this point (around the asynchronous wgmma).
-__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-// D (m64 x n128, fp32) {+}= A (m64 x k16, bf16, shared) * B (n128 x k16, bf16, shared, K-major).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// D (m64 x n128, fp32) += A (m64 x k16, bf16, registers) * B (k16 x n128, bf16, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D (m64 x n64, fp32) += A (m64 x k16, bf16, registers) * B (k16 x n64, bf16, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// P V at DP output columns (the panels' width).
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t desc_v);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t desc_v) {
-  wgmma_rs_n128(o, a, desc_v);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t desc_v) {
-  wgmma_rs_n64(o, a, desc_v);
-}
-
-// 2^x on the special-function unit (the softmax's exponentials are its
-// bottleneck); subnormal results flush to 0, far below a bf16 P's resolution.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Accumulator layout of wgmma m64nN (fp32) within a warpgroup: warp w owns
-// rows 16w .. 16w + 15; lane (g = lane / 4, c = lane % 4) holds, for
-// register i, row g + 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * c + i % 2.
-__device__ __forceinline__ int acc_row(int i) { return 8 * ((i / 2) % 2); }
-__device__ __forceinline__ int acc_col(int i) { return 8 * (i / 4) + (i % 2); }
-
 constexpr int NS = BK / 2;  // score registers per consumer thread (m64 x n128)
 
 // S = Q K^T over d in 16-column steps (4 per 128-byte panel; 7 at d = 112,
@@ -274,12 +111,7 @@ constexpr int NS = BK / 2;  // score registers per consumer thread (m64 x n128)
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[NS], uint32_t q_base, uint32_t k_base) {
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t step = (kk % 4) * 32;  // 32 bytes = 16 bf16 columns
-    wgmma_ss_n128(sc, sw128_desc(q_base + (kk / 4) * Smem<D>::Q_PANEL + step, 16, 1024),
-                  sw128_desc(k_base + (kk / 4) * Smem<D>::KV_PANEL + step, 16, 1024), kk > 0);
-  }
+  mma_rows<D, BK>(sc, q_base, Smem<D>::Q_PANEL, k_base, Smem<D>::KV_PANEL);
   wgmma_commit();
 }
 
@@ -289,9 +121,7 @@ template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[Smem<D>::DP / 2], const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_base) {
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv<Smem<D>::DP>(o, pa[kk], sw128_desc(v_base + kk * 16 * ROW_BYTES, Smem<D>::KV_PANEL, 1024));
+  mma_cols<Smem<D>::DP, BK>(o, pa, v_base, Smem<D>::KV_PANEL);
   wgmma_commit();
 }
 
@@ -303,17 +133,6 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, %1;" ::"r"(2 - wg), "n"(CONSUMERS) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence_all(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) reg_fence(r[i]);
 }
 
 // Online softmax of one score tile in place (sc becomes P in fp32): masks
@@ -352,19 +171,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[NS], float (&m)[2], flo
   }
 }
 
-// P (fp32, accumulator layout) as bf16 register-A fragments, one per 16-key
-// step: the accumulator layout of m64n128 is the A layout of m64k16 pairs.
-__device__ __forceinline__ void to_fragments(uint32_t (&pa)[BK / 16][4], const float (&sc)[NS]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-      reg_fence(pa[kk][r]);
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -373,7 +179,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   using L = Smem<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, k_full[STAGES], v_full[STAGES], kv_empty[STAGES];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* smem = align_1024(smem_raw);
 
   const int nq = (s + BQ - 1) / BQ;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;  // longest tiles first
@@ -464,7 +270,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       wgmma_wait<0>();
       reg_fence_all(sc);
       softmax_tile(sc, m, l, corr, cut(0), 0, t, causal, row0 + offset, col0, scale_log2);
-      to_fragments(pa, sc);
+      to_fragments<BK>(pa, sc);
     }
     for (int i = 1; i < n_tiles; ++i) {
       const int st = i % STAGES, prev = (i - 1) % STAGES;
@@ -483,7 +289,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 #pragma unroll
       for (int j = 0; j < NO; ++j) o[j] *= corr[(j / 2) % 2];
       reg_fence_all(o);
-      to_fragments(pa, sc);
+      to_fragments<BK>(pa, sc);
     }
     if (n_tiles > 0) {
       const int last = (n_tiles - 1) % STAGES;
@@ -527,44 +333,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 }
 
 // ---- host side ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Error codes of the C entry points besides cudaError_t values (all > 0).
-constexpr int ERR_NO_ENCODER = -1;   // cuTensorMapEncodeTiled not found in the driver
-constexpr int ERR_TENSOR_MAP = -2;   // cuTensorMapEncodeTiled refused the geometry
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor (batch, seq, heads, d) as a 4-D map, innermost first
-// (d, heads, seq, batch), read in boxes of 64 columns x 1 head x `rows`
-// positions x 1 batch, 128-byte swizzled; positions past `seq` read as 0.
-// kernels/flash_attention.py::tc_plan mirrors these numbers.
-int make_map(CUtensorMap* map, const void* base, int batch, int seq, int heads, int d, int rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return ERR_NO_ENCODER;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {2ull * d, 2ull * d * heads, 2ull * d * heads * seq};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {PANEL, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
-}
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int b, int s, int t, int h,

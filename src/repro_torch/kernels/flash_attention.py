@@ -26,10 +26,11 @@ then store nothing more.
 
 ``flash_attention_bwd`` is that backward on the card, the twin of the
 reference's ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``: a rowsum
-prologue, then a dK/dV pass and a dQ pass, no atomics): tensor-core
-products (``mma.sync``) where the forward takes ``"tc"``, FMAs where it
-takes ``"fma"``.  It raises on anything it does not take; its ``launches``
-attribute counts its calls (three kernels each).
+prologue, then a dK/dV pass and a dQ pass, no atomics): where the forward
+takes ``"tc"``, both passes run ``wgmma`` fed by TMA rings, as the forward
+does (``bwd_plan`` gives their geometry); FMAs where it takes ``"fma"``.
+It raises on anything it does not take; its ``launches`` attribute counts
+its calls (three kernels each).
 """
 
 from __future__ import annotations
@@ -46,6 +47,9 @@ HEAD_DIMS = (16, 32, 64, 112, 128)
 TC_HEAD_DIMS = (64, 112, 128)
 # Tiling of the tensor-core kernel (csrc/flash_attention_tc.cu mirrors these).
 TC_BQ, TC_BK, TC_STAGES, TC_THREADS, TC_PANEL = 128, 128, 3, 384, 64
+# Tiling of the backward's tensor-core passes (csrc/flash_attention_bwd.cu
+# mirrors these): (own rows a block, streamed rows a stage, ring stages).
+BWD_KV_TILES, BWD_Q_TILES, BWD_THREADS = (128, 64, 3), (128, 128, 2), 384
 _TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled", -2: "cuTensorMapEncodeTiled refused a tensor map"}
 _fns: dict | None = None  # variant, dtype -> loaded C entry point, set by ``build``
 _bwd_fns: dict | None = None  # dtype -> the backward's loaded C entry point, set by ``build_bwd``
@@ -85,6 +89,40 @@ def tc_plan(b: int, s: int, t: int, h: int, hkv: int, d: int, causal: bool = Tru
     )
 
 
+def bwd_plan(b: int, s: int, t: int, h: int, hkv: int, d: int, causal: bool = True) -> dict:
+    """Host-side geometry of the backward's tensor-core passes, as the C
+    side computes it: for each pass (``"kv"``, the dK/dV pass; ``"q"``, the
+    dQ pass) its grid,
+    threads, own and streamed tile rows, ring stages, dynamic shared
+    memory, and the streamed tiles each block walks in launch order (the
+    dK/dV pass counts the G query heads' 64-row query tiles, the dQ pass the
+    128-key tiles)."""
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core backward serves head_dim in {TC_HEAD_DIMS}; got {d}")
+    panels = -(-d // TC_PANEL)  # d = 112: two, TMA zero-fills columns 112-127
+    offset = t - s
+
+    def smem(own, stream, stages, row_values):
+        tile = panels * 128  # bytes of one row of a tile: its panels' 128-byte rows
+        return 2 * own * tile + 2 * stages * stream * tile + stages * row_values * 4 + 1024  # + slack to align
+
+    own, stream, stages = BWD_KV_TILES
+    nq = -(-s // stream)
+    kv_tiles = [(h // hkv) * (nq - (max(kt * own - offset, 0) // stream if causal else 0))
+                for kt in range(-(-t // own))]
+    kv = dict(grid=(-(-t // own), hkv, b), threads=BWD_THREADS, own_rows=own, stream_rows=stream, stages=stages,
+              smem_bytes=smem(own, stream, stages, 2 * stream), tiles=kv_tiles)
+    own, stream, stages = BWD_Q_TILES
+    nk = -(-t // stream)
+    q_tiles = []
+    for qt in range(-(-s // own)):
+        q_last = min((qt + 1) * own, s) - 1 + offset
+        q_tiles.append(nk if not causal else (0 if q_last < 0 else min(q_last // stream + 1, nk)))
+    q = dict(grid=(-(-s // own), h, b), threads=BWD_THREADS, own_rows=own, stream_rows=stream, stages=stages,
+             smem_bytes=smem(own, stream, stages, 0), tiles=q_tiles[::-1])  # the longest query tiles first
+    return dict(kv=kv, q=q)
+
+
 def build() -> str:
     """Compile both kernels if needed and load them; returns nvcc's output,
     or "" when they were already built or loaded."""
@@ -120,6 +158,9 @@ def build_bwd() -> str:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[dtype] = fn
+    lib.flash_attention_bwd_tc_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_bwd_tc_smem_bytes.restype = ctypes.c_int
+    fns["tc_smem_bytes"] = lib.flash_attention_bwd_tc_smem_bytes
     _bwd_fns = fns
     return log
 
@@ -128,6 +169,12 @@ def tc_smem_bytes(d: int) -> int:
     """The built tensor-core kernel's own dynamic shared memory at ``d``."""
     build()
     return int(_fns["tc_smem_bytes"](d))
+
+
+def bwd_smem_bytes(d: int) -> tuple[int, int]:
+    """The built backward's dynamic shared memory at ``d``: (dK/dV pass, dQ pass)."""
+    build_bwd()
+    return int(_bwd_fns["tc_smem_bytes"](d, 0)), int(_bwd_fns["tc_smem_bytes"](d, 1))
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -239,6 +286,8 @@ def flash_attention_bwd(
                 dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, s, t, h, hkv, d, int(causal), 1.0 / float(d) ** 0.5, stream_of(q),
             )
+        if err in _TC_ERRORS:
+            raise RuntimeError(f"flash_attention_bwd tensor-core kernels: {_TC_ERRORS[err]}")
         check_launch(f"flash_attention_bwd ({kind})", err)
         flash_attention_bwd.launches += 1
     else:  # no query or no key: nothing is attended, every gradient is 0

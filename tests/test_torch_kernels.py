@@ -538,14 +538,85 @@ def test_cuda_flash_lse_vs_plain(b, s, t, h, hkv, d, causal, dtype, cuda_attenti
     assert err <= 2e-5 * max(1.0, float(want_lse[live].abs().max())), err
 
 
-# The backward's further shapes: zamba2's d 112 at H = Hkv = 32, and a
-# tensor-parallel rank's heads (internlm2's 16 over 8 split 2, 4 and 16 ways).
+# The backward's further shapes: zamba2's d 112 at H = Hkv = 32, a
+# tensor-parallel rank's heads (internlm2's 16 over 8 split 2, 4 and 16
+# ways), and the edges of the tensor-core passes' tiles (128 own keys or
+# queries a block, 64-query and 128-key streamed tiles).
 FLASH_BWD_CASES = FLASH_CUDA_CASES + [
     (2, 256, 256, 32, 32, 112, True),  # d 112, group 1
     (1, 200, 200, 8, 4, 128, True),    # a rank of 2: H 8 over Hkv 4
     (1, 200, 264, 4, 2, 128, True),    # a rank of 4, S < T
     (1, 130, 130, 1, 1, 128, False),   # a rank of 16: one head
+    (1, 200, 328, 16, 8, 128, True),   # S, T not multiples of 128, S < T
+    (2, 48, 40, 8, 4, 128, True),      # one key tile (T <= 64), S > T
+    (1, 64, 64, 4, 2, 64, False),      # one key and one query tile, d 64
+    (1, 300, 300, 16, 4, 128, True),   # group 4 at d 128
+    (1, 260, 260, 24, 4, 128, True),   # group 6 at d 128
+    (1, 2048, 2048, 16, 16, 112, True),  # zamba2's d 112 at S = T = 2048
 ]
+
+
+# The tensor-core backward's shapes: chip_smoke.py's bf16 VJP cases (the
+# training call first), its tensor-parallel ranks' training calls, and the
+# cuda tests' FLASH_BWD_CASES at the tensor-core head dims.
+BWD_PLAN_CASES = [
+    (4, 2048, 2048, 16, 8, 128, True), (2, 512, 512, 16, 8, 128, False), (2, 256, 768, 16, 8, 128, True),
+    (2, 512, 512, 16, 16, 64, True), (2, 256, 640, 8, 4, 64, False), (2, 512, 512, 32, 32, 112, True),
+    (1, 200, 456, 8, 8, 112, True), (2, 2048, 2048, 8, 4, 128, True), (2, 2048, 2048, 16, 16, 112, True),
+]
+
+
+def _bwd_plan_cases():
+    return BWD_PLAN_CASES + [c for c in FLASH_BWD_CASES if c[5] in (64, 112, 128) and c not in BWD_PLAN_CASES]
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", _bwd_plan_cases())
+def test_flash_bwd_plan(b, s, t, h, hkv, d, causal):
+    """The tensor-core backward's geometry: the dK/dV pass's grid covers
+    every key once in 128-key blocks per (KV head, batch), the dQ pass's
+    every query once in 128-row blocks per (head, batch); the streamed
+    tiles each block walks are the live ones of a dense causal mask (the
+    dK/dV pass: the G heads' 64-query tiles with a live pair for the
+    block's keys; the dQ pass: the 128-key tiles up to the last live one,
+    longest first); and each pass's shared memory fits the card's 227 KB."""
+    from repro_torch.kernels import flash_attention as fa
+
+    plan = fa.bwd_plan(b, s, t, h, hkv, d, causal)
+    kv, q = plan["kv"], plan["q"]
+    assert kv["threads"] == q["threads"] == 384
+    assert (kv["own_rows"], kv["stream_rows"], q["own_rows"], q["stream_rows"]) == (128, 64, 128, 128)
+    assert kv["stages"] >= 2 and q["stages"] >= 2
+    assert kv["grid"][1:] == (hkv, b) and q["grid"][1:] == (h, b)
+    keys = [k for kt in range(kv["grid"][0]) for k in range(kt * 128, kt * 128 + 128) if k < t]
+    rows = [r for qt in range(q["grid"][0]) for r in range(qt * 128, qt * 128 + 128) if r < s]
+    assert keys == list(range(t)) and rows == list(range(s))  # each once, none left out
+    live = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        live = torch.arange(s)[:, None] + t - s >= torch.arange(t)[None, :]
+    walked = []
+    for kt in range(kv["grid"][0]):
+        block = live[:, kt * 128:(kt + 1) * 128]
+        walked.append((h // hkv) * sum(bool(block[qt * 64:(qt + 1) * 64].any()) for qt in range(-(-s // 64))))
+    assert kv["tiles"] == walked
+    assert kv["tiles"] == sorted(kv["tiles"], reverse=True)  # key tile 0, the longest, launches first
+    walked = []
+    for qt in range(q["grid"][0]):
+        block = live[qt * 128:(qt + 1) * 128]
+        tiles = [kt for kt in range(-(-t // 128)) if block[:, kt * 128:(kt + 1) * 128].any()]
+        walked.append(max(tiles) + 1 if tiles else 0)
+    assert q["tiles"] == walked[::-1] == sorted(walked, reverse=True)
+    tile_row = -(-d // 64) * 128  # bytes of one tile row: whole 128-byte swizzle panels
+    assert kv["smem_bytes"] == 2 * 128 * tile_row + kv["stages"] * (2 * 64 * tile_row + 2 * 64 * 4) + 1024
+    assert q["smem_bytes"] == 2 * 128 * tile_row + q["stages"] * 2 * 128 * tile_row + 1024
+    assert max(kv["smem_bytes"], q["smem_bytes"]) <= 232448
+
+
+@pytest.mark.parametrize("d", [16, 32, 96, 256])
+def test_flash_bwd_plan_refuses_other_head_dims(d):
+    from repro_torch.kernels import flash_attention as fa
+
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.bwd_plan(1, 64, 64, 2, 1, d)
 
 
 def _flash_grads(q, k, v, do, causal):
@@ -749,6 +820,16 @@ def test_cuda_flash_tc_smem_matches_plan(d, cuda_attention):
     computes, within the card's 227 KB per block."""
     fa = cuda_attention[0]
     assert fa.tc_smem_bytes(d) == fa.tc_plan(1, 128, 128, 1, 1, d)["smem_bytes"] <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_cuda_flash_bwd_smem_matches_plan(d, cuda_attention):
+    """The built backward's two tensor-core passes ask for the dynamic
+    shared memory ``bwd_plan`` computes, within the card's 227 KB."""
+    fa = cuda_attention[0]
+    plan = fa.bwd_plan(1, 128, 128, 1, 1, d)
+    assert fa.bwd_smem_bytes(d) == (plan["kv"]["smem_bytes"], plan["q"]["smem_bytes"])
 
 
 def test_build_names_libraries_by_source_headers_and_flags(tmp_path, monkeypatch):

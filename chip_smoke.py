@@ -438,6 +438,10 @@ FLASH_DENSE = [(b, s, s, h, 8, HD, True) for h in DENSE_ARCHS.values() for b, s 
 # Ragged at groups 5 and 6: S and T not tile multiples, S < T, S > T, not causal.
 FLASH_DENSE_RAGGED = [(1, 100, 333, 40, 8, HD, True), (2, 77, 77, 48, 8, HD, True),
                       (1, 130, 200, 40, 8, HD, False), (1, 300, 200, 48, 8, HD, True)]
+# Phase 2's flash parity shapes that run in fp32 as well as bf16 (fp32 takes
+# the FMA kernel at every d; bf16 adds FLASH_TP and FLASH_DENSE).
+FLASH_FP32 = (FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_RAGGED + FLASH_ZAMBA + FLASH_ZAMBA_RAGGED + FLASH_SEAMLESS
+              + FLASH_CROSS + FLASH_DENSE_RAGGED)
 DECODE_DENSE = [(b, smax, (smax - 1,) * b, h, 8, HD) for h in DENSE_ARCHS.values()
                 for b, smax in ((8, 576), (2, 4112))]
 # Ragged decode at groups 5 and 6: lengths 1 and a full cache (S_max).
@@ -2361,10 +2365,8 @@ def phase_attention_parity(ref) -> dict:
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol, tag = _tol(dtype), str(dtype).split(".")[1]
-        flash_cases = FLASH_MAIN + FLASH_MOE + FLASH_VLM + FLASH_RAGGED
-        flash_cases += FLASH_ZAMBA + FLASH_ZAMBA_RAGGED + FLASH_SEAMLESS + FLASH_CROSS + FLASH_DENSE_RAGGED
-        # the split program's and the three dense models' serving dtype
-        flash_cases += FLASH_TP + FLASH_DENSE if dtype == torch.bfloat16 else []
+        # bf16 adds the split program's and the three dense models' serving shapes
+        flash_cases = FLASH_FP32 + (FLASH_TP + FLASH_DENSE if dtype == torch.bfloat16 else [])
         for b, s, t, h, hkv, d, causal in flash_cases:
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
             got = torch.ops.repro_torch.flash_attention(q, k, v, causal)
@@ -3057,11 +3059,13 @@ class LaunchCounter:
         for fn in self.fns.values():
             fn.launches = 0
         self.fns["flash"].launches_tc = 0
+        self.fns["flash_bwd"].launches_fma = 0
         self.fns["decode"].launches_lse = 0
 
     def read(self) -> dict:
         out = {k: fn.launches for k, fn in self.fns.items()}
         out["flash_tc"] = self.fns["flash"].launches_tc
+        out["flash_bwd_fma"] = self.fns["flash_bwd"].launches_fma
         out["decode_lse"] = self.fns["decode"].launches_lse
         return out
 
@@ -3514,6 +3518,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
     flops = model_flops(cfg, shape)
     launches = {name: r["launches"]["flash"] for name, r in runs.items()}
     bwd_launches = {name: r["launches"]["flash_bwd"] for name, r in runs.items()}
+    counts = [r["launches"] for r in runs.values()] + [trace_launches]
     out = dict(
         arch=cfg.name, params=cfg.param_count(), layers=layers, batch=shape.global_batch, seq=shape.seq_len,
         losses=r1.losses, resumed_losses=r2.losses, resume_bitwise=bitwise, loss_diff=loss_diff,
@@ -3523,6 +3528,7 @@ def phase_train_full(ref, counter, device="cuda", reduced=False, keep_ckpt=False
         launches_per_step=launches["straight"] / TRAIN_STEPS,
         bwd_launches=sum(bwd_launches.values()) + trace_launches["flash_bwd"], bwd_launches_by_run=bwd_launches,
         bwd_launches_per_step=bwd_launches["straight"] / TRAIN_STEPS, tokens_per_s=tokens / trace["step_s"],
+        fma_launches=sum(c["flash"] - c["flash_tc"] for c in counts), bwd_fma_launches=sum(c["flash_bwd_fma"] for c in counts),
         model_flops=flops,
         model_flops_share=flops / trace["step_s"] / BF16_FLOP_PER_S, trace=trace,
         ckpt_dir=tmp if keep_ckpt else None, state=state if keep_ckpt else None,
@@ -4116,9 +4122,9 @@ DECODE_TP = [(8, 576, (575,) * 8, H // m, max(HKV // m, 1), HD) for m in (2, 4, 
 # holds ``VJP_CASES``): internlm2 (H 8 over Hkv 4) and zamba2's shared
 # attention (H = Hkv 16, d 112) at "model" ``TP_WORLD``, and zamba2's in the
 # fp32 step of ``TP_FP32_CHECKS`` too.
+FLASH_ZAMBA_RANK = (TP_BATCH, TP_SEQ, TP_SEQ, ZAMBA_H // TP_WORLD, ZAMBA_HKV // TP_WORLD, ZAMBA_HD, True)
 VJP_TP = [(TP_BATCH, TP_SEQ, TP_SEQ, H // TP_WORLD, HKV // TP_WORLD, HD, True, torch.bfloat16)] + [
-    (TP_BATCH, TP_SEQ, TP_SEQ, ZAMBA_H // TP_WORLD, ZAMBA_HKV // TP_WORLD, ZAMBA_HD, True, dtype)
-    for dtype in (torch.bfloat16, torch.float32)]
+    FLASH_ZAMBA_RANK + (dtype,) for dtype in (torch.bfloat16, torch.float32)]
 # The lse store at the serving shapes and at the kv_seq block of a rank
 # (2,048 of 32,768 rows; ragged lengths, one block with no live row).
 DECODE_KV_BLOCK = (8, 2048, (2048, 2048, 1500, 0, 2048, 1, 700, 2048), H, HKV, HD)
@@ -4411,14 +4417,19 @@ def _tp_arch(arch: str, rank: int, world: int, device: str, reduced: bool) -> di
     del ref_train
     if fp32_api is not None:  # the first moments, in fp32 (``TP_FP32_CHECKS``)
         fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+        fa.flash_attention.launches_tc = fa.flash_attention_bwd.launches_fma = 0
         out["fp32"] = split_train(fp32_api, TP_FP32_STEPS, ref_fp32)
         out["fp32"]["flash"], out["fp32"]["flash_bwd"] = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+        out["fp32"]["flash_fma"] = fa.flash_attention.launches - fa.flash_attention.launches_tc
+        out["fp32"]["flash_bwd_fma"] = fa.flash_attention_bwd.launches_fma
         del ref_fp32
     if device == "cuda":
         out["before_serve_gib"] = torch.cuda.memory_allocated() / 2**30
 
     if fp32_api is not None:  # in fp32 (``TP_FP32_CHECKS``)
+        fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
         split_serve(fp32_api, torch.float32, ref_fp32_logits, "fp32_")
+        out["fp32"]["serve_flash_fma"] = fa.flash_attention.launches - fa.flash_attention.launches_tc
     fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
     da.decode_attention.launches = da.decode_attention.launches_lse = 0
     split_serve(api, compute_dtype(cfg), ref_logits, "")
@@ -4586,6 +4597,10 @@ def phase_tp(counter, device="cuda", reduced=False) -> dict:
             assert reduced or (launches["serve_flash_tc"] == launches["serve_flash"]
                                and launches["train_flash_tc"] == launches["train_flash"]), (arch, launches)
     out["launches"] = {k: sum(a["launches"][k] for a in out["archs"].values()) for k in keys}
+    # The FMA kernels' launches: the fp32 checks' split step and serve (bf16 takes the tensor cores).
+    fp32 = [r[arch]["fp32"] for r in ranks for arch in TP_ARCHS if "fp32" in r[arch]]
+    out["launches"]["fp32_flash_fma"] = sum(f["flash_fma"] + f["serve_flash_fma"] for f in fp32)
+    out["launches"]["fp32_flash_bwd_fma"] = sum(f["flash_bwd_fma"] for f in fp32)
     out["merge"] = phase_kv_seq_merge(counter, device, reduced)
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase tensor parallel: {out['phase_s']:.1f} s")
@@ -4905,9 +4920,9 @@ def main() -> int:
     examples = phase_examples(ref, counter)
     log(f"phase examples: {time.perf_counter() - t0:.1f} s; " + json.dumps(examples))
 
-    def new_rows(kernel, keys):
+    def new_rows(kernel, keys, dtype="bfloat16"):
         fields = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "warm_ms", "library_warm_ms")
-        rows_of = [(k, arows[(kernel, k, "bfloat16")]) for k in keys]
+        rows_of = [(k, arows[(kernel, k, dtype)]) for k in keys]
         return [dict(shape=json.loads(json.dumps(k)), **{f: r[f] for f in fields if f in r}) for k, r in rows_of]
 
     paths = {"dense": (flash_launches, decode_launches), "train": (train["full"]["launches"], 0),
@@ -4922,6 +4937,22 @@ def main() -> int:
                  "tensor_parallel": tpo["launches"]["train_flash_bwd"]}  # train_energy's xlstm-350m has no attention
     assert all(bwd_paths.values()), f"a training path launched no flash backward: {bwd_paths}"
     train_row = train["vjp"][_vjp_key(*FLASH_TRAIN, torch.bfloat16)]  # the training path's backward call
+    # The FMA kernels' launches by path (fp32 anywhere, bf16 at d 16 and 32):
+    # the forward's are its launches less the tensor-core ones.
+    tpl = tpo["launches"]
+    fma_paths = {"dense": flash_launches - flash_tc, "train": train["full"]["fma_launches"],
+                 "dryrun_real_step": dry["local"]["real"]["launches"]["flash"]
+                 - dry["local"]["real"]["launches"]["flash_tc"],
+                 "tensor_parallel": tpl["train_flash"] - tpl["train_flash_tc"] + tpl["serve_flash"]
+                 - tpl["serve_flash_tc"] + tpl["fp32_flash_fma"]}
+    fma_paths.update({key: fam[key]["launches"]["flash"] - fam[key]["launches"]["flash_tc"]
+                      for key in ("int8", "olmoe", "deepseek", "vlm", "xlstm", "zamba2", "seamless", "granite",
+                                  "nemotron", "qwen", "launcher")})
+    bwd_fma_paths = {"train": train["full"]["bwd_fma_launches"],
+                     "dryrun_real_step": dry["local"]["real"]["launches"]["flash_bwd_fma"],
+                     "tensor_parallel": tpl["fp32_flash_bwd_fma"]}
+    fp32_vjp = [c for c in VJP_CASES + VJP_TP if c[-1] == torch.float32]
+    rank_fwd = train["vjp"][_vjp_key(*FLASH_ZAMBA_RANK, torch.float32)]
 
     def bwd_rows(cases):
         return [dict(shape=list(_vjp_key(*c)), **_bwd_row(train["vjp"][_vjp_key(*c)])) for c in cases]
@@ -4948,11 +4979,17 @@ def main() -> int:
                  tp_shapes=new_rows("flash_attention", FLASH_TP),
                  dense_shapes=new_rows("flash_attention", FLASH_DENSE),
                  training_shapes=[dict(shape=json.loads(json.dumps(k)), **r) for k, r in train["vjp"].items()],
-                 training_launches_per_step=train["full"]["launches_per_step"]),
+                 training_launches_per_step=train["full"]["launches_per_step"],
+                 fma_source="src/repro_torch/kernels/csrc/flash_attention.cu", fma_launches_by_path=fma_paths,
+                 fp32_shapes=new_rows("flash_attention", FLASH_FP32, "float32") + [dict(
+                     shape=list(FLASH_ZAMBA_RANK), err=rank_fwd["err_out"], ms=rank_fwd["ms"],
+                     plain_ms=rank_fwd["plain_ms"], library_ms=rank_fwd["library_ms"],
+                     bound_ms=rank_fwd["bound_ms"], bound_by=rank_fwd["bound_by"])]),
         _summary("flash_attention_bwd", "src/repro/kernels/ref.py:140", sum(bwd_paths.values()),
                  [_bwd_row(train_row)], [list(FLASH_TRAIN)], launches_by_path=bwd_paths,
                  warm_ms=train_row["bwd_warm_ms"],
-                 training_shapes=bwd_rows(VJP_CASES), tp_shapes=bwd_rows(VJP_TP)),
+                 training_shapes=bwd_rows(VJP_CASES), tp_shapes=bwd_rows(VJP_TP),
+                 fma_launches_by_path=bwd_fma_paths, fp32_shapes=bwd_rows(fp32_vjp)),
         _summary("decode_attention", "src/repro/kernels/decode_attention.py:119",
                  sum(v["decode"] for v in by_path.values()),
                  [arows[("decode_attention", k, "bfloat16")] for k in DECODE_MAIN], DECODE_MAIN,
@@ -4995,7 +5032,11 @@ def bench_main(argv: list) -> int:
     (bf16, no lse: serving's call), cold-L2 median and warm per launch; on a
     tree with the hand backward (``fa.flash_attention_bwd``), the backward
     at the training call ``FLASH_TRAIN`` and the ranks' bf16 ``VJP_TP``
-    calls too, cold and warm, beside SDPA's backward (cold).
+    calls too, cold and warm, beside SDPA's backward (cold).  Then the FMA
+    kernels in fp32: the forward at ``FLASH_ZAMBA`` and zamba2's
+    tensor-parallel rank call ``FLASH_ZAMBA_RANK``, the backward at that
+    call, each cold and warm beside SDPA's fp32 time (cold) and the fp32
+    FFMA bound.
     Per kernel and shape it prints ``time_decode``'s
     or ``time_gram``'s row (cold and warm, the kernel's and the library
     call's), at decode's main shapes (bf16) and at the gram's main shapes,
@@ -5065,6 +5106,42 @@ def bench_main(argv: list) -> int:
             out["flash_bwd"][f"B={b} S={s} H={h} Hkv={hkv} d={d}"] = row
             print(f"flash backward B={b} S={s} T={t} H={h} Hkv={hkv} d={d}: "
                   + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    # The FMA kernels in fp32: the forward at zamba2's serving shapes and its
+    # tensor-parallel rank call, the backward at that call; SDPA's fp32
+    # forward and backward beside them (cold).
+    import torch.nn.functional as F
+
+    fa.build_bwd()
+    out["flash_fp32"], out["flash_bwd_fp32"] = {}, {}
+    for b, s, t, h, hkv, d, causal in FLASH_ZAMBA + [FLASH_ZAMBA_RANK]:
+        q, do = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn(b, t, hkv, d, generator=gen, device="cuda") for _ in range(2))
+        reps = 5 if s * t > 2**22 else 25
+        nbytes = flash_work(b, s, t, h, hkv, d, causal, torch.float32)[0]
+        row = dict(ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps),
+                   warm_ms=warm_ms(lambda *a: fa.flash_attention(*a, causal=causal), (q, k, v), nbytes))
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        row["library_ms"] = device_ms(sdpa, reps)
+        row["bound_ms"] = _bound(*flash_work(b, s, t, h, hkv, d, causal, torch.float32), torch.float32)[0]
+        out["flash_fp32"][f"B={b} S={s} H={h} d={d}"] = row
+        print(f"flash fp32 B={b} S={s} T={t} H={h} Hkv={hkv} d={d}: " + " ".join(f"{k}={v}" for k, v in row.items()),
+              flush=True)
+        if (b, s, t, h, hkv, d, causal) == FLASH_ZAMBA_RANK:
+            o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
+            nbytes = flash_bwd_work(b, s, t, h, hkv, d, causal, torch.float32)[0]
+            row = dict(ms=device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal), reps),
+                       warm_ms=warm_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal), (q, k, v, o, lse, do),
+                                       nbytes))
+            ot = sdpa()
+            dot = do.transpose(1, 2).contiguous()
+            row["library_ms"] = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), reps)
+            row["bound_ms"] = _bound(*flash_bwd_work(b, s, t, h, hkv, d, causal, torch.float32), torch.float32)[0]
+            out["flash_bwd_fp32"][f"B={b} S={s} H={h} d={d}"] = row
+            print(f"flash backward fp32 B={b} S={s} T={t} H={h} Hkv={hkv} d={d}: "
+                  + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+            del o, lse, ot, dot
+        del q, k, v, do, qt, kt, vt
     has_lse = "lse" in inspect.signature(da.decode_attention).parameters
     for b, smax, lengths in DECODE_MAIN + [DECODE_KV_BLOCK[:3]]:
         q = torch.randn(b, H, HD, generator=gen, device="cuda").bfloat16()

@@ -93,16 +93,53 @@
 //             order changes from run to run): 7 products for 5, and no dQ
 //             workspace to write and read again.
 //
-// The fma variant: fp32 at every D (so fp32 never goes through TF32) and
-// bf16 at D in {16, 32}: 32 x 32 tiles in fp32 shared memory, fp32 FMAs,
-// each thread a 2 x 4 patch of X and Y and 2 rows x D/8 columns of each
-// accumulator; P and dS staged in shared memory. Its two passes are one
-// template: a block's "own" rows (keys, or queries) and its "streamed" rows
-// (queries, or keys):
-//   X = A1 B1^T, Y = A2 B2^T   (own x streamed: S^T and dP^T, or S and dP)
-//   acc1 += dS B1, acc2 += P B2 (dK and dV from Q and dO; or dQ from K)
+// The FMA variant: fp32 at every D (so fp32 never goes through TF32) and
+// bf16 at D in {16, 32} (widened on the way to the registers). Its products
+// are IEEE fp32 FFMAs, so its bound is the CUDA cores' 67 TFLOP/s: 7/5 of
+// the five products' floor, as above (1,571.4 us at zamba2's tensor-parallel
+// rank call, B 2, S = T = 2048, H = Hkv = 16, D 112). An SM issues 128 FFMA
+// lanes a clock but serves 128 bytes of shared memory a clock, so the design
+// is an SGEMM's, one template for both passes: a block's 64 "own" rows (keys,
+// or queries) and the 128-row "streamed" tiles it walks (queries, or keys):
+//
+//   warps     256 threads: warpgroup 0 computes X = A0 B0^T (S^T = K Q^T,
+//             or S = Q K^T) and turns it into P; warpgroup 1 computes
+//             Y = A1 B1^T (dP^T = V dO^T, or dP = dO V^T) and turns it into
+//             dS = P * (Y - Dsum) once P is written. Each thread (8 row
+//             lanes x 16 column lanes of its warpgroup) owns an 8 x 8 patch:
+//             own rows ty + 8 i, streamed rows tx + 16 j, read as 16-byte
+//             shared loads of 4 columns of d (16 loads for 256 FFMAs).
+//   gradient  P and dS are written once to shared memory, transposed
+//             (streamed x own, each thread's 8 own rows adjacent); the
+//             gradient products read 8 own rows of a streamed row in two
+//             16-byte loads beside D / 16 values of the right operand (8 x 8
+//             patches at D 112 and 128; at 112 the 16 columns past D are
+//             computed and never stored). dK/dV pass: warpgroup 0 sums
+//             dV += P^T dO, warpgroup 1 dK += dS^T Q. dQ pass: both sum
+//             dQ += dS K, warpgroup w over keys 64 w .. 64 w + 63 of each
+//             tile; the two sums are added in that order at the end.
+//   copies    TMA, issued by thread 0: the own tiles (64 x D each, dense)
+//             once; the streamed tiles through a 3-stage ring of chunks in
+//             the order the products read them: D / 16 score chunks of 128
+//             rows x 16 columns of B0 and B1 (swizzled, so that the 16 rows
+//             a warp reads at once hit distinct banks), then gradient chunks
+//             of 32 rows x D of each warpgroup's right operand (dense, zero-
+//             filled past D; 16 rows and 4 stages for fp32 at D 128, where
+//             3 stages of 32 rows do not fit). One block barrier and the
+//             stage's mbarrier wait for each chunk and free the one before
+//             it, so 2 (or 3) chunks are in flight while the FFMAs run.
+//   softmax   P = exp2(X * scale * log2(e) - lse * log2(e)) in one FMA and
+//             one exponential; masks are evaluated only on tiles that the
+//             causal diagonal, S or T cut; tiles wholly above the diagonal
+//             are never loaded.
+//   grids     dK/dV: ceil(T/64) x Hkv x B blocks, dQ: ceil(S/64) x H x B,
+//             launched tile-major with the longest tiles first (key tile 0;
+//             the query tiles nearest the diagonal's end), so that no long
+//             block starts in the last wave. One block per SM (shared memory).
+//   order     each output row is summed by one thread over the G heads, the
+//             streamed tiles and their rows in loop order, with no atomics.
 // The wrapper (kernels/flash_attention.py) picks the variant before launch,
-// as the forward's are picked.
+// as the forward's are picked; its fma_plan mirrors this geometry.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -517,210 +554,269 @@ flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
 
 // ---- FMA variant (fp32 at every D, bf16 at D in {16, 32}) ---------------------
 
-constexpr int F_ROWS = 32;  // own rows a block
-constexpr int F_COLS = 32;  // streamed rows a step
-constexpr int F_THREADS = 128;  // 16 row pairs x 8 column lanes
-constexpr int F_LDP = F_COLS + 1;
+constexpr int F_THREADS = 256;    // two warpgroups, each 8 row lanes x 16 column lanes
+constexpr int F_OWN = 64;         // own rows a block (keys, or queries)
+constexpr int F_STREAM = 128;     // streamed rows a tile (queries, or keys)
+constexpr int F_AW = 16;          // columns of d a score-product chunk
+constexpr int F_LDS = F_OWN + 4;  // row stride of the transposed fp32 P and dS tiles
 
-template <int D>
-struct FmaLayout {
-  static constexpr int LD = D + 1;  // fp32 row stride: a column of 8 rows hits 8 banks
-  static constexpr size_t bytes() {
-    return sizeof(float) * ((2 * F_ROWS + 2 * F_COLS) * LD + 2 * F_ROWS * F_LDP + 2 * F_COLS);
-  }
+// Shared memory of one pass, from a 1024-byte aligned base: the ring's
+// STAGES chunks (two parts each, one a warpgroup), the two own tiles
+// (64 x D each, dense), the transposed fp32 P and dS tiles, the mbarriers.
+template <typename T, int D>
+struct FmaBwd {
+  static constexpr int E = static_cast<int>(sizeof(T));
+  static constexpr int RB = F_AW * E;                   // bytes of a score-chunk row: its swizzle span
+  static constexpr int NA = D / F_AW;                   // score chunks a tile
+  static constexpr int DP = D == 112 ? 128 : D;         // gradient chunk row (TMA zero-fills past D)
+  static constexpr int CW = DP / 16;                    // accumulator columns a thread
+  static constexpr int A_BYTES = F_STREAM * F_AW * E;  // a warpgroup's score chunk: 128 rows x 16 columns
+  // Streamed rows of a warpgroup's gradient chunk, and the ring's stages:
+  // 32 and 3, but 16 and 4 for fp32 at D 128, where 3 stages of 32 rows
+  // would not fit beside the own tiles (fewer, larger chunks need fewer
+  // barriers: 3 % of the backward at D 112, PERF.md).
+  static constexpr int BR = E == 4 && D == 128 ? 16 : 32;
+  static constexpr int STAGES = BR == 32 ? 3 : 4;
+  static constexpr int B_BYTES = BR * DP * E;           // a warpgroup's gradient chunk: BR rows x DP
+  static constexpr int PART = ((A_BYTES > B_BYTES ? A_BYTES : B_BYTES) + 1023) / 1024 * 1024;
+  static constexpr int OWN_TILE = F_OWN * D * E;
+  static constexpr int S_TILE = 4 * F_STREAM * F_LDS;  // one transposed fp32 tile
+  // + the mbarriers (room for 4) and 1024 bytes to align the base
+  static constexpr size_t bytes() { return STAGES * 2 * PART + 2 * OWN_TILE + 2 * S_TILE + 32 + 1024; }
+  static_assert(bytes() <= 232448, "one block's shared memory must fit the SM's 227 KB");
 };
 
-// `valid` of `rows` rows of D elements of T into fp32 shared rows of stride
-// D + 1, zero-filling the rest.
-template <typename T, int D>
-__device__ __forceinline__ void stage_fma(float* dst, const T* __restrict__ src, int64_t gstride, int rows,
-                                          int valid) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int CHUNKS = D / VEC;
-  constexpr int LD = FmaLayout<D>::LD;
-  for (int e = threadIdx.x; e < rows * CHUNKS; e += F_THREADS) {
-    const int r = e / CHUNKS;
-    const int c = (e % CHUNKS) * VEC;
-    float f[VEC];
-    if (r < valid) {
-      load16(src + r * gstride + c, f);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) f[i] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[r * LD + c + i] = f[i];
-  }
-}
-
+// One pass of the FMA backward. A block owns 64 rows of one (batch, head):
+// keys of a KV head (KV, the dK/dV pass) or queries of a head (the dQ
+// pass), staged once as A0 = K, A1 = V (or Q, dO). It walks 128-row
+// streamed tiles (the G heads' query tiles, or the key tiles) in loop order.
+// Warpgroup w computes its 8 x 8 patch of X_w = A_w B_w^T from score chunks
+// of B0 = Q, B1 = dO (or K, V); warpgroup 0 turns X_0 into P and writes it,
+// warpgroup 1 then turns X_1 into dS = P * (X_1 - Dsum) and writes it, both
+// transposed in shared memory. Gradient chunks then stream rows of the
+// products' right operands: warpgroup 0 sums dV += P^T dO and warpgroup 1
+// dK += dS^T Q (KV); in the dQ pass both sum dQ += dS K, warpgroup w over
+// keys 64 w .. 64 w + 63 of each tile, added in that order at the end.
+// The maps: own0, own1 (boxes of 64 rows x D), a0, a1 (128 rows x 16
+// columns, swizzled), b0, b1 (BR rows x DP).
 template <typename T, int D, bool KV>
-__global__ void __launch_bounds__(F_THREADS)
-flash_bwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-               T* __restrict__ d1, T* __restrict__ d2, int s, int t, int h, int hkv, int causal, float scale) {
-  constexpr int LD = FmaLayout<D>::LD;
-  constexpr int DJ = D / 8;  // accumulator columns a thread
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_bwd_fma_kernel(const __grid_constant__ CUtensorMap tm_own0, const __grid_constant__ CUtensorMap tm_own1,
+                     const __grid_constant__ CUtensorMap tm_a0, const __grid_constant__ CUtensorMap tm_a1,
+                     const __grid_constant__ CUtensorMap tm_b0, const __grid_constant__ CUtensorMap tm_b1,
+                     const float* __restrict__ lse, const float* __restrict__ dsum, T* __restrict__ d1,
+                     T* __restrict__ d2, int s, int t, int h, int hkv, int causal, float scale) {
+  using L = FmaBwd<T, D>;
+  constexpr int CW = L::CW;
+  constexpr int G = CW < 4 ? CW : 4;
+  constexpr int NB = (KV ? F_STREAM : F_STREAM / 2) / L::BR;  // gradient chunks a tile
+  constexpr int CPT = L::NA + NB;                            // chunks a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* a1s = reinterpret_cast<float*>(smem_raw);  // own rows: K, or Q
-  float* a2s = a1s + F_ROWS * LD;                   // own rows: V, or dO
-  float* b1s = a2s + F_ROWS * LD;                   // streamed: Q, or K
-  float* b2s = b1s + F_COLS * LD;                   // streamed: dO, or V
-  float* ps = b2s + F_COLS * LD;                    // [F_ROWS][F_LDP] P
-  float* dss = ps + F_ROWS * F_LDP;                 // [F_ROWS][F_LDP] dS
-  float* lse_s = dss + F_ROWS * F_LDP;              // KV: the streamed queries' lse
-  float* dsum_s = lse_s + F_COLS;
+  uint8_t* ring = align_1024(smem_raw);                                                  // L::STAGES x [2][PART]
+  T* own = reinterpret_cast<T*>(ring + L::STAGES * 2 * L::PART);                          // [2][F_OWN][D]
+  float* pw = reinterpret_cast<float*>(ring + L::STAGES * 2 * L::PART + 2 * L::OWN_TILE);  // [F_STREAM][F_LDS] P
+  float* dsw = pw + F_STREAM * F_LDS;                                                    // [F_STREAM][F_LDS] dS
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsw + F_STREAM * F_LDS);
 
+  // Blocks run tile-major (every head and batch of one own tile, then the
+  // next), the tiles with the most streamed tiles first: key tile 0 (KV), or
+  // the query tiles nearest the causal diagonal's end.
   const int g_size = h / hkv;
-  const int b = blockIdx.z;
+  const int heads = KV ? hkv : h;
+  const int n_own_tiles = ((KV ? t : s) + F_OWN - 1) / F_OWN;
+  const int hb = static_cast<int>(gridDim.x) / n_own_tiles;  // heads x batch
+  const int tile = static_cast<int>(blockIdx.x) / hb;
+  const int head_own = static_cast<int>(blockIdx.x) % hb % heads;  // KV: the KV head; dQ: the query head
+  const int b = static_cast<int>(blockIdx.x) % hb / heads;
   const int offset = t - s;
-  const int ty = threadIdx.x >> 3;  // own rows 2 ty, 2 ty + 1
-  const int tx = threadIdx.x & 7;   // streamed rows and accumulator columns tx + 8 j
-  const int nq = (s + F_COLS - 1) / F_COLS;
-  const int own0 = KV ? blockIdx.x * F_ROWS : (nq - 1 - static_cast<int>(blockIdx.x)) * F_ROWS;
-  const int n_own = KV ? t : s;
-  const int hk = KV ? blockIdx.y : blockIdx.y / g_size;
-  const int64_t q_stride = static_cast<int64_t>(h) * D;
-  const int64_t kv_stride = static_cast<int64_t>(hkv) * D;
-  const T* kb = k + static_cast<int64_t>(b) * t * kv_stride + static_cast<int64_t>(hk) * D;
-  const T* vb = v + static_cast<int64_t>(b) * t * kv_stride + static_cast<int64_t>(hk) * D;
+  const int wg = threadIdx.x >> 7;
+  const int ty = (threadIdx.x >> 4) & 7;  // own rows ty + 8 i
+  const int tx = threadIdx.x & 15;        // streamed rows tx + 16 j; accumulator columns lane_col<CW>(tx, c)
+  const int key = swz_key<L::RB>(tx);
+  const int n_stream = KV ? s : t;
+  const int own0 = (KV ? tile : n_own_tiles - 1 - tile) * F_OWN;
+  const int hk = KV ? head_own : head_own / g_size;
+  const float c2 = scale * LOG2E;
+  const float* stat = wg == 0 ? lse : dsum;  // warpgroup 0 needs lse, 1 Dsum
 
-  if constexpr (KV) {
-    stage_fma<T, D>(a1s, kb + own0 * kv_stride, kv_stride, F_ROWS, min(F_ROWS, t - own0));
-    stage_fma<T, D>(a2s, vb + own0 * kv_stride, kv_stride, F_ROWS, min(F_ROWS, t - own0));
-  } else {
-    const int64_t off = static_cast<int64_t>(b) * s * q_stride + own0 * q_stride + static_cast<int64_t>(blockIdx.y) * D;
-    stage_fma<T, D>(a1s, q + off, q_stride, F_ROWS, min(F_ROWS, s - own0));
-    stage_fma<T, D>(a2s, dout + off, q_stride, F_ROWS, min(F_ROWS, s - own0));
-  }
-  float lse_own[2] = {0.0f, 0.0f}, dsum_own[2] = {0.0f, 0.0f};
-  if constexpr (!KV) {
-    const int64_t row0 = (static_cast<int64_t>(b) * h + blockIdx.y) * s;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = own0 + 2 * ty + i;
-      if (r < s) {
-        lse_own[i] = lse[row0 + r];
-        dsum_own[i] = dsum[row0 + r];
+  // Streamed tiles: per head, the query tiles from the first with a live
+  // pair (KV), or the key tiles up to the causal limit.
+  const int nst = (n_stream + F_STREAM - 1) / F_STREAM;
+  const int first = KV ? min(first_query_tile(own0, offset, causal, F_STREAM), nst) : 0;
+  const int per = KV ? nst - first : key_tiles(own0, F_OWN, s, t, offset, causal, F_STREAM);
+  const int n_tiles = KV ? g_size * per : per;
+  auto tile_head = [&](int ti) { return KV ? hk * g_size + ti / per : head_own; };
+  auto tile_row = [&](int ti) { return KV ? (first + ti % per) * F_STREAM : ti * F_STREAM; };
+
+  // The chunks in walk order, issued by thread 0: for each tile, score
+  // chunk j < NA (columns 16 j .. 16 j + 15 of its 128 rows of B0 and B1),
+  // then gradient chunk j - NA (BR rows of dO and of Q at the same position,
+  // or BR rows of K for each warpgroup's half); the own tiles come with
+  // chunk 0. `load` is called once for each chunk, in order: its cursor
+  // (the chunk within the tile, the tile's first row, the streamed head)
+  // steps without a division.
+  int ld_j = 0, ld_row = first * F_STREAM, ld_head = KV ? hk * g_size : hk;
+  auto load = [&](int n) {
+    const int st = n % L::STAGES;
+    uint8_t* dst = ring + st * 2 * L::PART;
+    if (ld_j < L::NA) {
+      mbar_expect_tx(&full[st], 2 * L::A_BYTES + (n == 0 ? 2 * L::OWN_TILE : 0));
+      if (n == 0) {
+        tma_load_4d(own, &tm_own0, &full[st], 0, head_own, own0, b);
+        tma_load_4d(own + F_OWN * D, &tm_own1, &full[st], 0, head_own, own0, b);
       }
+      tma_load_4d(dst, &tm_a0, &full[st], ld_j * F_AW, ld_head, ld_row, b);
+      tma_load_4d(dst + L::PART, &tm_a1, &full[st], ld_j * F_AW, ld_head, ld_row, b);
+    } else {
+      const int r0 = ld_row + (ld_j - L::NA) * L::BR;
+      mbar_expect_tx(&full[st], 2 * L::B_BYTES);
+      tma_load_4d(dst, &tm_b0, &full[st], 0, ld_head, r0, b);
+      tma_load_4d(dst + L::PART, &tm_b1, &full[st], 0, ld_head, KV ? r0 : r0 + F_STREAM / 2, b);
     }
-  }
-
-  float acc1[2][DJ], acc2[2][KV ? DJ : 1];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc1[i][j] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < (KV ? DJ : 1); ++j) acc2[i][j] = 0.0f;
-  }
-
-  // One streamed tile (staged by the caller) into the accumulators.
-  auto step = [&](int c0) {
-    float x[2][4], y[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) x[i][j] = y[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a1[2], a2[2], b1[4], b2[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        a1[i] = a1s[(2 * ty + i) * LD + d];
-        a2[i] = a2s[(2 * ty + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b1[j] = b1s[(tx + 8 * j) * LD + d];
-        b2[j] = b2s[(tx + 8 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          x[i][j] = fmaf(a1[i], b1[j], x[i][j]);
-          y[i][j] = fmaf(a2[i], b2[j], y[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int own = own0 + 2 * ty + i;
-        const int col = tx + 8 * j;
-        const int qi = KV ? c0 + col : own;
-        const int ki = KV ? own : c0 + col;
-        const float l = KV ? lse_s[col] : lse_own[i];
-        const float dsum = KV ? dsum_s[col] : dsum_own[i];
-        const float p = live_pair(qi, ki, s, t, offset, causal) ? expf(x[i][j] * scale - l) : 0.0f;
-        ps[(2 * ty + i) * F_LDP + col] = p;
-        dss[(2 * ty + i) * F_LDP + col] = p * (y[i][j] - dsum);
-      }
-    __syncthreads();  // the whole P and dS tiles are in shared memory
-#pragma unroll 4
-    for (int c = 0; c < F_COLS; ++c) {
-      float p[2], ds[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        p[i] = ps[(2 * ty + i) * F_LDP + c];
-        ds[i] = dss[(2 * ty + i) * F_LDP + c];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float bv1 = b1s[c * LD + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) acc1[i][j] = fmaf(ds[i], bv1, acc1[i][j]);
-        if constexpr (KV) {
-          const float bv2 = b2s[c * LD + tx + 8 * j];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) acc2[i][j] = fmaf(p[i], bv2, acc2[i][j]);
-        }
+    if (++ld_j == CPT) {  // the next tile: the next row block, or (KV) the next head's first
+      ld_j = 0;
+      ld_row += F_STREAM;
+      if (KV && ld_row >= nst * F_STREAM) {
+        ld_row = first * F_STREAM;
+        ++ld_head;
       }
     }
   };
+  const int n_chunks = n_tiles * CPT;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < L::STAGES; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+#pragma unroll
+    for (int n = 0; n < L::STAGES - 1; ++n)
+      if (n < n_chunks) load(n);
+  }
+  // The next chunk, once its bytes have landed. The barrier first retires
+  // the chunk before it, whose stage thread 0 then refills.
+  int n_next = 0;
+  auto next = [&]() -> const T* {
+    __syncthreads();
+    if (threadIdx.x == 0 && n_next + L::STAGES - 1 < n_chunks) load(n_next + L::STAGES - 1);
+    mbar_wait(&full[n_next % L::STAGES], (n_next / L::STAGES) & 1);
+    return reinterpret_cast<const T*>(ring + (n_next++ % L::STAGES) * 2 * L::PART);
+  };
 
-  if constexpr (KV) {
-    const int qt0 = first_query_tile(own0, offset, causal, F_COLS);
-    for (int g = 0; g < g_size; ++g) {
-      const int head = hk * g_size + g;
-      const int64_t base = static_cast<int64_t>(b) * s * q_stride + static_cast<int64_t>(head) * D;
-      const int64_t row0 = (static_cast<int64_t>(b) * h + head) * s;
-      for (int qt = qt0; qt < nq; ++qt) {
-        const int c0 = qt * F_COLS;
-        __syncthreads();  // the previous step's readers are done
-        stage_fma<T, D>(b1s, q + base + c0 * q_stride, q_stride, F_COLS, min(F_COLS, s - c0));
-        stage_fma<T, D>(b2s, dout + base + c0 * q_stride, q_stride, F_COLS, min(F_COLS, s - c0));
-        if (threadIdx.x < F_COLS) {
-          const int qi = c0 + threadIdx.x;
-          lse_s[threadIdx.x] = qi < s ? lse[row0 + qi] : 0.0f;
-          dsum_s[threadIdx.x] = qi < s ? dsum[row0 + qi] : 0.0f;
+  float acc[8][CW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.0f;
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int c0 = tile_row(ti);
+    float x[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[i][j] = 0.0f;
+#pragma unroll 1
+    for (int a = 0; a < L::NA; ++a) {
+      const T* ch = next();
+      patch_dot<T, F_AW, D, 8, L::RB>(x, own + (wg * F_OWN + ty) * D + a * F_AW,
+                                      ch + wg * L::PART / L::E + tx * F_AW, key);
+    }
+
+    // lse * log2(e) (warpgroup 0) or Dsum (1) of each streamed column j (KV)
+    // or own row i (dQ), read after the products so that they hold no
+    // registers during them.
+    float st[8];
+    const int64_t row0 = (static_cast<int64_t>(b) * h + tile_head(ti)) * s;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = KV ? c0 + tx + 16 * e : own0 + ty + 8 * e;
+      st[e] = r < s ? stat[row0 + r] * (wg == 0 ? LOG2E : 1.0f) : 0.0f;
+    }
+    // Only tiles that the causal diagonal, S or T cut are masked. The
+    // previous tile's readers of pw and dsw passed this tile's barriers.
+    const int q_first = KV ? c0 : own0, q_rows = KV ? F_STREAM : F_OWN;
+    const int k_first = KV ? own0 : c0, k_rows = KV ? F_OWN : F_STREAM;
+    const bool edge = q_first + q_rows > s || k_first + k_rows > t ||
+                      (causal && k_first + k_rows - 1 > q_first + offset);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p = ex2(fmaf(x[i][j], c2, -(KV ? st[j] : st[i])));
+          if (edge) {
+            const int own_i = own0 + ty + 8 * i, col = c0 + tx + 16 * j;
+            if (!live_pair(KV ? col : own_i, KV ? own_i : col, s, t, offset, causal)) p = 0.0f;
+          }
+          x[i][j] = p;
         }
-        __syncthreads();
-        step(c0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* dst = pw + (tx + 16 * j) * F_LDS + ty * 8;
+        *reinterpret_cast<float4*>(dst) = make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4][j], x[5][j], x[6][j], x[7][j]);
       }
     }
-  } else {
-    const int hi = key_tiles(own0, F_ROWS, s, t, offset, causal, F_COLS);
-    for (int kt = 0; kt < hi; ++kt) {
-      const int c0 = kt * F_COLS;
-      __syncthreads();
-      stage_fma<T, D>(b1s, kb + c0 * kv_stride, kv_stride, F_COLS, min(F_COLS, t - c0));
-      stage_fma<T, D>(b2s, vb + c0 * kv_stride, kv_stride, F_COLS, min(F_COLS, t - c0));
-      __syncthreads();
-      step(c0);
+    __syncthreads();  // P is in pw
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p[8];
+        const float* src = pw + (tx + 16 * j) * F_LDS + ty * 8;
+        lds<4>(src, p);
+        lds<4>(src + 4, p + 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i][j] = p[i] * (x[i][j] - (KV ? st[j] : st[i]));
+        float* dst = dsw + (tx + 16 * j) * F_LDS + ty * 8;
+        *reinterpret_cast<float4*>(dst) = make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4][j], x[5][j], x[6][j], x[7][j]);
+      }
+    }
+
+    // The gradient products (the first chunk's barrier publishes dS).
+    const float* grad = KV && wg == 0 ? pw : dsw;
+#pragma unroll 1
+    for (int bb = 0; bb < NB; ++bb) {
+      const T* ch = next();
+      const int cb = (KV ? 0 : wg * F_STREAM / 2) + bb * L::BR;
+      rows_dot<T, L::BR, F_LDS, L::DP, CW>(acc, grad + cb * F_LDS + ty * 8, ch + wg * L::PART / L::E + G * tx);
     }
   }
 
+  const int64_t q_stride = static_cast<int64_t>(h) * D;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * D;
+  float vals[CW];
+  if constexpr (KV) {  // warpgroup 0 stores dV, 1 stores dK * scale
+    const float mul = wg == 0 ? 1.0f : scale;
+    T* dst = wg == 0 ? d2 : d1;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = own0 + 2 * ty + i;
-    if (r >= n_own) continue;
-    const int64_t off = KV ? (static_cast<int64_t>(b) * t + r) * kv_stride + static_cast<int64_t>(hk) * D
-                           : (static_cast<int64_t>(b) * s + r) * q_stride + static_cast<int64_t>(blockIdx.y) * D;
+    for (int i = 0; i < 8; ++i) {
+      const int r = own0 + ty + 8 * i;
+      if (r >= t) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      d1[off + tx + 8 * j] = from_f32<T>(acc1[i][j] * scale);
-      if constexpr (KV) d2[off + tx + 8 * j] = from_f32<T>(acc2[i][j]);
+      for (int c = 0; c < CW; ++c) vals[c] = acc[i][c] * mul;
+      store_cols<T, D, CW>(dst + (static_cast<int64_t>(b) * t + r) * kv_stride + static_cast<int64_t>(hk) * D, tx,
+                           vals);
+    }
+  } else {  // dQ = (warpgroup 0's sum + warpgroup 1's) * scale, stored by warpgroup 0
+    const int lane = threadIdx.x & 127;
+    __syncthreads();  // every gradient read of dsw is done: pw holds warpgroup 1's sums
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) pw[(i * CW + c) * 128 + lane] = acc[i][c];
+    }
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = own0 + ty + 8 * i;
+        if (r >= s) continue;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) vals[c] = (acc[i][c] + pw[(i * CW + c) * 128 + lane]) * scale;
+        store_cols<T, D, CW>(d1 + (static_cast<int64_t>(b) * s + r) * q_stride + static_cast<int64_t>(head_own) * D,
+                             tx, vals);
+      }
     }
   }
 }
@@ -744,14 +840,17 @@ int launch_dsum(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch one FMA pass `kernel` on grid (tiles, heads, B) with `smem` bytes.
+// Launch one FMA pass `kernel` on own tiles x heads x B blocks with `smem`
+// bytes, reading its maps.
 template <typename T, typename K>
-int launch_pass(K kernel, size_t smem, int tiles, int heads, const Args& a, void* d1, void* d2) {
+int launch_pass(K kernel, size_t smem, int tiles, int heads, const Args& a, const CUtensorMap (&m)[6], void* d1,
+                void* d2) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(tiles, heads, a.b), F_THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+  const int64_t blocks = static_cast<int64_t>(tiles) * heads * a.b;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), F_THREADS, smem, a.stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
       static_cast<T*>(d1), static_cast<T*>(d2), a.s, a.t, a.h, a.hkv, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -795,14 +894,44 @@ int launch_tc(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The prologue, then the two FMA passes on grids of 64 own rows (keys of a
+// KV head, then queries of a head), each on its own maps: own tiles in
+// boxes of 64 rows x D, score chunks in boxes of 128 rows x 16 columns
+// (swizzled), gradient chunks in boxes of BR rows x DP.
+// kernels/flash_attention.py::fma_plan mirrors this geometry.
 template <typename T, int D>
 int launch_fma(const Args& a) {
+  using L = FmaBwd<T, D>;
   int err = launch_dsum<T, D>(a);
   if (err) return err;
-  const size_t smem = FmaLayout<D>::bytes();
-  err = launch_pass<T>(flash_bwd_fma_kernel<T, D, true>, smem, (a.t + F_ROWS - 1) / F_ROWS, a.hkv, a, a.dk, a.dv);
+  constexpr CUtensorMapDataType type = map_type<T>();
+  constexpr CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  // (pointer, seq, heads) of q and dout, and of k and v
+  auto q_map = [&](CUtensorMap* m, const void* p, int cols, int rows, CUtensorMapSwizzle sw) {
+    return make_map(m, p, type, L::E, a.b, a.s, a.h, D, cols, rows, sw);
+  };
+  auto kv_map = [&](CUtensorMap* m, const void* p, int cols, int rows, CUtensorMapSwizzle sw) {
+    return make_map(m, p, type, L::E, a.b, a.t, a.hkv, D, cols, rows, sw);
+  };
+  constexpr CUtensorMapSwizzle sw = swizzle_of<L::RB>();
+  CUtensorMap kv[6], q[6];  // own0, own1, a0, a1, b0, b1
+  err = kv_map(&kv[0], a.k, D, F_OWN, none);
+  if (!err) err = kv_map(&kv[1], a.v, D, F_OWN, none);
+  if (!err) err = q_map(&kv[2], a.q, F_AW, F_STREAM, sw);
+  if (!err) err = q_map(&kv[3], a.dout, F_AW, F_STREAM, sw);
+  if (!err) err = q_map(&kv[4], a.dout, L::DP, L::BR, none);
+  if (!err) err = q_map(&kv[5], a.q, L::DP, L::BR, none);
+  if (!err) err = q_map(&q[0], a.q, D, F_OWN, none);
+  if (!err) err = q_map(&q[1], a.dout, D, F_OWN, none);
+  if (!err) err = kv_map(&q[2], a.k, F_AW, F_STREAM, sw);
+  if (!err) err = kv_map(&q[3], a.v, F_AW, F_STREAM, sw);
+  if (!err) err = kv_map(&q[4], a.k, L::DP, L::BR, none);
+  if (!err) q[5] = q[4];
   if (err) return err;
-  return launch_pass<T>(flash_bwd_fma_kernel<T, D, false>, smem, (a.s + F_ROWS - 1) / F_ROWS, a.h, a, a.dq, nullptr);
+  const size_t smem = L::bytes();
+  err = launch_pass<T>(flash_bwd_fma_kernel<T, D, true>, smem, (a.t + F_OWN - 1) / F_OWN, a.hkv, a, kv, a.dk, a.dv);
+  if (err) return err;
+  return launch_pass<T>(flash_bwd_fma_kernel<T, D, false>, smem, (a.s + F_OWN - 1) / F_OWN, a.h, a, q, a.dq, nullptr);
 }
 
 }  // namespace
@@ -812,8 +941,8 @@ int launch_fma(const Args& a) {
 // forward's; dsum (B, H, S) fp32 scratch. D in {16, 32, 64, 112, 128} for
 // fp32 and bf16 (bf16 at 64, 112 and 128 on the tensor cores); H % Hkv == 0.
 // Launches three kernels on `stream` and returns the first nonzero
-// cudaGetLastError() (0 on success); the tensor-core passes also -1 when the
-// driver has no cuTensorMapEncodeTiled, -2 when it refuses a tensor map.
+// cudaGetLastError() (0 on success), or -1 when the driver has no
+// cuTensorMapEncodeTiled, -2 when it refuses a tensor map.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* out,
                                        const void* dout, const void* lse, void* dsum, void* dq, void* dk, void* dv,
                                        int b, int s, int t, int h, int hkv, int d, int causal, float scale,
@@ -854,4 +983,26 @@ extern "C" int flash_attention_bwd_tc_smem_bytes(int d, int pass) {
     case 128: return pass ? QSmem<128>::ALLOC : KvSmem<128>::ALLOC;
     default: return 0;
   }
+}
+
+// Dynamic shared memory one block of an FMA pass asks for at head_dim `d`
+// with `elem`-byte elements (4: fp32, 2: bf16; 0 where the pair is not
+// served); both passes ask for the same: kernels/flash_attention.py::
+// fma_plan computes the same number.
+extern "C" int flash_attention_fma_smem_bytes(int d, int elem) {
+  if (elem == 4) {
+    switch (d) {
+      case 16: return static_cast<int>(FmaBwd<float, 16>::bytes());
+      case 32: return static_cast<int>(FmaBwd<float, 32>::bytes());
+      case 64: return static_cast<int>(FmaBwd<float, 64>::bytes());
+      case 112: return static_cast<int>(FmaBwd<float, 112>::bytes());
+      case 128: return static_cast<int>(FmaBwd<float, 128>::bytes());
+    }
+  } else if (elem == 2) {
+    switch (d) {
+      case 16: return static_cast<int>(FmaBwd<bf16, 16>::bytes());
+      case 32: return static_cast<int>(FmaBwd<bf16, 32>::bytes());
+    }
+  }
+  return 0;
 }

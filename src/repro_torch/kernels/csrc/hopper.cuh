@@ -1,20 +1,23 @@
-// Hopper building blocks shared by the tensor-core flash kernels (the
-// forward, flash_attention_tc.cu, and the backward's bf16 passes,
-// flash_attention_bwd.cu): mbarriers, TMA copies and the host-side tensor
-// maps they read, wgmma products and their descriptors, fences and waits,
-// and the wgmma accumulator layout.  The build hash covers every .cuh here,
-// so an edit rebuilds every kernel.
+// Hopper building blocks shared by the flash kernels (the tensor-core
+// forward, flash_attention_tc.cu, the FMA forward, flash_attention.cu, and
+// the backward's passes, flash_attention_bwd.cu): mbarriers, TMA copies and
+// the host-side tensor maps they read, wgmma products and their
+// descriptors, fences and waits, the wgmma accumulator layout, and the FMA
+// kernels' swizzled reads and register-tiled products.  The build hash
+// covers every .cuh here, so an edit rebuilds every kernel.
 //
-// Every operand tile lives in shared memory as 128-byte-swizzled panels of
-// 64 bf16 columns (PANEL) by the tile's rows, each panel 1024-byte aligned
-// (the swizzle's period): what a TMA box of 64 columns writes, and what a
-// wgmma descriptor of layout B128 reads.
+// Every operand tile of the tensor-core kernels lives in shared memory as
+// 128-byte-swizzled panels of 64 bf16 columns (PANEL) by the tile's rows,
+// each panel 1024-byte aligned (the swizzle's period): what a TMA box of 64
+// columns writes, and what a wgmma descriptor of layout B128 reads.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "convert.cuh"
 
 constexpr int PANEL = 64;       // bf16 columns in one 128-byte swizzle panel
 constexpr int ROW_BYTES = 128;  // bytes of one row of a panel
@@ -270,6 +273,139 @@ __device__ __forceinline__ void to_fragments(uint32_t (&pa)[N / 16][4], const fl
   }
 }
 
+// ---- FMA kernels: TMA rings and register-tiled fp32 products -------------
+//
+// The FMA flash kernels (flash_attention.cu and the backward's FMA passes)
+// stage their tiles row-major in shared memory through TMA, in rings that the
+// block walks one chunk at a time. A tile that a warp reads as 2 rows at a
+// time (Q, the own tiles) or as whole rows (V, the gradient chunks) is stored
+// dense; a chunk whose 16 rows a warp reads at once (K, the score chunks) is
+// RB = 32, 64 or 128 bytes a row and stored with the TMA swizzle of that
+// span, which XORs a row's 16-byte units with bits of the row, so that 8
+// threads reading the same column of 8 consecutive rows hit 32 banks.
+
+// The swizzle key of row `row` of a box with RB-byte rows (1024-byte aligned):
+// what its 16-byte unit indices are XORed with. Rows 16 apart share it.
+template <int RB>
+__device__ __forceinline__ int swz_key(int row) {
+  return (row * RB >> 7) & (RB / 16 - 1);
+}
+
+// Where element `e` of a row with swizzle key `key` lies, in elements from
+// the row's start.
+template <typename T>
+__device__ __forceinline__ int swz(int e, int key) {
+  constexpr int E = static_cast<int>(sizeof(T));
+  const int byte = e * E;
+  return ((((byte >> 4) ^ key) << 4) | (byte & 15)) / E;
+}
+
+// N consecutive elements of shared memory (N * sizeof(T) bytes, aligned to
+// that size) in one load, widened to fp32.
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float* f) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    f[0] = v.x, f[1] = v.y;
+  } else {
+    f[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void lds(const __nv_bfloat16* p, float* f) {
+  if constexpr (N == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __bfloat162float(e[i]);
+  } else if constexpr (N == 2) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    f[0] = __low2float(v), f[1] = __high2float(v);
+  } else {
+    f[0] = __bfloat162float(*p);
+  }
+}
+
+// x[i][j] += sum over dd < W of A[i * ASTEP][dd] * B[16 j][dd]: a thread's
+// 8 x 8 patch of the product of two row-major tiles, `a` its first A row
+// (dense, stride LDA), `b` its first B row of a swizzled chunk (rows of RB
+// bytes, swizzle key `key`). Each 4-column step is 16 shared loads of 4
+// values for 256 FFMAs; each sum runs in column order.
+template <typename T, int W, int LDA, int ASTEP, int RB>
+__device__ __forceinline__ void patch_dot(float (&x)[8][8], const T* a, const T* b, int key) {
+  constexpr int LDB = RB / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int dd = 0; dd < W; dd += 4) {
+    float av[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) lds<4>(a + i * ASTEP * LDA + dd, av[i]);
+    const int bo = swz<T>(dd, key);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float bv[4];
+      lds<4>(b + j * 16 * LDB + bo, bv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[i][j] = fmaf(av[i][e], bv[e], x[i][j]);
+    }
+  }
+}
+
+// acc[i][c] += sum over kk < R of P[kk][i] * B[kk][col(c)]: `p` the
+// thread's 8 values in row 0 of a transposed fp32 tile (stride LDP), `b`
+// its first column of a row-major tile (stride LDB). A thread's CW columns
+// are CW / G groups of G = min(CW, 4) neighbours, 16 G apart, so a warp's
+// 16 column lanes read whole rows; each step is 2 + CW / G loads for 8 CW
+// FFMAs, each sum in row order.
+template <typename T, int R, int LDP, int LDB, int CW>
+__device__ __forceinline__ void rows_dot(float (&acc)[8][CW], const float* p, const T* b) {
+  constexpr int G = CW < 4 ? CW : 4;
+#pragma unroll
+  for (int kk = 0; kk < R; ++kk) {
+    float pv[8], bv[CW];
+    lds<4>(p + kk * LDP, pv);
+    lds<4>(p + kk * LDP + 4, pv + 4);
+#pragma unroll
+    for (int g = 0; g < CW / G; ++g) lds<G>(b + kk * LDB + 16 * G * g, bv + G * g);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(pv[i], bv[c], acc[i][c]);
+  }
+}
+
+// The output column of a thread's c-th accumulator column (see rows_dot),
+// for column lane tx.
+template <int CW>
+__device__ __forceinline__ int lane_col(int tx, int c) {
+  constexpr int G = CW < 4 ? CW : 4;
+  return (c / G) * 16 * G + G * tx + c % G;
+}
+
+// A thread's CW accumulator columns (see rows_dot) of one output row of D
+// columns: 16-byte stores of fp32, element stores of bf16; columns >= D (at
+// D 112, lanes 12-15's second group) are not stored.
+template <typename T, int D, int CW>
+__device__ __forceinline__ void store_cols(T* row, int tx, const float (&vals)[CW]) {
+  if constexpr (sizeof(T) == 4 && CW % 4 == 0) {
+#pragma unroll
+    for (int g = 0; g < CW / 4; ++g) {
+      const int col = lane_col<CW>(tx, 4 * g);
+      if (col < D)
+        *reinterpret_cast<float4*>(row + col) = make_float4(vals[4 * g], vals[4 * g + 1], vals[4 * g + 2], vals[4 * g + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < CW; ++c)
+      if (lane_col<CW>(tx, c) < D) row[lane_col<CW>(tx, c)] = from_f32<T>(vals[c]);
+  }
+}
+
 // ---- host side: tensor maps ------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -294,20 +430,41 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor (batch, seq, heads, d) as a 4-D map, innermost first
-// (d, heads, seq, batch), read in boxes of 64 columns x 1 head x `rows`
-// positions x 1 batch, 128-byte swizzled; positions past `seq` and columns
-// past `d` read as 0. kernels/flash_attention.py's plans mirror these numbers.
-inline int make_map(CUtensorMap* map, const void* base, int batch, int seq, int heads, int d, int rows) {
+// A tensor (batch, seq, heads, d) of `elem`-byte elements of `type` as a
+// 4-D map, innermost first (d, heads, seq, batch), read in boxes of `cols`
+// columns x 1 head x `rows` positions x 1 batch with `swizzle`; positions
+// past `seq` and columns past `d` read as 0. kernels/flash_attention.py's
+// plans mirror these numbers.
+inline int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem, int batch, int seq,
+                    int heads, int d, int cols, int rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t e = static_cast<cuuint64_t>(elem);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {2ull * d, 2ull * d * heads, 2ull * d * heads * seq};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {PANEL, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {e * d, e * d * heads, e * d * heads * seq};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
+// The tensor-core kernels' bf16 map: 64-column boxes (one panel), 128-byte swizzled.
+inline int make_map(CUtensorMap* map, const void* base, int batch, int seq, int heads, int d, int rows) {
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, batch, seq, heads, d, PANEL, rows,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The element type of T for a tensor map, and the swizzle whose span is RB
+// bytes (a box row of RB bytes read as 16-byte units, see swz).
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <int RB>
+constexpr CUtensorMapSwizzle swizzle_of() {
+  static_assert(RB == 32 || RB == 64 || RB == 128, "a swizzle spans 32, 64 or 128 bytes");
+  return RB == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
 }

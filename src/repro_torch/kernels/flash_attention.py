@@ -9,7 +9,10 @@ that the wrapper picks between by dtype and head_dim before any launch:
   copies into a 3-stage K/V ring, a producer warp and two consumer
   warpgroups per 128-row tile);
 - ``"fma"`` -- fp32 at any d, and bf16 at d in {16, 32}: the FMA kernel
-  ``csrc/flash_attention.cu`` (64 x 64 tiles, fp32 FMAs).
+  ``csrc/flash_attention.cu`` (IEEE fp32 FFMAs on 128 x 128 tiles, an 8 x 8
+  register patch a thread, fed by a 4-stage TMA ring; ``fma_plan`` gives its
+  geometry). No TF32: its bound is the CUDA cores' 67 TFLOP/s of fp32 FFMA,
+  as the FMA backward's is.
 
 Both are built for ``sm_90a`` at first use by ``kernels/build.py`` and bound
 through ``ctypes``; nothing is compiled at import time.
@@ -28,9 +31,12 @@ then store nothing more.
 reference's ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``: a rowsum
 prologue, then a dK/dV pass and a dQ pass, no atomics): where the forward
 takes ``"tc"``, both passes run ``wgmma`` fed by TMA rings, as the forward
-does (``bwd_plan`` gives their geometry); FMAs where it takes ``"fma"``.
-It raises on anything it does not take; its ``launches`` attribute counts
-its calls (three kernels each).
+does (``bwd_plan`` gives their geometry); where it takes ``"fma"``, IEEE
+fp32 FFMAs on 64 own rows against 128-row streamed tiles, one warpgroup for
+each score product, 8 x 8 register patches, fed by a TMA ring
+(``fma_plan``).  It raises on anything it does not take; its
+``launches`` attribute counts its calls (three kernels each),
+``launches_fma`` the FMA ones.
 """
 
 from __future__ import annotations
@@ -50,9 +56,24 @@ TC_BQ, TC_BK, TC_STAGES, TC_THREADS, TC_PANEL = 128, 128, 3, 384, 64
 # Tiling of the backward's tensor-core passes (csrc/flash_attention_bwd.cu
 # mirrors these): (own rows a block, streamed rows a stage, ring stages).
 BWD_KV_TILES, BWD_Q_TILES, BWD_THREADS = (128, 64, 3), (128, 128, 2), 384
-_TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled", -2: "cuTensorMapEncodeTiled refused a tensor map"}
+# Tiling of the FMA kernels (csrc/flash_attention.cu and the FMA passes of
+# csrc/flash_attention_bwd.cu mirror these): the forward's (query rows a
+# block, keys a tile, keys a V chunk) and ring stages, the backward's (own
+# rows a block, streamed rows a tile, columns of d a score chunk), and the
+# threads of both; ``_fma_bwd_ring`` gives the backward's gradient chunk rows
+# and stages.
+FMA_FWD_TILES, FMA_STAGES, FMA_BWD_TILES, FMA_THREADS = (128, 128, 32), 4, (64, 128, 16), 256
+
+_MAP_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled", -2: "cuTensorMapEncodeTiled refused a tensor map"}
 _fns: dict | None = None  # variant, dtype -> loaded C entry point, set by ``build``
 _bwd_fns: dict | None = None  # dtype -> the backward's loaded C entry point, set by ``build_bwd``
+
+
+def _fma_bwd_ring(d: int, elem: int = 4) -> tuple[int, int]:
+    """The FMA backward's (streamed rows of a gradient chunk, ring stages):
+    (32, 3), but (16, 4) for fp32 at d 128, where 3 stages of 32 rows would
+    not fit beside the own tiles."""
+    return (16, 4) if elem == 4 and d == 128 else (32, 3)
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
@@ -123,6 +144,69 @@ def bwd_plan(b: int, s: int, t: int, h: int, hkv: int, d: int, causal: bool = Tr
     return dict(kv=kv, q=q)
 
 
+def _fma_smem_bytes(kind: str, d: int, elem: int = 4) -> int:
+    """Dynamic shared memory of one FMA block (``kind`` ``"fwd"`` or
+    ``"bwd"``, both backward passes alike) at head_dim ``d`` with
+    ``elem``-byte elements, as the C side computes it: the TMA ring's
+    stages (1024-byte aligned), the dense Q or own tiles, the fp32
+    transposed P (and dS) tiles, room for 4 mbarriers, and 1024 bytes of
+    slack to align the base."""
+    dp = 128 if d == 112 else d  # the accumulator's 16 lanes x d / 16 columns (8 at d 112)
+
+    def ceil1024(n):
+        return -(-n // 1024) * 1024
+
+    if kind == "fwd":
+        bq, bk, vr = FMA_FWD_TILES
+        w = 32 if d % 32 == 0 else 16  # columns of d a K chunk
+        stage = ceil1024(max(bk * w * elem, vr * dp * elem))
+        return FMA_STAGES * stage + bq * d * elem + 4 * bk * (bq + 4) + 8 * FMA_STAGES + 1024
+    own, stream, aw = FMA_BWD_TILES
+    br, stages = _fma_bwd_ring(d, elem)
+    part = ceil1024(max(stream * aw * elem, br * dp * elem))  # one warpgroup's part of a chunk
+    return stages * 2 * part + 2 * own * d * elem + 2 * 4 * stream * (own + 4) + 32 + 1024
+
+
+def fma_plan(b: int, s: int, t: int, h: int, hkv: int, d: int, causal: bool = True,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """Host-side geometry of the FMA kernels, as the C side computes it: for
+    the forward (``"fwd"``) and each backward pass (``"kv"``, the dK/dV pass;
+    ``"q"``, the dQ pass) its grid (own tiles, heads, batch: launched as one
+    dimension, tile-major, every head and batch of a tile before the next
+    tile), threads, own and streamed tile rows, ring stages, dynamic shared
+    memory, and the streamed tiles each own tile's blocks walk, in launch
+    order (the forward and the dQ pass count key tiles up to the causal
+    limit, the longest query tiles first; the dK/dV pass counts the G query
+    heads' tiles from the first with a live pair)."""
+    if variant(dtype, d) != "fma" or d not in HEAD_DIMS:
+        raise ValueError(f"the FMA kernels serve fp32 at head_dim in {HEAD_DIMS} and bf16 at 16, 32; "
+                         f"got {dtype} at {d}")
+    elem = torch.empty((), dtype=dtype).element_size()
+    offset = t - s
+
+    def key_tiles(rows, keys):  # per query tile of `rows`, the `keys`-key tiles up to the last live one
+        nk, out = -(-t // keys), []
+        for qt in range(-(-s // rows)):
+            q_last = min((qt + 1) * rows, s) - 1 + offset
+            out.append(nk if not causal else (0 if q_last < 0 else min(q_last // keys + 1, nk)))
+        return out[::-1]  # the longest query tiles first
+
+    bq, bk, _ = FMA_FWD_TILES
+    fwd = dict(grid=(-(-s // bq), h, b), threads=FMA_THREADS, own_rows=bq, stream_rows=bk, stages=FMA_STAGES,
+               smem_bytes=_fma_smem_bytes("fwd", d, elem), tiles=key_tiles(bq, bk))
+    own, stream, _ = FMA_BWD_TILES
+    stages = _fma_bwd_ring(d, elem)[1]
+    nq = -(-s // stream)
+    kv_tiles = [(h // hkv) * max(nq - (max(kt * own - offset, 0) // stream if causal else 0), 0)
+                for kt in range(-(-t // own))]
+    smem = _fma_smem_bytes("bwd", d, elem)
+    kv = dict(grid=(-(-t // own), hkv, b), threads=FMA_THREADS, own_rows=own, stream_rows=stream,
+              stages=stages, smem_bytes=smem, tiles=kv_tiles)
+    q = dict(grid=(-(-s // own), h, b), threads=FMA_THREADS, own_rows=own, stream_rows=stream, stages=stages,
+             smem_bytes=smem, tiles=key_tiles(own, stream))
+    return dict(fwd=fwd, kv=kv, q=q)
+
+
 def build() -> str:
     """Compile both kernels if needed and load them; returns nvcc's output,
     or "" when they were already built or loaded."""
@@ -141,6 +225,9 @@ def build() -> str:
     lib_tc.flash_attention_tc_smem_bytes.argtypes = [ctypes.c_int]
     lib_tc.flash_attention_tc_smem_bytes.restype = ctypes.c_int
     fns["tc_smem_bytes"] = lib_tc.flash_attention_tc_smem_bytes
+    lib.flash_attention_fma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_fma_smem_bytes.restype = ctypes.c_int
+    fns["fma_smem_bytes"] = lib.flash_attention_fma_smem_bytes
     _fns = fns
     return log + log_tc
 
@@ -161,6 +248,9 @@ def build_bwd() -> str:
     lib.flash_attention_bwd_tc_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_attention_bwd_tc_smem_bytes.restype = ctypes.c_int
     fns["tc_smem_bytes"] = lib.flash_attention_bwd_tc_smem_bytes
+    lib.flash_attention_fma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_fma_smem_bytes.restype = ctypes.c_int
+    fns["fma_smem_bytes"] = lib.flash_attention_fma_smem_bytes
     _bwd_fns = fns
     return log
 
@@ -175,6 +265,15 @@ def bwd_smem_bytes(d: int) -> tuple[int, int]:
     """The built backward's dynamic shared memory at ``d``: (dK/dV pass, dQ pass)."""
     build_bwd()
     return int(_bwd_fns["tc_smem_bytes"](d, 0)), int(_bwd_fns["tc_smem_bytes"](d, 1))
+
+
+def fma_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """The built FMA kernels' dynamic shared memory at ``d`` in ``dtype``:
+    (forward, either backward pass); 0 where the pair is not served."""
+    build()
+    build_bwd()
+    elem = torch.empty((), dtype=dtype).element_size()
+    return int(_fns["fma_smem_bytes"](d, elem)), int(_bwd_fns["fma_smem_bytes"](d, elem))
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -230,8 +329,8 @@ def flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
                 b, s, t, h, hkv, d, int(causal), 1.0 / float(d) ** 0.5, stream_of(q),
             )
-        if err in _TC_ERRORS:
-            raise RuntimeError(f"flash_attention tensor-core kernel: {_TC_ERRORS[err]}")
+        if err in _MAP_ERRORS:
+            raise RuntimeError(f"flash_attention ({kind}) kernel: {_MAP_ERRORS[err]}")
         check_launch(f"flash_attention ({kind})", err)
         flash_attention.launches += 1
         if kind == "tc":
@@ -286,10 +385,12 @@ def flash_attention_bwd(
                 dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, s, t, h, hkv, d, int(causal), 1.0 / float(d) ** 0.5, stream_of(q),
             )
-        if err in _TC_ERRORS:
-            raise RuntimeError(f"flash_attention_bwd tensor-core kernels: {_TC_ERRORS[err]}")
+        if err in _MAP_ERRORS:
+            raise RuntimeError(f"flash_attention_bwd ({kind}) kernels: {_MAP_ERRORS[err]}")
         check_launch(f"flash_attention_bwd ({kind})", err)
         flash_attention_bwd.launches += 1
+        if kind == "fma":
+            flash_attention_bwd.launches_fma += 1
     else:  # no query or no key: nothing is attended, every gradient is 0
         for x in (dq, dk, dv):
             x.zero_()
@@ -297,3 +398,4 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_fma = 0

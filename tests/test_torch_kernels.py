@@ -494,6 +494,13 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (2, 130, 130, 48, 8, 128, False),  # group 6 (nemotron-4-15b's 48 over 8), not causal
     (1, 300, 200, 48, 8, 128, True),   # group 6, S > T: the first 100 rows have no live key
     (1, 1000, 1000, 40, 8, 128, True), # group 5, 8 key tiles: the ring wraps
+    # The FMA kernels' tiles (forward: 128 query rows and 128 keys; backward:
+    # 64 own rows against 128 streamed rows) cut one either side.
+    (1, 127, 129, 4, 2, 64, True),     # S, T one below and one above 128
+    (1, 129, 127, 6, 2, 32, True),     # S > T by 2: two rows with no live key; group 3
+    (2, 255, 257, 8, 8, 112, False),   # one either side of 256, not causal
+    (1, 257, 255, 8, 4, 16, True),     # d 16, S > T, group 2
+    (1, 640, 640, 4, 2, 112, True),    # 5 key tiles: the ring wraps every tile, group 2
 ]
 
 
@@ -553,6 +560,10 @@ FLASH_BWD_CASES = FLASH_CUDA_CASES + [
     (1, 300, 300, 16, 4, 128, True),   # group 4 at d 128
     (1, 260, 260, 24, 4, 128, True),   # group 6 at d 128
     (1, 2048, 2048, 16, 16, 112, True),  # zamba2's d 112 at S = T = 2048
+    (1, 63, 65, 4, 2, 64, True),       # the backward's 64 own rows: S, T one below and above
+    (1, 65, 63, 4, 4, 128, True),      # S > T by 2: two query rows with no live key
+    (2, 191, 193, 12, 2, 32, False),   # group 6 at d 32: 64- and 128-row tiles both cut
+    (2, 2048, 2048, 16, 16, 112, True),  # zamba2's tensor-parallel rank call
 ]
 
 
@@ -617,6 +628,98 @@ def test_flash_bwd_plan_refuses_other_head_dims(d):
 
     with pytest.raises(ValueError, match="head_dim"):
         fa.bwd_plan(1, 64, 64, 2, 1, d)
+
+
+# The FMA kernels' shapes: the fp32 calls that chip_smoke.py times (zamba2's
+# chat, summarize and tensor-parallel rank calls, d 128 and 64 at S = 4096,
+# and GQA), its fp32 VJP_CASES, and every cuda test shape.
+FMA_PLAN_CASES = [
+    (8, 512, 512, 32, 32, 112, True), (2, 4096, 4096, 32, 32, 112, True), (2, 2048, 2048, 16, 16, 112, True),
+    (2, 4096, 4096, 16, 16, 128, True), (2, 4096, 4096, 16, 16, 64, False), (2, 4096, 4096, 16, 8, 128, True),
+    (2, 512, 512, 16, 8, 128, True), (2, 256, 768, 8, 4, 64, False), (1, 300, 300, 8, 2, 112, True),
+    (1, 100, 333, 4, 4, 32, True),
+]
+
+
+def _fma_plan_cases():
+    return FMA_PLAN_CASES + [c for c in FLASH_BWD_CASES if c not in FMA_PLAN_CASES]
+
+
+def _live_mask(s, t, causal):
+    if not causal:
+        return torch.ones(s, t, dtype=torch.bool)
+    return torch.arange(s)[:, None] + t - s >= torch.arange(t)[None, :]
+
+
+def _last_live_tiles(live, rows, keys):
+    """Per ``rows``-row query tile, one past its last ``keys``-key tile with
+    a live pair (0 for none), the longest first."""
+    s, t = live.shape
+    walked = []
+    for qt in range(-(-s // rows)):
+        block = live[qt * rows:(qt + 1) * rows]
+        tiles = [kt for kt in range(-(-t // keys)) if block[:, kt * keys:(kt + 1) * keys].any()]
+        walked.append(max(tiles) + 1 if tiles else 0)
+    assert walked[::-1] == sorted(walked, reverse=True)
+    return walked[::-1]
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal", _fma_plan_cases())
+def test_flash_fma_plan(b, s, t, h, hkv, d, causal):
+    """The FMA kernels' geometry: the forward's grid covers every query row
+    once in 128-row blocks, the dK/dV pass every key once and the dQ pass
+    every query once in 64-row blocks, per head and batch; the streamed
+    tiles each block walks are the live ones of a dense causal mask (the
+    forward: 128-key tiles up to the last live one; the dK/dV pass: the G
+    heads' 128-query tiles with a live pair for the block's keys; the dQ
+    pass: 128-key tiles up to the last live one), in launch order; and every
+    block's shared memory fits the card's 227 KB, at d 128 in fp32 the
+    forward's 4-stage TMA ring, Q tile and transposed P tile and the
+    backward's ring, own tiles and transposed P and dS tiles."""
+    from repro_torch.kernels import flash_attention as fa
+
+    plans = fa.fma_plan(b, s, t, h, hkv, d, causal)
+    fwd, kv, q = plans["fwd"], plans["kv"], plans["q"]
+    assert fwd["threads"] == kv["threads"] == q["threads"] == 256
+    assert (fwd["own_rows"], fwd["stream_rows"], kv["own_rows"], kv["stream_rows"]) == (128, 128, 64, 128)
+    assert min(fwd["stages"], kv["stages"], q["stages"]) >= 2
+    assert fwd["grid"][1:] == (h, b) and kv["grid"][1:] == (hkv, b) and q["grid"][1:] == (h, b)
+    for grid, rows, n in ((fwd["grid"], 128, s), (kv["grid"], 64, t), (q["grid"], 64, s)):
+        covered = [r for tile in range(grid[0]) for r in range(tile * rows, tile * rows + rows) if r < n]
+        assert covered == list(range(n))  # each once, none left out
+    live = _live_mask(s, t, causal)
+    assert fwd["tiles"] == _last_live_tiles(live, 128, 128)
+    assert q["tiles"] == _last_live_tiles(live, 64, 128)
+    walked = []
+    for kt in range(kv["grid"][0]):
+        block = live[:, kt * 64:(kt + 1) * 64]
+        walked.append((h // hkv) * sum(bool(block[qt * 128:(qt + 1) * 128].any()) for qt in range(-(-s // 128))))
+    assert kv["tiles"] == walked
+    assert kv["tiles"] == sorted(kv["tiles"], reverse=True)  # key tile 0, the longest, launches first
+    assert kv["smem_bytes"] == q["smem_bytes"]
+    assert max(fwd["smem_bytes"], kv["smem_bytes"]) <= 232448
+    if d == 128:
+        # fp32: 4 stages of 128 keys x 32, Q 128 x 128, P 128 x (128 + 4); 4 stages of two
+        # 128 x 16 chunks, 2 x 64 x 128 own, 2 x 128 x (64 + 4) P and dS; 4 mbarriers, 1024 to align.
+        assert (fwd["smem_bytes"], kv["smem_bytes"]) == (4 * (4 * 128 * 32 + 128 * 128 + 128 * 132) + 32 + 1024,
+                                                         4 * (4 * 2 * 128 * 16 + 2 * 64 * 128 + 2 * 128 * 68) + 32 + 1024)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fma_plan_smem_at_every_head_dim(d, dtype):
+    """Every (dtype, head_dim) the FMA kernels serve fits one block's 227 KB
+    in the forward and in both backward passes; the pairs they do not serve
+    (bf16 at 64, 112 and 128: the tensor-core kernels') are refused."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if fa.variant(dtype, d) != "fma":
+        with pytest.raises(ValueError, match="FMA kernels"):
+            fa.fma_plan(1, 64, 64, 2, 1, d, dtype=dtype)
+        return
+    plans = fa.fma_plan(1, 64, 64, 2, 1, d, dtype=dtype)
+    assert 0 < plans["fwd"]["smem_bytes"] <= 232448 and 0 < plans["kv"]["smem_bytes"] <= 232448
+    assert plans["fwd"]["smem_bytes"] % 16 == 0 and plans["kv"]["smem_bytes"] % 16 == 0
 
 
 def _flash_grads(q, k, v, do, causal):
@@ -830,6 +933,21 @@ def test_cuda_flash_bwd_smem_matches_plan(d, cuda_attention):
     fa = cuda_attention[0]
     plan = fa.bwd_plan(1, 128, 128, 1, 1, d)
     assert fa.bwd_smem_bytes(d) == (plan["kv"]["smem_bytes"], plan["q"]["smem_bytes"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_fma_smem_matches_plan(d, dtype, cuda_attention):
+    """The built FMA kernels (the forward and the backward's passes) ask for
+    the dynamic shared memory ``fma_plan`` computes, within 227 KB; 0 for
+    the pairs they do not serve."""
+    fa = cuda_attention[0]
+    if fa.variant(dtype, d) != "fma":
+        assert fa.fma_smem_bytes(d, dtype) == (0, 0)
+        return
+    plans = fa.fma_plan(1, 128, 128, 1, 1, d, dtype=dtype)
+    assert fa.fma_smem_bytes(d, dtype) == (plans["fwd"]["smem_bytes"], plans["kv"]["smem_bytes"])
 
 
 def test_build_names_libraries_by_source_headers_and_flags(tmp_path, monkeypatch):

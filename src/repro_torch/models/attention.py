@@ -46,6 +46,7 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import shard_activation
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import Param, apply_rope
+from repro_torch.spans import span
 
 
 def attention_params(cfg: ArchConfig, *, cross: bool = False) -> dict:
@@ -156,20 +157,22 @@ def attention_apply(
     cross-attention to an encoder ``memory`` (no rotary positions, S != T).
     With ``return_kv``, also the (k, v) it attended to: for cross-attention
     the static memory K/V a decoder's cache keeps.  On this rank's "model"
-    blocks of the weights, the split program (module docstring)."""
-    (q, k, v), split = _project_qkv(p, x, x if memory is None else memory, cfg)
-    if use_rope and memory is None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    q = shard_activation(q, ("batch", "seq", "heads", None))
-    k = shard_activation(k, ("batch", "seq", "kv_heads", None))
-    kv = (k, v)
-    out = ops.flash_attention(q, *_attended(q, k, v, cfg, split), causal=causal)
-    b, s = q.shape[:2]
-    y = _out_proj(p, out.reshape(b, s, -1), cfg)
-    if return_kv:
-        return y, tuple(_cache_rows(t, cfg, split[0]) for t in kv)
-    return y
+    blocks of the weights, the split program (module docstring).  Span
+    ``model.attention``."""
+    with span("model.attention"):
+        (q, k, v), split = _project_qkv(p, x, x if memory is None else memory, cfg)
+        if use_rope and memory is None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        q = shard_activation(q, ("batch", "seq", "heads", None))
+        k = shard_activation(k, ("batch", "seq", "kv_heads", None))
+        kv = (k, v)
+        out = ops.flash_attention(q, *_attended(q, k, v, cfg, split), causal=causal)
+        b, s = q.shape[:2]
+        y = _out_proj(p, out.reshape(b, s, -1), cfg)
+        if return_kv:
+            return y, tuple(_cache_rows(t, cfg, split[0]) for t in kv)
+        return y
 
 
 def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:

@@ -43,6 +43,7 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.spans import span
 
 Tensor = torch.Tensor
 
@@ -457,11 +458,13 @@ def dense(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
 
 
 def rms_norm(x: Tensor, gamma: Tensor, eps: float = 1e-5) -> Tensor:
-    """RMSNorm in fp32 accumulation, cast back to input dtype."""
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
-    return out.to(x.dtype)
+    """RMSNorm in fp32 accumulation, cast back to input dtype (span
+    ``model.norm``)."""
+    with span("model.norm"):
+        xf = x.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
+        return out.to(x.dtype)
 
 
 def split_rms_norm(x: Tensor, gamma: Tensor, eps: float, axis: "tp.ModelAxis | None") -> Tensor:
@@ -471,10 +474,11 @@ def split_rms_norm(x: Tensor, gamma: Tensor, eps: float, axis: "tp.ModelAxis | N
     Whole when ``axis`` is None."""
     if axis is None:
         return rms_norm(x, gamma, eps)
-    xf = x.to(torch.float32)
-    var = tp.sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True), axis) / (x.shape[-1] * axis.size)
-    out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
-    return out.to(x.dtype)
+    with span("model.norm"):
+        xf = x.to(torch.float32)
+        var = tp.sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True), axis) / (x.shape[-1] * axis.size)
+        out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
+        return out.to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> Tensor:
@@ -484,20 +488,21 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> Tensor:
 
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
-    """Rotary position embedding.
+    """Rotary position embedding (span ``model.rope``).
 
     Args:
       x: (..., S, H, head_dim)
       positions: (..., S) integer positions (broadcastable to x[..., :, 0, 0]).
     """
-    head_dim = x.shape[-1]
-    freqs = rope_frequencies(head_dim, theta, device=x.device)  # (hd/2,)
-    angles = positions[..., None].to(torch.float32) * freqs       # (..., S, hd/2)
-    angles = angles[..., None, :]                                # broadcast over heads
-    sin, cos = torch.sin(angles), torch.cos(angles)
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    with span("model.rope"):
+        head_dim = x.shape[-1]
+        freqs = rope_frequencies(head_dim, theta, device=x.device)  # (hd/2,)
+        angles = positions[..., None].to(torch.float32) * freqs       # (..., S, hd/2)
+        angles = angles[..., None, :]                                # broadcast over heads
+        sin, cos = torch.sin(angles), torch.cos(angles)
+        x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        return out.to(x.dtype)
 
 
 def softcap(logits: Tensor, cap: float) -> Tensor:

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.common import Param
+from repro_torch.spans import span
 
 
 def mlp_params(cfg: ArchConfig, d_ff: int | None = None) -> dict:
@@ -38,14 +39,16 @@ def mlp_params(cfg: ArchConfig, d_ff: int | None = None) -> dict:
 def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig, d_ff: int | None = None) -> torch.Tensor:
     """Apply the MLP block matching the ``mlp_params(cfg, d_ff)`` layout;
     x (B, S, d).  Weights narrower than ``d_ff`` are this rank's "model"
-    blocks: the hidden width is split and the output summed over "model"."""
-    axis = tp.split_of(p["w_down"].shape[0], d_ff if d_ff is not None else cfg.d_ff)
-    if axis is not None:
-        x = tp.copy_to_model(x, axis)
-    if "w_gate" in p:
-        h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    else:
-        r = torch.relu(x @ p["w_up"])
-        h = r * r  # squared ReLU (nemotron-4)
-    y = h @ p["w_down"]
-    return y if axis is None else tp.reduce_from_model(y, axis)
+    blocks: the hidden width is split and the output summed over "model".
+    Span ``model.mlp``."""
+    with span("model.mlp"):
+        axis = tp.split_of(p["w_down"].shape[0], d_ff if d_ff is not None else cfg.d_ff)
+        if axis is not None:
+            x = tp.copy_to_model(x, axis)
+        if "w_gate" in p:
+            h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        else:
+            r = torch.relu(x @ p["w_up"])
+            h = r * r  # squared ReLU (nemotron-4)
+        y = h @ p["w_down"]
+        return y if axis is None else tp.reduce_from_model(y, axis)

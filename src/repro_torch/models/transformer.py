@@ -47,6 +47,7 @@ from repro_torch.models.common import Param, embed_rows, maybe_remat, rms_norm, 
 from repro_torch.models.mlp import mlp_apply, mlp_params
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.ssm import mamba_apply, mamba_decode, mamba_params
+from repro_torch.spans import span
 
 Tensor = torch.Tensor
 
@@ -130,11 +131,12 @@ def embed_tokens(params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
 def lm_logits(params, h: Tensor, cfg: ArchConfig) -> Tensor:
     """Final norm + (tied) unembedding + logit softcap.  On this rank's
     vocabulary block of the unembedding (or of the tied table), the logits
-    are its block too (``common.vocab_logits``)."""
-    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
-    w = params["unembed"] if "unembed" in params else params["embed"].T
-    logits = vocab_logits(h, w.to(h.dtype), cfg.padded_vocab)
-    return shard_activation(softcap(logits, cfg.logit_softcap), ("batch", "seq", "vocab"))
+    are its block too (``common.vocab_logits``).  Span ``model.unembed``."""
+    with span("model.unembed"):
+        h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+        w = params["unembed"] if "unembed" in params else params["embed"].T
+        logits = vocab_logits(h, w.to(h.dtype), cfg.padded_vocab)
+        return shard_activation(softcap(logits, cfg.logit_softcap), ("batch", "seq", "vocab"))
 
 
 def project_frontend(params, embeds: Tensor, cfg: ArchConfig) -> Tensor:
@@ -144,10 +146,11 @@ def project_frontend(params, embeds: Tensor, cfg: ArchConfig) -> Tensor:
 
 
 def _embed_inputs(params, tokens: Tensor, cfg: ArchConfig, prefix_embeds: Tensor | None) -> Tensor:
-    h = embed_tokens(params, tokens, cfg)
-    if prefix_embeds is not None:
-        h = torch.cat([project_frontend(params, prefix_embeds, cfg), h], dim=1)
-    return h
+    with span("model.embed"):
+        h = embed_tokens(params, tokens, cfg)
+        if prefix_embeds is not None:
+            h = torch.cat([project_frontend(params, prefix_embeds, cfg), h], dim=1)
+        return h
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +249,12 @@ def decoder_prefill(params, tokens: Tensor, cfg: ArchConfig, *, prefix_embeds: T
         h, (k, v) = _dense_block_prefill(layer, h, positions, cfg, moe=moe)
         ks.append(k)
         vs.append(v)
-    if cfg.kv_cache_dtype == "int8":
-        (cache["k"], cache["k_scale"]), (cache["v"], cache["v_scale"]) = (
-            ref.quantize_kv(torch.stack(ks)), ref.quantize_kv(torch.stack(vs)))
-    else:
-        cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
+    with span("model.cache"):
+        if cfg.kv_cache_dtype == "int8":
+            (cache["k"], cache["k_scale"]), (cache["v"], cache["v_scale"]) = (
+                ref.quantize_kv(torch.stack(ks)), ref.quantize_kv(torch.stack(vs)))
+        else:
+            cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
     return lm_logits(params, h[:, -1:], cfg), cache
 
 

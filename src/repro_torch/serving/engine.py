@@ -6,8 +6,12 @@ device plus the prefill and decode steps for a (batch, seq) bucket.  PyTorch
 runs eagerly, so there is nothing to compile; the cold start (``warmup``)
 is the first prefill, which loads the kernels and the library handles.
 Every timed call ends in ``torch.cuda.synchronize`` on the card where the
-reference ends in ``block_until_ready``.  The reference donates the cache
-to its decode step; here the decode step writes the cache in place.
+reference ends in ``block_until_ready``.  Each call's model work and
+synchronise run in a host span (``spans.span``) named after the call
+(``serve.prefill``, ``serve.decode``, ``serve.generate``,
+``serve.warmup``), the synchronise in ``serve.sync``.  The reference
+donates the cache to its decode step; here the decode step writes the
+cache in place.
 
 A VLM request's first decode step writes after its patch embeddings and
 its tokens (``model_zoo.prompt_length``).  The reference's ``generate``
@@ -26,6 +30,7 @@ import torch
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.models.model_zoo import ModelApi, extend_cache, prompt_length
 from repro_torch.serving.kv_cache import init_cache
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -55,21 +60,24 @@ class ServeEngine:
         self.cold = True
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("serve.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
     def warmup(self, batch: dict) -> None:
         """Cold start: the first prefill (kernel and library loading)."""
-        self.api.prefill(self.params, batch)
-        self._sync()
+        with span("serve.warmup"):
+            self.api.prefill(self.params, batch)
+            self._sync()
         self.cold = False
 
     @torch.no_grad()
     def prefill(self, batch: dict, *, t0: float | None = None):
         start = self.clock() if t0 is None else t0
-        logits, cache = self.api.prefill(self.params, batch)
-        self._sync()
+        with span("serve.prefill"):
+            logits, cache = self.api.prefill(self.params, batch)
+            self._sync()
         end = self.clock()
         self.records.append(InvocationRecord("prefill", start, end, "prefill", batch["tokens"].numel()))
         return logits, cache
@@ -83,16 +91,17 @@ class ServeEngine:
         reference's, it takes the argmax whatever ``greedy`` says (the
         reference has no sampling path)."""
         start = self.clock()
-        logits, cache = self.api.prefill(self.params, batch)
-        cache = extend_cache(self.api, cache, steps)
-        b = logits.shape[0]
-        pos0 = prompt_length(batch)
-        toks = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)]
-        for i in range(steps - 1):
-            logits, cache = self.api.decode(self.params, cache, toks[-1][:, None], pos0 + i)
-            toks.append(torch.argmax(logits[:, -1], dim=-1).to(torch.int32))
-        out = torch.stack(toks, dim=1)
-        self._sync()
+        with span("serve.generate"):
+            logits, cache = self.api.prefill(self.params, batch)
+            cache = extend_cache(self.api, cache, steps)
+            b = logits.shape[0]
+            pos0 = prompt_length(batch)
+            toks = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)]
+            for i in range(steps - 1):
+                logits, cache = self.api.decode(self.params, cache, toks[-1][:, None], pos0 + i)
+                toks.append(torch.argmax(logits[:, -1], dim=-1).to(torch.int32))
+            out = torch.stack(toks, dim=1)
+            self._sync()
         end = self.clock()
         self.records.append(InvocationRecord("generate", start, end, "generate", int(b * steps)))
         return out
@@ -100,8 +109,9 @@ class ServeEngine:
     @torch.no_grad()
     def decode_step(self, cache, token, pos: int):
         start = self.clock()
-        logits, cache = self.api.decode(self.params, cache, token, pos)
-        self._sync()
+        with span("serve.decode"):
+            logits, cache = self.api.decode(self.params, cache, token, pos)
+            self._sync()
         end = self.clock()
         self.records.append(InvocationRecord("decode", start, end, "decode", logits.shape[0]))
         return logits, cache

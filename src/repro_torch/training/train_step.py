@@ -7,7 +7,9 @@ masters are read through ``models.common.ComputeView`` (each weight cast to
 the compute dtype where it is used, as the reference casts at every use),
 the gradients come from ``torch.autograd.grad`` in fp32 on the masters, and
 ``optimizer.update`` writes the new parameters and moments into the
-state's own tensors.
+state's own tensors.  The three phases run in host spans (``spans.span``):
+``train.forward``, ``train.backward`` (with any recomputation) and
+``train.optimizer`` (clipping and AdamW).
 
 **Placement.**  ``state_logical``, ``state_shardings`` and
 ``batch_shardings`` resolve the reference's logical-axis rules over the
@@ -69,6 +71,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.model_zoo import ModelApi, TensorSpec
 from repro_torch.models.transformer import compute_dtype
+from repro_torch.spans import span
 from repro_torch.training import optimizer as opt
 
 
@@ -185,11 +188,13 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
             params = shd.local_view(params, logical, mesh, ep=ep and shd._active() is not None,
                                     split=split if tp_split else None)
         tree = cast_masters(params, cdt) if cast_params else params
-        loss, metrics = api.loss(ComputeView(tree, cdt), batch)
+        with span("train.forward"):
+            loss, metrics = api.loss(ComputeView(tree, cdt), batch)
         if mesh is not None:  # this rank's share of the global mean
             tokens = metrics["tokens"].detach()
             loss = loss * (tokens / _token_sum(tokens, mesh))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         loss = loss.detach() if mesh is None else _token_sum(loss.detach(), mesh)
         return loss, {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -215,7 +220,8 @@ def make_train_step(api: ModelApi, config: opt.OptimizerConfig, *, accum_steps: 
         it = iter(grads)
         grad_tree = map_tree(lambda _: next(it), state.params)
         del grads
-        params, new_opt, stats = opt.update(grad_tree, state.opt, state.params, config)
+        with span("train.optimizer"):
+            params, new_opt, stats = opt.update(grad_tree, state.opt, state.params, config)
         return TrainState(params=params, opt=new_opt), {**metrics, **stats, "loss": loss}
 
     return train_step
